@@ -1,0 +1,86 @@
+"""Backend: ILD / IPD GRU encoders, body MLP and the per-sector sub-heads.
+
+Counterpart of ``biear_tpu/models/backend.py`` in eval mode. Module and
+index names follow the reference checkpoints (``body.{0,3,6}``,
+``subheads.{k}.shared.0``, ``subheads.{k}.sound.{0,2,4}``, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import GRU
+
+
+def _finite(x: torch.Tensor) -> torch.Tensor:
+    return torch.nan_to_num(x, nan=0.0, posinf=0.0, neginf=0.0)
+
+
+class Encoder(nn.Module):
+    """LayerNorm -> GRU(in -> hidden) -> GRU(hidden -> latent) -> time mean."""
+
+    def __init__(self, input_dim: int, hidden_dim: int = 200,
+                 latent_dim: int = 100):
+        super().__init__()
+        self.in_norm = nn.LayerNorm(input_dim)
+        self.gru1 = GRU(input_dim, hidden_dim)
+        self.gru2 = GRU(hidden_dim, latent_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h1, _ = self.gru1(self.in_norm(x))
+        h2, _ = self.gru2(h1)
+        return _finite(h2.mean(dim=1))
+
+
+def ild_features(xL: torch.Tensor, xR: torch.Tensor) -> torch.Tensor:
+    """ILD = clamp(nan_to_num(xL - xR), +-10)."""
+    return torch.clamp(_finite(xL - xR), -10.0, 10.0)
+
+
+def ipd_features(xL: torch.Tensor, xR: torch.Tensor) -> torch.Tensor:
+    """IPD = atan2(sin d, cos d) of d = xL - xR, then nan_to_num."""
+    d = xL - xR
+    return _finite(torch.atan2(torch.sin(d), torch.cos(d)))
+
+
+def make_body(feat_dim: int, rate: float) -> nn.Sequential:
+    """Linear 512 -> 400 -> 200, each followed by ReLU and Dropout."""
+    return nn.Sequential(
+        nn.Linear(feat_dim, 512), nn.ReLU(), nn.Dropout(rate),
+        nn.Linear(512, 400), nn.ReLU(), nn.Dropout(rate),
+        nn.Linear(400, 200), nn.ReLU(), nn.Dropout(rate))
+
+
+def _branch(out_dim: int) -> nn.Sequential:
+    return nn.Sequential(nn.Linear(100, 50), nn.ReLU(), nn.Linear(50, 10),
+                         nn.ReLU(), nn.Linear(10, out_dim))
+
+
+class SubHead(nn.Module):
+    """One sector: shared Linear(200 -> 100) + ReLU + Dropout, then the
+    sound, AoA and distance branches."""
+
+    def __init__(self, body_dim: int = 200, n_dist_class: int = 5,
+                 rate: float = 0.2):
+        super().__init__()
+        self.shared = nn.Sequential(nn.Linear(body_dim, 100), nn.ReLU(),
+                                    nn.Dropout(rate))
+        self.sound = _branch(1)
+        self.aoa = _branch(1)
+        self.dist = _branch(n_dist_class)
+
+    def forward(self, x: torch.Tensor):
+        h = self.shared(x)
+        return (self.sound(h)[..., 0], torch.sigmoid(self.aoa(h))[..., 0],
+                self.dist(h))
+
+
+class SubHeads(nn.ModuleList):
+    """The sector heads: (B, 200) -> sound logits (B, S), AoA in [0, 1]
+    (B, S), distance logits (B, S, C)."""
+
+    def forward(self, x: torch.Tensor):
+        sound, aoa, dist = zip(*(head(x) for head in self))
+        return (torch.stack(sound, dim=-1), torch.stack(aoa, dim=-1),
+                torch.stack(dist, dim=1))

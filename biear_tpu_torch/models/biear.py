@@ -1,0 +1,85 @@
+"""The flagship active waveform model (dual Q-controllers), eval forward.
+
+Counterpart of ``biear_tpu/models/biear.py::active_forward`` with
+``train=False``. Parameter names are those of the reference checkpoints,
+so a state dict from ``models.weights.state_dict_from_jax`` or a
+reference-format ``.pth`` loads with ``strict=True``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..device import no_tf32, resolve_device
+from .backend import (Encoder, SubHead, SubHeads, ild_features, ipd_features,
+                      make_body)
+from .config import BiEARConfig
+from .frontend import DualFrontend
+from .layers import init_module_
+
+
+class ActiveBiEAR(nn.Module):
+    """Waveforms (B, Nsamp) x2 and the CC feature x3 (B, N) ->
+    (sound_logits (B, S), aoa (B, S), dist_logits (B, S, C), aux with Q).
+
+    Only the dual-controller and fixed-Q frontends are ported; the
+    training forward (dropout) comes with the training slice."""
+
+    def __init__(self, cfg: BiEARConfig):
+        super().__init__()
+        if cfg.controller_mode != "dual":
+            raise NotImplementedError(
+                f"controller_mode={cfg.controller_mode!r}: only the dual "
+                "frontend is ported")
+        self.cfg = cfg
+        self.bifb = DualFrontend(cfg)
+        self.encoder_ild = Encoder(cfg.n_bands, 200, cfg.latent_dim)
+        self.encoder_ipd = Encoder(cfg.n_bands, 200, cfg.latent_dim)
+        feat_dim = 2 * cfg.latent_dim
+        if cfg.use_cc:
+            self.cc_proj = nn.Linear(cfg.n_bands, cfg.latent_dim)
+            feat_dim += cfg.latent_dim
+        self.body = make_body(feat_dim, cfg.backend_dropout)
+        self.subheads = SubHeads(
+            SubHead(200, cfg.n_dist_class, cfg.backend_dropout)
+            for _ in range(cfg.n_sectors))
+        self.eval()
+
+    def init_weights_(self, seed: int) -> "ActiveBiEAR":
+        """Seeded init from a CPU ``torch.Generator``: torch's defaults,
+        with each controller's output layer at zero (Q starts at Q0)."""
+        gen = torch.Generator().manual_seed(seed)
+        init_module_(self, gen)
+        if not self.cfg.fixed_frontend_q:
+            with torch.no_grad():
+                for ctrl in (self.bifb.fb_L, self.bifb.fb_R):
+                    ctrl.q_out[8].weight.zero_()
+                    ctrl.q_out[8].bias.zero_()
+        return self
+
+    def forward(self, wavL: torch.Tensor, wavR: torch.Tensor,
+                x3: torch.Tensor | None = None):
+        if self.training:
+            raise NotImplementedError("the training forward is not ported; "
+                                      "call .eval()")
+        cfg = self.cfg
+        with no_tf32():
+            wavL, wavR = wavL.float(), wavR.float()
+            YL, YR, QL, QR, phL, phR = self.bifb(wavL, wavR)
+            x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
+            x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
+            feats = [self.encoder_ild(ild_features(x1, x2)),
+                     self.encoder_ipd(ipd_features(phL, phR))]
+            if cfg.use_cc:
+                if x3 is None:
+                    x3 = wavL.new_zeros((wavL.shape[0], cfg.n_bands))
+                feats.append(self.cc_proj(x3))
+            sound, aoa, dist = self.subheads(self.body(torch.cat(feats, -1)))
+        return sound, aoa, dist, {"QL": QL, "QR": QR, "Q": 0.5 * (QL + QR)}
+
+
+def build_active(cfg: BiEARConfig, seed: int = 0, device=None) -> ActiveBiEAR:
+    """A seeded ActiveBiEAR on `device` (the card unless device='cpu')."""
+    device = resolve_device(device)
+    return ActiveBiEAR(cfg).init_weights_(seed).to(device)

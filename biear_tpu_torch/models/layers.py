@@ -1,0 +1,57 @@
+"""Layers of the port, in PyTorch's own modules.
+
+Counterpart of ``biear_tpu/models/layers.py``. The JAX layers keep torch's
+weight layout (Linear (out, in); GRU gates r, z, n stacked in (3H, .)), so
+``nn.Linear``, ``nn.LayerNorm`` (eps 1e-5), ``nn.SiLU`` and ``nn.GRU`` are
+the same functions with the same parameter names. ``GRU`` adds a one-step
+call for the Q-controller, whose input depends on the carried state.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+class GRU(nn.GRU):
+    """Single-layer batch-first GRU (gate order r, z, n) with a step call.
+
+    Its parameters are torch's ``weight_ih_l0``, ``weight_hh_l0``,
+    ``bias_ih_l0`` and ``bias_hh_l0``, the names of the reference
+    checkpoints."""
+
+    def __init__(self, input_size: int, hidden_size: int):
+        super().__init__(input_size, hidden_size, batch_first=True)
+
+    def step(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """One GRU step: x (B, I), h (B, H) -> h' (B, H)."""
+        return torch.gru_cell(x, h, self.weight_ih_l0, self.weight_hh_l0,
+                              self.bias_ih_l0, self.bias_hh_l0)
+
+
+def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator) -> None:
+    """In-place U(-bound, bound) from an explicit generator."""
+    with torch.no_grad():
+        t.copy_(torch.rand(t.shape, generator=gen, dtype=t.dtype,
+                           device=gen.device) * (2 * bound) - bound)
+
+
+def init_module_(module: nn.Module, gen: torch.Generator) -> None:
+    """torch's default initialisers, drawn from `gen`: Linear weight and
+    bias ~ U(+-1/sqrt(fan_in)), GRU ~ U(+-1/sqrt(hidden)), LayerNorm
+    ones/zeros. Modules are visited in registration order."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            bound = 1.0 / math.sqrt(m.in_features)
+            uniform_(m.weight, bound, gen)
+            uniform_(m.bias, bound, gen)
+        elif isinstance(m, nn.GRU):
+            bound = 1.0 / math.sqrt(m.hidden_size)
+            for p in m.parameters(recurse=False):
+                uniform_(p, bound, gen)
+        elif isinstance(m, nn.LayerNorm):
+            with torch.no_grad():
+                m.weight.fill_(1.0)
+                m.bias.zero_()

@@ -1,0 +1,80 @@
+"""Weights across the two packages.
+
+``state_dict_from_jax`` turns the JAX package's parameter pytree, given as
+numpy arrays (``jax.tree.map(np.asarray, params)``), into this package's
+state dict. The names are those of the reference checkpoints, the same
+that ``biear_tpu/train/state.py::to_torch_state_dict`` writes; the
+ear-stacked ``bifb.fb`` leaves (axis 0: fb_L, fb_R) and the head-stacked
+``subheads`` leaves (axis 0: sector) are split here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .config import BiEARConfig
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _lin(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(p["w"])
+    sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _ln(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = _t(p["g"])
+    sd[f"{prefix}.bias"] = _t(p["b"])
+
+
+def _gru(sd: dict, prefix: str, p: dict) -> None:
+    for ours, theirs in (("w_ih", "weight_ih_l0"), ("w_hh", "weight_hh_l0"),
+                         ("b_ih", "bias_ih_l0"), ("b_hh", "bias_hh_l0")):
+        sd[f"{prefix}.{theirs}"] = _t(p[ours])
+
+
+def _take(tree, i: int):
+    """Index `i` of the leading axis of every leaf of a dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: _take(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_take(v, i) for v in tree]
+    return np.asarray(tree)[i]
+
+
+def _controller(sd: dict, prefix: str, p: dict) -> None:
+    _gru(sd, f"{prefix}.q_rnn", p["q_rnn"])
+    q = p["q_out"]
+    _lin(sd, f"{prefix}.q_out.0", q["l1"])
+    _ln(sd, f"{prefix}.q_out.1", q["ln1"])
+    _lin(sd, f"{prefix}.q_out.4", q["l2"])
+    _ln(sd, f"{prefix}.q_out.5", q["ln2"])
+    _lin(sd, f"{prefix}.q_out.8", q["l3"])
+
+
+def state_dict_from_jax(params_np: dict, cfg: BiEARConfig) -> dict:
+    """JAX active-model params (numpy leaves) -> this package's state dict."""
+    sd: dict = {}
+    for enc in ("encoder_ild", "encoder_ipd"):
+        _ln(sd, f"{enc}.in_norm", params_np[enc]["in_norm"])
+        _gru(sd, f"{enc}.gru1", params_np[enc]["gru1"])
+        _gru(sd, f"{enc}.gru2", params_np[enc]["gru2"])
+    if cfg.use_cc:
+        _lin(sd, "cc_proj", params_np["cc_proj"])
+    for i, k in zip((0, 3, 6), ("l1", "l2", "l3")):
+        _lin(sd, f"body.{i}", params_np["body"][k])
+    sh = params_np["subheads"]
+    for k in range(np.asarray(sh["shared"]["w"]).shape[0]):
+        head = _take(sh, k)
+        _lin(sd, f"subheads.{k}.shared.0", head["shared"])
+        for branch in ("sound", "aoa", "dist"):
+            for j, i in enumerate((0, 2, 4)):
+                _lin(sd, f"subheads.{k}.{branch}.{i}", head[branch][j])
+    bifb = params_np.get("bifb") or {}
+    if "fb" in bifb:
+        for e, ear in enumerate(("fb_L", "fb_R")):
+            _controller(sd, f"bifb.{ear}", _take(bifb["fb"], e))
+    return sd

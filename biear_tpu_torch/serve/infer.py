@@ -1,0 +1,207 @@
+#!/usr/bin/env python
+"""Inference: stereo waveforms in, per-sector localisation out.
+
+Counterpart of ``tools/infer.py``. ``predict`` is its composition:
+sanitize the waveforms, compute the CC feature (the CUDA lag kernel on the
+card), sanitize it, run the model's eval forward, then a sigmoid on the
+presence logits and a softmax on the distance logits.
+
+Command line (a reference-format ``.pth`` with its ``meta/settings.json``
+in the same directory or up to two levels above):
+
+    python -m biear_tpu_torch.serve.infer --checkpoint run/best.pth a.wav b.wav
+
+It runs on the card unless ``--device cpu`` is given. Orbax checkpoints of
+the JAX runner are not read yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from ..models.biear import ActiveBiEAR
+from ..models.config import BiEARConfig
+from ..ops.xcorr import cross_correlation_feature
+from ..train.losses import sanitize_wav, sanitize_x3
+
+DIST_NAMES = ["none", "0.5m", "1m", "2m", "3m"]
+
+
+@torch.inference_mode()
+def predict(model: ActiveBiEAR, wavL, wavR):
+    """(B, Nsamp) x2 (numpy or tensors) -> (presence probabilities (B, S),
+    AoA in [0, 1] (B, S), distance probabilities (B, S, C)), on the
+    model's device."""
+    device = next(model.parameters()).device
+    wavL = torch.as_tensor(wavL, device=device)
+    wavR = torch.as_tensor(wavR, device=device)
+    cfg = model.cfg
+    wavL, wavR = sanitize_wav(wavL, wavR)
+    x3 = sanitize_x3(cross_correlation_feature(wavL, wavR, cfg.fs,
+                                               num_lags=cfg.n_bands))
+    sound, aoa, dist, _ = model(wavL, wavR, x3)
+    return torch.sigmoid(sound), aoa, torch.softmax(dist, dim=-1)
+
+
+# ---------------- checkpoint and settings ----------------
+
+def load_settings_near_checkpoint(ckpt_path: str) -> dict | None:
+    """meta/settings.json beside the checkpoint or up to two levels up."""
+    d = os.path.dirname(os.path.abspath(ckpt_path))
+    for parent in (d, os.path.dirname(d), os.path.dirname(os.path.dirname(d))):
+        p = os.path.join(parent, "meta", "settings.json")
+        if os.path.exists(p):
+            with open(p) as f:
+                return json.load(f)
+    return None
+
+
+def _choice(v, key: str, allowed) -> str:
+    s = str(v).lower()
+    if s not in allowed:
+        raise ValueError(f"{key} must be one of {allowed}, got {v!r}")
+    return s
+
+
+def config_from_settings(s: dict) -> BiEARConfig:
+    """Model config from a settings.json dict, with the evaluator's
+    defaults (the model part of ``biear_tpu/config.py::config_from_settings``).
+    A settings file without DFT_MODE predates that key and trained on the
+    rFFT spectra, so it is read as "fft"."""
+    g = s.get("GEOMETRY", {})
+    return BiEARConfig(
+        use_cc=bool(s.get("USE_CC", True)),
+        fixed_frontend_q=bool(s.get("FIXED_FRONTEND_Q", False)),
+        controller_mode=str(s.get("Controller_Mode", "dual")).lower(),
+        alpha=float(s.get("ALPHA", 0)),
+        deltaQ_base=float(s.get("DELTAQ_BASE", 1.0)),
+        deltaQ_low_factor=float(s.get("DELTAQ_LOW_FACTOR", 0.3)),
+        deltaQ_high_factor=float(s.get("DELTAQ_HIGH_FACTOR", 5.0)),
+        deltaQ_mode=str(s.get("DELTAQ_MODE", "relative")),
+        fs=int(g.get("FS", 16000)),
+        timesteps=int(g.get("TIMESTEPS", 19)),
+        n_fft=int(g.get("N_FFT", 1024)),
+        n_bands=int(g.get("N_BANDS", 100)),
+        fmin=float(g.get("FMIN", 50.0)),
+        fmax=g.get("FMAX", None),
+        hop_ratio=float(g.get("HOP_RATIO", 1.0)),
+        latent_dim=int(g.get("LATENT_DIM", 100)),
+        d_model=int(g.get("D_MODEL", 128)),
+        fb_w_dtype=_choice(g.get("FB_W_DTYPE", "float32"), "FB_W_DTYPE",
+                           ("float32", "bfloat16")),
+        fb_vjp=_choice(g.get("FB_VJP", "auto"), "FB_VJP",
+                       ("auto", "custom", "autodiff")),
+        fb_x_grad=bool(g.get("FB_X_GRAD", False)),
+        dft_mode=_choice(g.get("DFT_MODE", "fft"), "DFT_MODE",
+                         ("auto", "fft", "matmul")),
+    )
+
+
+def load_state_dict(path: str) -> dict:
+    """A reference-format .pth, unwrapped from {"state_dict"} / {"model"}."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    if isinstance(obj, dict) and "model" in obj and not hasattr(obj["model"],
+                                                                "shape"):
+        obj = obj["model"]
+    return obj
+
+
+def load_model(pth: str, cfg: BiEARConfig, device=None) -> ActiveBiEAR:
+    """ActiveBiEAR with the .pth weights on `device` (the card by default).
+
+    Every parameter of the model must be in the file; entries the model
+    does not have (the reference model's constant buffers) are ignored."""
+    device = resolve_device(device)
+    model = ActiveBiEAR(cfg)
+    sd = load_state_dict(pth)
+    own = model.state_dict()
+    model.load_state_dict({k: v for k, v in sd.items() if k in own},
+                          strict=True)
+    return model.to(device)
+
+
+def read_stereo_wav(path: str, fs: int):
+    """(left, right) float32 at fs, exactly fs samples each."""
+    from scipy.io import wavfile
+    from scipy.signal import resample_poly
+
+    rate, data = wavfile.read(path)
+    if data.ndim == 1:
+        raise ValueError(f"{path}: mono wav; the model is binaural")
+    if np.issubdtype(data.dtype, np.integer):
+        data = data.astype(np.float32) / 32768.0
+    else:
+        data = data.astype(np.float32)
+    if rate != fs:
+        data = resample_poly(data, fs, rate, axis=0).astype(np.float32)
+    out = np.zeros((fs, 2), np.float32)
+    n = min(fs, data.shape[0])
+    out[:n] = data[:n, :2]
+    return out[:, 0], out[:, 1]
+
+
+def records(paths, probs, aoa, distp, threshold: float):
+    """One JSON-ready record per file, the fields of tools/infer.py."""
+    for i, path in enumerate(paths):
+        sectors = []
+        for sct in range(probs.shape[1]):
+            sectors.append({
+                "sector": sct,
+                "present": round(float(probs[i, sct]), 4),
+                "aoa_deg": round(45.0 * sct + 45.0 * float(aoa[i, sct]), 2),
+                "distance": DIST_NAMES[int(distp[i, sct].argmax())],
+                "dist_probs": [round(float(x), 4) for x in distp[i, sct]],
+            })
+        detected = [s for s in sectors if s["present"] >= threshold]
+        yield {"file": path, "n_detected": len(detected),
+               "detected": [{k: s[k] for k in
+                             ("sector", "present", "aoa_deg", "distance")}
+                            for s in detected],
+               "sectors": sectors}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--checkpoint", required=True,
+                    help="reference-format .pth beside meta/settings.json")
+    ap.add_argument("wavs", nargs="+", help="stereo wav files")
+    ap.add_argument("--threshold", type=float, default=0.5)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default: the CUDA card")
+    ap.add_argument("--out", default=None, help="write JSONL here")
+    args = ap.parse_args(argv)
+
+    settings = load_settings_near_checkpoint(args.checkpoint)
+    if settings is None:
+        raise SystemExit("no meta/settings.json found near the checkpoint")
+    if not bool(settings.get("Active", True)) or str(
+            settings.get("MODEL_KIND", "active")) != "active":
+        raise SystemExit("only the active waveform model is served")
+    cfg = config_from_settings(settings)
+    model = load_model(args.checkpoint, cfg, args.device)
+
+    pairs = [read_stereo_wav(p, cfg.fs) for p in args.wavs]
+    wavL = np.stack([p[0] for p in pairs])
+    wavR = np.stack([p[1] for p in pairs])
+    probs, aoa, distp = (a.cpu().numpy() for a in predict(model, wavL, wavR))
+
+    sink = open(args.out, "w") if args.out else sys.stdout
+    try:
+        for rec in records(args.wavs, probs, aoa, distp, args.threshold):
+            sink.write(json.dumps(rec) + "\n")
+    finally:
+        if args.out:
+            sink.close()
+
+
+if __name__ == "__main__":
+    main()

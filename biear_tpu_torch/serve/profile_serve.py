@@ -1,0 +1,161 @@
+#!/usr/bin/env python3
+"""Where the serving time goes on the card: per-stage times and a kernel
+breakdown of ``serve.infer.predict`` for the flagship model.
+
+    python -m biear_tpu_torch.serve.profile_serve [--batch 512] [--out f.json]
+
+Stages are timed with CUDA events (median of repeated runs): the CC
+feature (sanitize + correlation + resample), the frame spectra of both
+ears, the whole dual frontend (spectra included, 19 frames of filterbank
+and controllers), the backend (encoders, body, heads) and the whole
+``predict``. Then ``torch.profiler`` traces a few ``predict`` calls: the
+device time summed by kernel name, and the device's idle share of the
+traced wall time. Seeded random weights; needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..device import no_tf32
+from ..models import BiEARConfig, build_active
+from ..models.backend import ild_features, ipd_features
+from ..models.frontend import device_constants, spectra
+from ..ops.xcorr import cross_correlation_feature
+from ..train.losses import sanitize_wav, sanitize_x3
+from .infer import predict
+
+FLAGSHIP = dict(controller_mode="dual", deltaQ_mode="relative",
+                deltaQ_base=1.0, deltaQ_low_factor=0.3, deltaQ_high_factor=5.0)
+
+
+def cuda_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of one call, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, reps: int = 10) -> list:
+    """Host-clock times of `reps` synchronised calls, in ms."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def stage_times(model, wavL, wavR) -> dict:
+    cfg = model.cfg
+    c = device_constants(cfg, wavL.device)
+    with torch.inference_mode(), no_tf32():
+        wl, wr = sanitize_wav(wavL, wavR)
+        fe = model.bifb(wl, wr)
+        x3 = sanitize_x3(cross_correlation_feature(wl, wr, cfg.fs,
+                                                   num_lags=cfg.n_bands))
+
+        def backend():
+            YL, YR, _, _, phL, phR = fe
+            x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
+            x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
+            feats = [model.encoder_ild(ild_features(x1, x2)),
+                     model.encoder_ipd(ipd_features(phL, phR)),
+                     model.cc_proj(x3)]
+            return model.subheads(model.body(torch.cat(feats, -1)))
+
+        return {
+            "cc_feature_ms": cuda_ms(lambda: sanitize_x3(
+                cross_correlation_feature(wl, wr, cfg.fs,
+                                          num_lags=cfg.n_bands))),
+            "spectra_both_ears_ms": cuda_ms(
+                lambda: (spectra(cfg, wl, c), spectra(cfg, wr, c))),
+            "dual_frontend_ms": cuda_ms(lambda: model.bifb(wl, wr)),
+            "backend_ms": cuda_ms(backend),
+            "predict_ms": cuda_ms(lambda: predict(model, wavL, wavR)),
+            "predict_host_ms_runs": host_ms(
+                lambda: predict(model, wavL, wavR)),
+        }
+
+
+def kernel_breakdown(model, wavL, wavR, calls: int = 3, top: int = 15):
+    """Device time by kernel over `calls` traced predicts, and the share of
+    the traced wall time in which no kernel ran (one stream, so kernel
+    times do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    predict(model, wavL, wavR)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            predict(model, wavL, wavR)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    rows = [(e.key, e.device_time_total / calls / 1e3, e.count // calls)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    return {
+        "wall_ms_per_call": wall_ms,
+        "device_busy_ms_per_call": device_ms,
+        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "kernels_per_call": sum(r[2] for r in rows),
+        "top": [{"name": k[:90], "ms_per_call": ms, "launches_per_call": n}
+                for k, ms, n in rows[:top]],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--policy", default="bfloat16",
+                    choices=("bfloat16", "float32"))
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    model = build_active(BiEARConfig(**FLAGSHIP, fb_w_dtype=args.policy),
+                         seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    wavL, wavR = (torch.tensor(rng.uniform(-1, 1, (args.batch, 16000)),
+                               dtype=torch.float32, device="cuda")
+                  for _ in range(2))
+    result = {"card": smi, "batch": args.batch, "policy": args.policy,
+              "stages": stage_times(model, wavL, wavR),
+              "profile": kernel_breakdown(model, wavL, wavR)}
+    runs = sorted(result["stages"]["predict_host_ms_runs"])
+    result["predict_host_ms_median"] = statistics.median(runs)
+    result["utterances_per_s"] = args.batch * 1e3 / statistics.median(runs)
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+
+
+if __name__ == "__main__":
+    main()

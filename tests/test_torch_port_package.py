@@ -1,0 +1,224 @@
+"""Hygiene of the PyTorch port: imports, device rules and kernel dispatch.
+
+``biear_tpu_torch`` and ``chip_smoke.py`` must import neither JAX nor the
+JAX package; entry points must refuse to run on the CPU unless asked to;
+a CPU tensor must take the plain CC, and the smoke script must fail (and
+print no result) where there is no card or no repository around it.
+
+The tests marked ``cuda`` need the card and skip without one. This file
+imports no JAX, so they run on a machine without it:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_port_package.py
+"""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "biear_tpu_torch")
+OK_PREFIX = '{"ok": true'
+
+
+def _port_sources():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("banned", ["jax", "jaxlib", "biear_tpu", "optax",
+                                    "orbax"])
+def test_port_never_imports_jax_or_the_jax_package(banned):
+    sources = list(_port_sources())
+    assert len(sources) > 15
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported_modules(p)
+           if m == banned or m.startswith(banned + ".")]
+    assert not bad, bad
+
+
+def _clean_env():
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("PYTHON", "JAX"))}
+    env["PYTHONPATH"] = REPO
+    return env
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, importlib, pkgutil, biear_tpu_torch\n"
+            "for m in pkgutil.walk_packages(biear_tpu_torch.__path__, "
+            "'biear_tpu_torch.'):\n"
+            "    importlib.import_module(m.name)\n"
+            "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+            "('jax', 'jaxlib', 'biear_tpu'))\n"
+            "print(bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_clean_env(),
+                         cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_without_device_raise_when_no_cuda(monkeypatch, tmp_path):
+    from biear_tpu_torch.device import resolve_device
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.serve import infer
+
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_active(BiEARConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.load_model(str(tmp_path / "missing.pth"), BiEARConfig())
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert next(build_active(BiEARConfig(), device="cpu").parameters()
+                ).device.type == "cpu"
+
+
+def test_cli_without_device_raises_when_no_cuda(monkeypatch, tmp_path):
+    import json
+    from biear_tpu_torch.serve import infer
+
+    _no_cuda(monkeypatch)
+    (tmp_path / "meta").mkdir()
+    (tmp_path / "meta" / "settings.json").write_text(json.dumps({}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        infer.main(["--checkpoint", str(tmp_path / "best.pth"), "x.wav"])
+
+
+def test_cpu_tensors_take_the_plain_cc_and_count_no_launch(monkeypatch):
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.ops import window_gather as wg
+    from biear_tpu_torch.ops.xcorr import (cc_kept_lags_plain,
+                                           cross_correlation_feature)
+
+    calls = []
+    monkeypatch.setattr(wg, "cc_kept_lags_cuda",
+                        lambda *a: calls.append(a) or None)
+    LAUNCHES.clear()
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.standard_normal((3, 16000)), dtype=torch.float32)
+    y = torch.roll(x, 5, 1)
+    feat = cross_correlation_feature(x, y, 16000)
+    assert feat.shape == (3, 100) and bool(torch.isfinite(feat).all())
+    assert calls == [] and LAUNCHES["cc_lags"] == 0
+    torch.testing.assert_close(wg.cc_kept_lags(x, y, 48),
+                               cc_kept_lags_plain(x, y, 48), rtol=0, atol=0)
+
+
+def test_cuda_wrapper_refuses_cpu_tensors():
+    from biear_tpu_torch.ops.window_gather import cc_kept_lags_cuda
+    x = torch.zeros((2, 1280))
+    with pytest.raises(ValueError, match="CUDA"):
+        cc_kept_lags_cuda(x, x, 8)
+
+
+def test_kernel_sources_ship_with_the_package():
+    """The build reads only repository sources, into a git-ignored dir."""
+    from biear_tpu_torch.kernels import build
+    assert os.path.isfile(os.path.join(build.KERNEL_DIR, "cc_lags.cu"))
+    assert build.BUILD_DIR.startswith(PORT)
+    assert "sm_90a" in " ".join(build.CUDA_FLAGS)
+    gitignore = open(os.path.join(REPO, ".gitignore")).read().split()
+    assert "biear_tpu_torch/kernels/_build/" in gitignore
+    src = open(os.path.join(build.KERNEL_DIR, "cc_lags.cu")).read()
+    for lib in ("cublas", "cudnn", "cufft", "torch/"):
+        assert lib not in src.lower()
+
+
+def test_chip_smoke_fails_without_a_card():
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=dict(_clean_env(), CUDA_VISIBLE_DEVICES=""),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert OK_PREFIX not in out.stdout
+
+
+def test_chip_smoke_fails_alone_without_the_repository(tmp_path):
+    """Copied alone into an empty directory, the script fails on the
+    missing package even where a card is reported."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    env = {k: v for k, v in _clean_env().items() if k != "PYTHONPATH"}
+    code = ("import runpy, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "runpy.run_path('chip_smoke.py', run_name='__main__')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "No module named 'biear_tpu_torch'" in out.stderr
+    assert OK_PREFIX not in out.stdout
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; the CUDA kernel has no CPU mode")
+
+
+@pytest.mark.cuda
+def test_cc_kernel_matches_plain_on_card():
+    """The CUDA kernel against its plain version, TF32 off, at the serving
+    shapes and odd B (rtol 2e-5 / atol 2e-4, the JAX kernel's tolerance)."""
+    _need_card()
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.ops.window_gather import cc_kept_lags
+    from biear_tpu_torch.ops.xcorr import cc_kept_lags_plain
+
+    rng = np.random.default_rng(8)
+    LAUNCHES.clear()
+    shapes = ((512, 16000, 48), (1, 16000, 48), (7, 1024, 63), (3, 2560, 1))
+    for B, n, mk in shapes:
+        lf, rf = (torch.tensor(rng.standard_normal((B, n)),
+                               dtype=torch.float32, device="cuda")
+                  for _ in range(2))
+        with no_tf32():
+            want = cc_kept_lags_plain(lf, rf, mk)
+            got = cc_kept_lags(lf, rf, mk)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+    assert LAUNCHES["cc_lags"] == len(shapes)
+
+
+@pytest.mark.cuda
+def test_predict_on_card_matches_cpu():
+    """The served slice on the card against the same weights on the CPU."""
+    _need_card()
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.serve.infer import predict
+
+    rng = np.random.default_rng(9)
+    wavL, wavR = (rng.uniform(-1, 1, (3, 16000)).astype(np.float32)
+                  for _ in range(2))
+    for policy, tol in (("float32", 2e-3), ("bfloat16", 2e-2)):
+        cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative",
+                          deltaQ_base=1.0, deltaQ_low_factor=0.3,
+                          deltaQ_high_factor=5.0, fb_w_dtype=policy)
+        gpu = build_active(cfg, seed=1)
+        cpu = build_active(cfg, seed=1, device="cpu")
+        LAUNCHES.clear()
+        got = predict(gpu, wavL, wavR)
+        assert LAUNCHES["cc_lags"] == 1
+        for g, w in zip(got, predict(cpu, wavL, wavR)):
+            torch.testing.assert_close(g.cpu(), w, rtol=tol, atol=tol)
