@@ -2,10 +2,12 @@
 
 Each kernel is one ``.cu`` file in this directory with a plain C interface
 (no PyTorch headers, so ``nvcc`` takes seconds, not minutes). At first use
-``torch.utils.cpp_extension.load`` compiles it for ``sm_90a`` into
-``_build/`` beside this file (git-ignored), and ``ctypes`` binds its C
-functions. Nothing is built at import time: the CPU tests import every
-module of the package on a machine without ``nvcc``.
+``torch.utils.cpp_extension.load`` compiles it for ``sm_90a`` into its own
+directory ``_build/<name>/`` beside this file (git-ignored; ninja skips an
+unchanged source), and ``ctypes`` binds its C functions. One directory per
+kernel lets ``build_all`` run the three builds at once. Nothing is built
+at import time: the CPU tests import every module of the package on a
+machine without ``nvcc``.
 
 A build or launch failure raises; there is no fallback.
 """
@@ -18,18 +20,26 @@ import os
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
-CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a"]
+# -Xptxas=-v: the register and shared-memory report, shown when verbose
+CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
+              "-Xptxas=-v"]
+KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb")
 
 
-def build(name: str) -> str:
-    """Compile ``<name>.cu`` into ``_build/`` and return the library path."""
+def build_dir(name: str) -> str:
+    return os.path.join(BUILD_DIR, name)
+
+
+def build(name: str, verbose: bool = False) -> str:
+    """Compile ``<name>.cu`` into ``_build/<name>/`` and return the library
+    path; `verbose` prints the compiler's output."""
     from torch.utils.cpp_extension import load
 
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(build_dir(name), exist_ok=True)
     return load(name=f"biear_{name}",
                 sources=[os.path.join(KERNEL_DIR, f"{name}.cu")],
-                build_directory=BUILD_DIR, extra_cuda_cflags=CUDA_FLAGS,
-                is_python_module=False)
+                build_directory=build_dir(name), extra_cuda_cflags=CUDA_FLAGS,
+                is_python_module=False, verbose=verbose)
 
 
 @functools.cache
@@ -42,6 +52,37 @@ def cc_lags_lib() -> ctypes.CDLL:
                                    + [ctypes.c_void_p])
     lib.cc_lags_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def gather_windows_lib() -> ctypes.CDLL:
+    """The sample-granular window gather (gather_windows.cu)."""
+    lib = ctypes.CDLL(build("gather_windows"))
+    lib.gather_windows_launch.argtypes = ([ctypes.c_void_p] * 4
+                                          + [ctypes.c_int] * 3
+                                          + [ctypes.c_void_p])
+    lib.gather_windows_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def gather_mix_kb_lib() -> ctypes.CDLL:
+    """The fused window gather + HRIR mix (gather_mix_kb.cu)."""
+    lib = ctypes.CDLL(build("gather_mix_kb"))
+    lib.gather_mix_kb_launch.argtypes = ([ctypes.c_void_p] * 6
+                                         + [ctypes.c_int] * 6
+                                         + [ctypes.c_void_p])
+    lib.gather_mix_kb_launch.restype = ctypes.c_int
+    return lib
+
+
+def build_all(verbose: bool = False) -> dict:
+    """Build every kernel of the port, one ``nvcc`` per source, all
+    started together; returns {name: library path}."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        paths = pool.map(lambda name: build(name, verbose), KERNELS)
+        return dict(zip(KERNELS, paths))
 
 
 def check_launch(err: int, name: str) -> None:

@@ -1,8 +1,10 @@
 """Backend: ILD / IPD GRU encoders, body MLP and the per-sector sub-heads.
 
-Counterpart of ``biear_tpu/models/backend.py`` in eval mode. Module and
-index names follow the reference checkpoints (``body.{0,3,6}``,
-``subheads.{k}.shared.0``, ``subheads.{k}.sound.{0,2,4}``, ...).
+Counterpart of ``biear_tpu/models/backend.py``. Module and index names
+follow the reference checkpoints (``body.{0,3,6}``,
+``subheads.{k}.shared.0``, ``subheads.{k}.sound.{0,2,4}``, ...). In
+training, dropout masks come from the generator passed to ``forward``;
+the ``nn.Dropout`` modules only hold their indices.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import GRU
+from .layers import GRU, dropout
 
 
 def _finite(x: torch.Tensor) -> torch.Tensor:
@@ -44,12 +46,25 @@ def ipd_features(xL: torch.Tensor, xR: torch.Tensor) -> torch.Tensor:
     return _finite(torch.atan2(torch.sin(d), torch.cos(d)))
 
 
-def make_body(feat_dim: int, rate: float) -> nn.Sequential:
+class Body(nn.Sequential):
     """Linear 512 -> 400 -> 200, each followed by ReLU and Dropout."""
-    return nn.Sequential(
-        nn.Linear(feat_dim, 512), nn.ReLU(), nn.Dropout(rate),
-        nn.Linear(512, 400), nn.ReLU(), nn.Dropout(rate),
-        nn.Linear(400, 200), nn.ReLU(), nn.Dropout(rate))
+
+    def __init__(self, feat_dim: int, rate: float):
+        super().__init__(
+            nn.Linear(feat_dim, 512), nn.ReLU(), nn.Dropout(rate),
+            nn.Linear(512, 400), nn.ReLU(), nn.Dropout(rate),
+            nn.Linear(400, 200), nn.ReLU(), nn.Dropout(rate))
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, gen: torch.Generator | None = None,
+                train: bool = False) -> torch.Tensor:
+        for i in (0, 3, 6):
+            x = dropout(gen, torch.relu(self[i](x)), self.rate, not train)
+        return x
+
+
+def make_body(feat_dim: int, rate: float) -> Body:
+    return Body(feat_dim, rate)
 
 
 def _branch(out_dim: int) -> nn.Sequential:
@@ -69,9 +84,11 @@ class SubHead(nn.Module):
         self.sound = _branch(1)
         self.aoa = _branch(1)
         self.dist = _branch(n_dist_class)
+        self.rate = rate
 
-    def forward(self, x: torch.Tensor):
-        h = self.shared(x)
+    def forward(self, x: torch.Tensor, gen: torch.Generator | None = None,
+                train: bool = False):
+        h = dropout(gen, torch.relu(self.shared[0](x)), self.rate, not train)
         return (self.sound(h)[..., 0], torch.sigmoid(self.aoa(h))[..., 0],
                 self.dist(h))
 
@@ -80,7 +97,8 @@ class SubHeads(nn.ModuleList):
     """The sector heads: (B, 200) -> sound logits (B, S), AoA in [0, 1]
     (B, S), distance logits (B, S, C)."""
 
-    def forward(self, x: torch.Tensor):
-        sound, aoa, dist = zip(*(head(x) for head in self))
+    def forward(self, x: torch.Tensor, gen: torch.Generator | None = None,
+                train: bool = False):
+        sound, aoa, dist = zip(*(head(x, gen, train) for head in self))
         return (torch.stack(sound, dim=-1), torch.stack(aoa, dim=-1),
                 torch.stack(dist, dim=1))

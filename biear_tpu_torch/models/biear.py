@@ -1,7 +1,9 @@
-"""The flagship active waveform model (dual Q-controllers), eval forward.
+"""The flagship active waveform model (dual Q-controllers).
 
-Counterpart of ``biear_tpu/models/biear.py::active_forward`` with
-``train=False``. Parameter names are those of the reference checkpoints,
+Counterpart of ``biear_tpu/models/biear.py::active_forward``: eval mode
+is ``train=False``; ``.train()`` mode is ``train=True`` and needs a
+``torch.Generator`` for the dropout masks, as JAX needs ``rng``.
+Parameter names are those of the reference checkpoints,
 so a state dict from ``models.weights.state_dict_from_jax`` or a
 reference-format ``.pth`` loads with ``strict=True``.
 """
@@ -23,8 +25,7 @@ class ActiveBiEAR(nn.Module):
     """Waveforms (B, Nsamp) x2 and the CC feature x3 (B, N) ->
     (sound_logits (B, S), aoa (B, S), dist_logits (B, S, C), aux with Q).
 
-    Only the dual-controller and fixed-Q frontends are ported; the
-    training forward (dropout) comes with the training slice."""
+    Only the dual-controller and fixed-Q frontends are ported."""
 
     def __init__(self, cfg: BiEARConfig):
         super().__init__()
@@ -59,14 +60,19 @@ class ActiveBiEAR(nn.Module):
         return self
 
     def forward(self, wavL: torch.Tensor, wavR: torch.Tensor,
-                x3: torch.Tensor | None = None):
-        if self.training:
-            raise NotImplementedError("the training forward is not ported; "
-                                      "call .eval()")
+                x3: torch.Tensor | None = None,
+                gen: torch.Generator | None = None):
+        """In .train() mode `gen` (on the model's device) draws the dropout
+        masks, frontend first, then body and heads."""
+        train = self.training
+        if train and gen is None:
+            raise ValueError("ActiveBiEAR in training mode requires a "
+                             "torch.Generator for dropout: pass gen= or "
+                             "call .eval()")
         cfg = self.cfg
         with no_tf32():
             wavL, wavR = wavL.float(), wavR.float()
-            YL, YR, QL, QR, phL, phR = self.bifb(wavL, wavR)
+            YL, YR, QL, QR, phL, phR = self.bifb(wavL, wavR, gen, train)
             x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
             x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
             feats = [self.encoder_ild(ild_features(x1, x2)),
@@ -75,7 +81,8 @@ class ActiveBiEAR(nn.Module):
                 if x3 is None:
                     x3 = wavL.new_zeros((wavL.shape[0], cfg.n_bands))
                 feats.append(self.cc_proj(x3))
-            sound, aoa, dist = self.subheads(self.body(torch.cat(feats, -1)))
+            body = self.body(torch.cat(feats, -1), gen, train)
+            sound, aoa, dist = self.subheads(body, gen, train)
         return sound, aoa, dist, {"QL": QL, "QR": QR, "Q": 0.5 * (QL + QR)}
 
 

@@ -3,9 +3,12 @@
 A copy of ``biear_tpu/models/config.py::BiEARConfig`` (the port imports
 nothing of the JAX package): one frozen dataclass for the experiment
 matrix of the reference builders, with the same defaults, properties and
-validation. Fields that steer only the JAX training path (``remat_frontend``,
-``fb_vjp``, ``fb_x_grad``) are kept so that one settings file configures
-both packages.
+validation. The training fields mean the same in both packages, except
+that ``fb_vjp="auto"`` is the hand backward at every batch here:
+``fb_vjp`` picks the filterbank backward ("custom" hand backward or
+"autodiff"), ``fb_x_grad`` whether it returns spectra gradients, and
+``remat_frontend`` whether the "autodiff" filterbank is recomputed in the
+backward instead of keeping every frame's Gaussian.
 """
 
 from __future__ import annotations

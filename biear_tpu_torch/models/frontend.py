@@ -1,14 +1,23 @@
 """Adaptive-Q binaural frontend (dual controller) and the fixed-Q path.
 
-Counterpart of ``biear_tpu/models/frontend.py`` in eval mode. All T frames
-are framed and transformed at once; only the Q feedback loop runs frame by
-frame. Each frame builds the Gaussian filterbank for both ears in one
-batch and drops it before the next frame (at batch 512 one frame's G for
-both ears is ~210 MB in f32).
+Counterpart of ``biear_tpu/models/frontend.py``. All T frames are framed
+and transformed at once; only the Q feedback loop runs frame by frame.
+Each frame builds the Gaussian filterbank for both ears in one batch (at
+batch 512 one frame's G for both ears is ~210 MB in f32).
+
+Training (``train=True`` with a generator): the controllers' dropout masks
+for all frames, both ears and both sites are drawn in one call, and the
+filterbank is differentiated by the VJP that ``cfg.fb_vjp`` resolves to:
+the hand backward ``ops.filterbank.FilterbankFn`` ("custom", which saves
+only (B, N)-sized tensors per frame), or plain autograd ("autodiff"),
+which would keep every frame's (2B, N, F) G and its intermediates; there
+the filterbank call is recomputed in the backward
+(``torch.utils.checkpoint``), as the JAX package rematerialises its scan
+step (``cfg.remat_frontend``).
 
 Quirks of the reference kept exactly:
   * the Y-memory input is 0.2 * log1p(max(Y, 0)) of the CURRENT frame
-    (the dual mode re-creates its memory every frame);
+    (the dual mode re-creates its memory every frame), detached;
   * the controller's output layer starts at zero (Q = Q0);
   * Q is clamped to [q_min, q_max] after each update;
   * a nonfinite Q anywhere in an ear's batch resets that ear's Q to Q0
@@ -24,10 +33,11 @@ import torch
 from torch import nn
 
 from ..ops.erb import erb_spaced_fc_and_q, make_deltaQ_profile
-from ..ops.filterbank import band_phase, fb_forward, stack_rhs
+from ..ops.filterbank import (band_phase, fb_forward, filterbank_apply_rhs,
+                              resolve_fb_vjp, stack_rhs)
 from ..ops.framing import frame_1s, frame_params, hann_window_periodic
 from .config import BiEARConfig
-from .layers import GRU
+from .layers import GRU, dropout_apply, dropout_masks
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,6 +100,7 @@ class Controller(nn.Module):
     def __init__(self, cfg: BiEARConfig, n_in: int):
         super().__init__()
         H = cfg.ctrl_hidden
+        self.rate = cfg.ctrl_dropout
         self.q_rnn = GRU(n_in, H)
         self.q_out = nn.Sequential(
             nn.Linear(H, H), nn.LayerNorm(H), nn.SiLU(),
@@ -98,10 +109,19 @@ class Controller(nn.Module):
             nn.Dropout(cfg.ctrl_dropout),
             nn.Linear(H, cfg.n_bands))
 
-    def forward(self, h: torch.Tensor, feat: torch.Tensor):
-        """One update: returns (delta in [-1, 1], new hidden)."""
+    def forward(self, h: torch.Tensor, feat: torch.Tensor, drops=None):
+        """One update: returns (delta in [-1, 1], new hidden). drops: the
+        keep-masks (2, B, H) of the two dropout sites, or None for none
+        (the nn.Dropout modules at indices 3 and 7 are never called)."""
         h = self.q_rnn.step(feat, h)
-        return torch.tanh(self.q_out(h)), h
+        q = self.q_out
+        z = q[2](q[1](q[0](h)))
+        if drops is not None:
+            z = dropout_apply(drops[0], z, self.rate)
+        z = q[6](q[5](q[4](z)))
+        if drops is not None:
+            z = dropout_apply(drops[1], z, self.rate)
+        return torch.tanh(q[8](z)), h
 
 
 def next_q(cfg: BiEARConfig, c: dict, delta: torch.Tensor) -> torch.Tensor:
@@ -120,11 +140,12 @@ def finite_reset(Q: torch.Tensor, h: torch.Tensor, Q0: torch.Tensor):
             torch.where(ok, h, torch.zeros_like(h)))
 
 
-def adaptive_step(ctrl: Controller, cfg: BiEARConfig, c: dict, Q, h, Y):
+def adaptive_step(ctrl: Controller, cfg: BiEARConfig, c: dict, Q, h, Y,
+                  drops=None):
     """Controller half of one frame for one ear, from its band energy Y."""
     Y_ctrl = torch.log1p(torch.clamp(Y, min=0.0))
-    feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl], dim=-1)
-    delta, h = ctrl(h, feat)
+    feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl.detach()], dim=-1)
+    delta, h = ctrl(h, feat, drops)
     return finite_reset(next_q(cfg, c, delta), h, c["Q0"][None])
 
 
@@ -153,8 +174,11 @@ class DualFrontend(nn.Module):
             self.fb_L = Controller(cfg, 2 * cfg.n_bands)
             self.fb_R = Controller(cfg, 2 * cfg.n_bands)
 
-    def forward(self, wavL: torch.Tensor, wavR: torch.Tensor):
-        """Returns (YL, YR, QL, QR, phaseL, phaseR), each (B, T, N)."""
+    def forward(self, wavL: torch.Tensor, wavR: torch.Tensor,
+                gen: torch.Generator | None = None, train: bool = False):
+        """Returns (YL, YR, QL, QR, phaseL, phaseR), each (B, T, N).
+
+        train with a generator draws the controller dropout masks."""
         cfg = self.cfg
         c = device_constants(cfg, wavL.device)
         specL = spectra(cfg, wavL, c)
@@ -171,18 +195,40 @@ class DualFrontend(nn.Module):
         rhs = rhs.transpose(0, 1)
         Q = c["Q0"].expand(2, B, cfg.n_bands)
         h = wavL.new_zeros((2, B, cfg.ctrl_hidden))
+        masks = None                    # [frame, ear, site] -> (B, H)
+        if train and gen is not None and cfg.ctrl_dropout > 0.0:
+            masks = dropout_masks(gen, cfg.ctrl_dropout,
+                                  (T, 2, 2, B, cfg.ctrl_hidden))
+        fb = self._filterbank(c, bf16)
         Ys, Qs, phases = [], [], []
         for t in range(T):
-            Y, Zre, Zim = fb_forward(Q.reshape(2 * B, -1), c["fc"],
-                                     c["f_fft"], rhs[t], bf16)
+            Y, Zre, Zim = fb(Q.reshape(2 * B, -1), rhs[t])
             Y = Y.reshape(2, B, -1)
             Ys.append(Y)
             Qs.append(Q)
             phases.append(band_phase(Zre, Zim).reshape(2, B, -1))
             if cfg.freeze_q:
                 continue
-            QL, hL = adaptive_step(self.fb_L, cfg, c, Q[0], h[0], Y[0])
-            QR, hR = adaptive_step(self.fb_R, cfg, c, Q[1], h[1], Y[1])
+            dL = dR = None
+            if masks is not None:
+                dL, dR = masks[t, 0], masks[t, 1]
+            QL, hL = adaptive_step(self.fb_L, cfg, c, Q[0], h[0], Y[0], dL)
+            QR, hR = adaptive_step(self.fb_R, cfg, c, Q[1], h[1], Y[1], dR)
             Q, h = torch.stack([QL, QR]), torch.stack([hL, hR])
         Y, Q, phase = (torch.stack(a, dim=2) for a in (Ys, Qs, phases))
         return Y[0], Y[1], Q[0], Q[1], phase[0], phase[1]
+
+    def _filterbank(self, c: dict, bf16: bool):
+        """(Q, rhs) -> (Y, Zre, Zim) for one frame: the plain forward
+        without autograd, else the VJP cfg.fb_vjp resolves to."""
+        cfg = self.cfg
+        fc, f_fft = c["fc"], c["f_fft"]
+        if not torch.is_grad_enabled():
+            return lambda Q, rhs: fb_forward(Q, fc, f_fft, rhs, bf16)
+        vjp = resolve_fb_vjp(cfg.fb_vjp)
+        if vjp == "autodiff" and cfg.remat_frontend:
+            from torch.utils.checkpoint import checkpoint
+            return lambda Q, rhs: checkpoint(fb_forward, Q, fc, f_fft, rhs,
+                                             bf16, use_reentrant=False)
+        return lambda Q, rhs: filterbank_apply_rhs(Q, fc, f_fft, rhs, bf16,
+                                                   vjp, cfg.fb_x_grad)

@@ -5,6 +5,11 @@ weight layout (Linear (out, in); GRU gates r, z, n stacked in (3H, .)), so
 ``nn.Linear``, ``nn.LayerNorm`` (eps 1e-5), ``nn.SiLU`` and ``nn.GRU`` are
 the same functions with the same parameter names. ``GRU`` adds a one-step
 call for the Q-controller, whose input depends on the carried state.
+
+Dropout on the training path draws its masks from an explicit
+``torch.Generator`` (``dropout``, ``dropout_masks``, ``dropout_apply``);
+the ``nn.Dropout`` modules in the model only keep the reference's module
+indices and are never called.
 """
 
 from __future__ import annotations
@@ -55,3 +60,25 @@ def init_module_(module: nn.Module, gen: torch.Generator) -> None:
             with torch.no_grad():
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+
+
+def dropout_masks(gen: torch.Generator, rate: float, shape) -> torch.Tensor:
+    """Keep-masks (True = keep, probability 1 - rate) for dropout_apply,
+    drawn in one call from an explicit generator on its device."""
+    return torch.rand(shape, generator=gen, device=gen.device) < 1.0 - rate
+
+
+def dropout_apply(mask: torch.Tensor, x: torch.Tensor,
+                  rate: float) -> torch.Tensor:
+    """Inverted dropout from a precomputed keep-mask."""
+    return torch.where(mask, x / (1.0 - rate), 0.0)
+
+
+def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout with torch.nn.Dropout's semantics, but with masks
+    from `gen` rather than the global generator; the identity when
+    deterministic or rate <= 0."""
+    if deterministic or rate <= 0.0:
+        return x
+    return dropout_apply(dropout_masks(gen, rate, x.shape), x, rate)

@@ -1,13 +1,24 @@
-"""Gaussian filterbank, forward only.
+"""Gaussian filterbank: forward, and the hand backward for training.
 
-Counterpart of the forward of ``biear_tpu/ops/filterbank.py``: per frame
-and ear, a (B, N, F) Gaussian G is built from the current Q and contracted
-against the stacked rhs [mag, re, im, 1] (B, 4, F). The ones row carries
-sum_f G, so the row normalisation happens after the contraction
-(divide-after form): Y = sum_f G |X| / den, Z = sum_f G X / den.
+Counterpart of ``biear_tpu/ops/filterbank.py``: per frame and ear, a
+(B, N, F) Gaussian G is built from the current Q and contracted against
+the stacked rhs [mag, re, im, 1] (B, 4, F). The ones row carries sum_f G,
+so the row normalisation happens after the contraction (divide-after
+form): Y = sum_f G |X| / den, Z = sum_f G X / den.
 
 The JAX filterbank is plain XLA, not a Pallas kernel, so this stays plain
-PyTorch. Its hand backward comes with the training slice.
+PyTorch. ``FilterbankFn`` is the JAX custom VJP as a
+``torch.autograd.Function``: both gradients are contractions of
+forward-sized shape, so the (B, N, F) cotangent of G never exists:
+
+    dL/dQ_bn   = -fc_n / (Q + eps)^2 / bw_bn * sum_c g4_bnc T_bnc,
+                 T = sum_f G z^2 rhs                      (B, N, 4)
+    dL/drhs    = sum_n G g4                               (B, 4, F)
+
+with g4 the cotangents of the pre-division numerators. Modes: "f32" and
+"bf16", each with "|noxg" when the spectra are off the gradient path; in
+"bf16|noxg" the forward computes T from its own G and saves only (B, N)
+and (B, N, 4) tensors.
 
 Precision policies:
   * f32: the exact association exp(-0.5 ((f - fc) / bw)^2), f32 product.
@@ -27,21 +38,31 @@ EPS_BW = 1e-8
 EPS_NORM = 1e-8
 
 
+def _gauss(Q: torch.Tensor, fc: torch.Tensor, f_fft: torch.Tensor):
+    """Reference association: (bw (B, N, 1), z (B, N, F), G (B, N, F))."""
+    bw = (fc / (Q + EPS_Q))[..., None] + EPS_BW
+    z = (f_fft[None, :] - fc[:, None]) / bw
+    return bw, z, torch.exp(-0.5 * z * z)
+
+
+def _gauss_fast(Q: torch.Tensor, fc: torch.Tensor, f_fft: torch.Tensor):
+    """Divide-free build: (bw, t = log G, G = exp(D s)), s = 1 / bw^2."""
+    bw = (fc / (Q + EPS_Q))[..., None] + EPS_BW
+    D = -0.5 * torch.square(f_fft[None, :] - fc[:, None])    # (N, F)
+    t = D * (1.0 / torch.square(bw))
+    return bw, t, torch.exp(t)
+
+
 def fb_gauss(Q: torch.Tensor, fc: torch.Tensor,
              f_fft: torch.Tensor) -> torch.Tensor:
     """Unnormalised Gaussian G (B, N, F), reference association (f32)."""
-    bw = (fc / (Q + EPS_Q))[..., None] + EPS_BW              # (B, N, 1)
-    z = (f_fft[None, :] - fc[:, None]) / bw                  # (B, N, F)
-    return torch.exp(-0.5 * z * z)
+    return _gauss(Q, fc, f_fft)[2]
 
 
 def fb_gauss_fast(Q: torch.Tensor, fc: torch.Tensor,
                   f_fft: torch.Tensor) -> torch.Tensor:
     """Divide-free G = exp(D * s), D = -0.5 (f - fc)^2, s = 1 / bw^2 (bf16)."""
-    bw = (fc / (Q + EPS_Q))[..., None] + EPS_BW
-    D = -0.5 * torch.square(f_fft[None, :] - fc[:, None])    # (N, F)
-    s = 1.0 / torch.square(bw)
-    return torch.exp(D * s)
+    return _gauss_fast(Q, fc, f_fft)[2]
 
 
 def stack_rhs(Xmag: torch.Tensor, Xre: torch.Tensor, Xim: torch.Tensor,
@@ -52,19 +73,119 @@ def stack_rhs(Xmag: torch.Tensor, Xre: torch.Tensor, Xim: torch.Tensor,
     return rhs.to(torch.bfloat16) if bf16 else rhs
 
 
+def _dot(lhs: torch.Tensor, rhs: torch.Tensor, bf16: bool,
+         sub: str) -> torch.Tensor:
+    """einsum with f32 sums; under bf16 both operands are rounded first."""
+    if bf16:
+        lhs = lhs.to(torch.bfloat16).float()
+        rhs = rhs.to(torch.bfloat16).float()
+    return torch.einsum(sub, lhs, rhs.float())
+
+
+def _normalise(out: torch.Tensor):
+    """(B, N, 4) numerators -> (Y, Zre, Zim, den, finite mask of Y)."""
+    den = out[..., 3] + EPS_NORM
+    Y_raw = out[..., 0] / den
+    Y = torch.nan_to_num(Y_raw, nan=0.0, posinf=0.0, neginf=0.0)
+    return Y, out[..., 1] / den, out[..., 2] / den, den, torch.isfinite(Y_raw)
+
+
 def fb_forward(Q: torch.Tensor, fc: torch.Tensor, f_fft: torch.Tensor,
                rhs: torch.Tensor, bf16: bool = False):
     """Divide-after filterbank for one frame: Q (B, N), rhs (B, 4, F) ->
-    (Y, Zre, Zim), each (B, N). nan_to_num applies to Y only."""
-    if bf16:
-        G = fb_gauss_fast(Q, fc, f_fft).to(torch.bfloat16).float()
-        rhs = rhs.float()
-    else:
-        G = fb_gauss(Q, fc, f_fft)
-    out = torch.matmul(G, rhs.transpose(-1, -2))             # (B, N, 4)
-    den = out[..., 3] + EPS_NORM
-    Y = torch.nan_to_num(out[..., 0] / den, nan=0.0, posinf=0.0, neginf=0.0)
-    return Y, out[..., 1] / den, out[..., 2] / den
+    (Y, Zre, Zim), each (B, N). nan_to_num applies to Y only. Plain
+    autograd differentiates it (the "autodiff" VJP)."""
+    G = (_gauss_fast if bf16 else _gauss)(Q, fc, f_fft)[2]
+    return _normalise(_dot(G, rhs, bf16, "bnf,bcf->bnc"))[:3]
+
+
+class FilterbankFn(torch.autograd.Function):
+    """fb_forward with the JAX package's hand backward (custom VJP).
+
+    apply(Q, rhs, fc, f_fft, mode) -> (Y, Zre, Zim); mode is "f32" or
+    "bf16", with "|noxg" when no gradient is wanted for rhs (then rhs gets
+    a zero gradient, or none if it does not require one)."""
+
+    @staticmethod
+    def forward(ctx, Q, rhs, fc, f_fft, mode: str):
+        bf16 = mode.startswith("bf16")
+        x_grad = not mode.endswith("|noxg")
+        fwd_T = bf16 and not x_grad
+        if fwd_T:
+            bw, t, G = _gauss_fast(Q, fc, f_fft)
+            out = _dot(G, rhs, True, "bnf,bcf->bnc")
+            T = _dot(G * (-2.0 * t), rhs, True, "bnf,bcf->bnc")
+        else:
+            G = (_gauss_fast if bf16 else _gauss)(Q, fc, f_fft)[2]
+            out = _dot(G, rhs, bf16, "bnf,bcf->bnc")
+        Y, Zre, Zim, den, finite = _normalise(out)
+        if fwd_T:
+            ctx.save_for_backward(Q, fc, bw[..., 0], T, Y, Zre, Zim, den,
+                                  finite)
+            ctx.rhs_meta = (rhs.shape, rhs.dtype)
+        else:
+            ctx.save_for_backward(Q, fc, f_fft, rhs, Y, Zre, Zim, den, finite)
+        ctx.mode = (bf16, x_grad, fwd_T)
+        return Y, Zre, Zim
+
+    @staticmethod
+    def backward(ctx, gY, gZre, gZim):
+        bf16, x_grad, fwd_T = ctx.mode
+        if fwd_T:
+            Q, fc, bw0, T, Y, Zre, Zim, den, finite = ctx.saved_tensors
+        else:
+            Q, fc, f_fft, rhs, Y, Zre, Zim, den, finite = ctx.saved_tensors
+        # nan_to_num passes a zero cotangent where it zeroed
+        gY = torch.where(finite, gY, 0.0)
+        gden = -(gY * Y + gZre * Zre + gZim * Zim) / den
+        g4 = torch.stack([gY / den, gZre / den, gZim / den, gden], dim=-1)
+
+        gRhs = None
+        if fwd_T:
+            dQ = -fc / torch.square(Q + EPS_Q) / bw0 * torch.sum(g4 * T, -1)
+            if ctx.needs_input_grad[1]:
+                shape, dtype = ctx.rhs_meta
+                gRhs = torch.zeros(shape, dtype=dtype, device=Q.device)
+            return dQ, gRhs, None, None, None
+
+        if bf16:
+            bw, t, G = _gauss_fast(Q, fc, f_fft)
+            Gz2 = G * (-2.0 * t)                       # z^2 = -2 log G
+        else:
+            bw, z, G = _gauss(Q, fc, f_fft)
+            Gz2 = G * (z * z)
+        T = _dot(Gz2, rhs, bf16, "bnf,bcf->bnc")
+        dQ = (-fc / torch.square(Q + EPS_Q) / bw[..., 0]
+              * torch.sum(g4 * T, dim=-1))
+        if ctx.needs_input_grad[1]:
+            gRhs = (_dot(G, g4, bf16, "bnf,bnc->bcf").to(rhs.dtype) if x_grad
+                    else torch.zeros_like(rhs))
+        return dQ, gRhs, None, None, None
+
+
+def resolve_fb_vjp(vjp: str) -> str:
+    """The filterbank VJP to run: "auto" is "custom" at every batch (the
+    JAX package's batch crossover to "autodiff" was measured on a TPU; none
+    has been measured on the card)."""
+    if vjp == "auto":
+        vjp = "custom"
+    if vjp not in ("custom", "autodiff"):
+        raise ValueError(f"fb_vjp must be 'auto', 'custom' or 'autodiff', "
+                         f"got {vjp!r}")
+    return vjp
+
+
+def filterbank_apply_rhs(Q: torch.Tensor, fc: torch.Tensor,
+                         f_fft: torch.Tensor, rhs: torch.Tensor,
+                         bf16: bool, vjp: str = "custom",
+                         x_grad: bool = True):
+    """fb_forward on a pre-stacked rhs, differentiated by the resolved VJP:
+    "custom" -> FilterbankFn, "autodiff" -> plain autograd. `vjp` must be
+    resolved already (resolve_fb_vjp). Forward values are the same."""
+    if vjp == "autodiff":
+        return fb_forward(Q, fc, f_fft, rhs, bf16)
+    mode = ("bf16" if bf16 else "f32") + ("" if x_grad else "|noxg")
+    return FilterbankFn.apply(Q, rhs, fc, f_fft, mode)
 
 
 def band_phase(Zre: torch.Tensor, Zim: torch.Tensor,

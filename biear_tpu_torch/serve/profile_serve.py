@@ -96,19 +96,19 @@ def stage_times(model, wavL, wavR) -> dict:
         }
 
 
-def kernel_breakdown(model, wavL, wavR, calls: int = 3, top: int = 15):
-    """Device time by kernel over `calls` traced predicts, and the share of
-    the traced wall time in which no kernel ran (one stream, so kernel
-    times do not overlap)."""
+def device_profile(fn, calls: int = 3, top: int = 15) -> dict:
+    """Device time by kernel over `calls` traced calls of fn (after one
+    untraced call), and the share of the traced wall time in which no
+    kernel ran (one stream, so kernel times do not overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    predict(model, wavL, wavR)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            predict(model, wavL, wavR)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     rows = [(e.key, e.device_time_total / calls / 1e3, e.count // calls)
@@ -124,6 +124,11 @@ def kernel_breakdown(model, wavL, wavR, calls: int = 3, top: int = 15):
         "top": [{"name": k[:90], "ms_per_call": ms, "launches_per_call": n}
                 for k, ms, n in rows[:top]],
     }
+
+
+def kernel_breakdown(model, wavL, wavR, calls: int = 3, top: int = 15):
+    """device_profile of ``predict`` on one batch."""
+    return device_profile(lambda: predict(model, wavL, wavR), calls, top)
 
 
 def main(argv=None):

@@ -1,1 +1,2 @@
-"""Training-side helpers of the port (input sanitisation so far)."""
+"""Training of the port: losses, the optimizer, the train step and chunk,
+and the training profile."""

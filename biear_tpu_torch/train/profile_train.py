@@ -1,0 +1,209 @@
+#!/usr/bin/env python3
+"""Where the training time goes on the card: the fused synthesize -> train
+pipeline of the flagship model, the bare train step, per-stage times and a
+kernel breakdown.
+
+    python -m biear_tpu_torch.train.profile_train [--batch 512]
+        [--policy bf16|f32] [--chunk 16] [--windows 3] [--out f.json]
+
+Counterpart of ``bench.py::measure_ours``: the flagship config
+(``bench.py:100-102``) at full width, seeded random weights, and the
+synthesizer fixture of ``bench.py`` (``make_test_hrir_bank()``,
+``make_test_segments(256)``, 100 lags). Policies: bf16 = bf16 filterbank
+operands and the bf16 HRIR mix (the CUDA mix kernel); f32 = both in f32
+(the CUDA window gather, then an f32 product).
+
+Reported:
+  * fused pipeline utterances/s: host clock around ``--windows`` chunks of
+    ``--chunk`` (synthesize -> step) iterations, each ending in a
+    synchronize; median, min and max over the windows;
+  * bare step utterances/s: the same on one fixed batch in device memory;
+  * CUDA-event stage times (median of 5): synthesis (whole batch, the mix
+    kernel, the CC kernel), forward (loss included), backward, optimizer;
+  * torch.profiler over two train steps: device-busy time, idle share of
+    the wall time and the top kernels;
+  * peak device memory of a train step.
+Needs a CUDA card; prints the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..data.synth import (AnechoicSynthesizer, make_test_hrir_bank,
+                          make_test_segments)
+from ..device import no_tf32
+from ..models import BiEARConfig, build_active
+from ..ops.window_gather import cc_kept_lags, gather_mix_kb, gather_windows
+from ..ops.xcorr import lag_plan
+from ..serve.profile_serve import device_profile
+from .loop import active_loss, make_train_chunk, train_step
+from .optim import TrainHyper, make_optimizer
+
+FLAGSHIP = dict(controller_mode="dual", deltaQ_mode="relative",
+                deltaQ_base=1.0, deltaQ_low_factor=0.3, deltaQ_high_factor=5.0)
+POLICIES = {"bf16": "bfloat16", "f32": "float32"}
+
+
+def events_ms(fn, setup=lambda: None, reps: int = 5) -> float:
+    """Median CUDA-event time of fn(setup()), setup untimed, after one
+    warm-up call."""
+    fn(setup())
+    times = []
+    for _ in range(reps):
+        arg = setup()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def rate_windows(run, utt_per_run: int, windows: int) -> dict:
+    """Utterances/s of `windows` synchronised host-clock windows of run()."""
+    rates = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        rates.append(utt_per_run / (time.perf_counter() - t0))
+    return {"median": statistics.median(rates), "min": min(rates),
+            "max": max(rates), "windows": rates}
+
+
+def fixed_batch(B: int, n_bands: int, seed: int, device) -> tuple:
+    """bench.py's bare-step batch: uniform waveforms and x3, one source per
+    utterance in a random sector with a random distance class."""
+    rng = np.random.default_rng(seed)
+    wavL = rng.uniform(-1, 1, (B, 16000)).astype(np.float32)
+    wavR = rng.uniform(-1, 1, (B, 16000)).astype(np.float32)
+    x3 = rng.uniform(-1, 1, (B, n_bands)).astype(np.float32)
+    y = np.zeros((B, 8, 7), np.float32)
+    y[:, :, 2] = 1.0
+    for b in range(B):
+        s = rng.integers(0, 8)
+        y[b, s, :3] = (1.0, rng.uniform(), 0.0)
+        y[b, s, 3 + rng.integers(0, 4)] = 1.0
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (wavL, wavR, x3, y.reshape(B, 56)))
+
+
+def stage_times(model, hp, opt, synth, batch, gen) -> dict:
+    B = batch[0].shape[0]
+    cfg = model.cfg
+    scene = synth.scene_batched(gen, B)
+    active, sectors, meas, seg_idx, qoff, crop = scene
+    X = active.numel()
+    rows = (seg_idx * synth.n_q + qoff).reshape(X)
+    bank = synth.bank
+    if synth.mix_dtype == "bfloat16":
+        mix = lambda _: gather_mix_kb(bank["pool3"], rows, crop.reshape(X),
+                                      meas.reshape(X), bank["KB"],
+                                      cfg.fs // 128)
+    else:
+        mix = lambda _: gather_windows(bank["pool3"], rows, crop.reshape(X))
+    wl, wr = batch[0], batch[1]
+    kept = lag_plan(wl.shape[1], cfg.fs, cfg.n_bands, 3.0)[0]
+    lf = wl - wl.mean(-1, keepdim=True)
+    rf = wr - wr.mean(-1, keepdim=True)
+    params = [p for _, p in model.named_parameters()]
+    model.train()
+
+    def forward(_):
+        with no_tf32():
+            return active_loss(model, hp, batch, gen)[0]
+
+    def backward(loss):
+        with no_tf32():
+            torch.autograd.grad(loss, params)
+
+    with no_tf32():
+        grads = dict(zip([n for n, _ in model.named_parameters()],
+                         torch.autograd.grad(forward(None), params)))
+    ok = torch.ones((), dtype=torch.bool, device=wl.device)
+    return {
+        "synthesis_batch_ms": events_ms(
+            lambda _: synth.sample_batch(gen, B)),
+        "mix_kernel_ms": events_ms(mix),
+        "mix_policy": synth.mix_dtype,
+        "cc_kernel_ms": events_ms(
+            lambda _: cc_kept_lags(lf, rf, int(np.abs(kept).max()))),
+        "forward_ms": events_ms(forward),
+        "backward_ms": events_ms(backward, setup=lambda: forward(None)),
+        "optimizer_ms": events_ms(lambda _: opt.step(grads, ok)),
+        "train_step_ms": events_ms(
+            lambda _: train_step(model, hp, opt, batch, gen)),
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--batch", type=int, default=512)
+    ap.add_argument("--policy", default="bf16", choices=tuple(POLICIES))
+    ap.add_argument("--chunk", type=int, default=16)
+    ap.add_argument("--windows", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the JSON here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train needs a CUDA card")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    dtype = POLICIES[args.policy]
+    cfg = BiEARConfig(**FLAGSHIP, fb_w_dtype=dtype)
+    B = args.batch
+    hp = TrainHyper()
+    ir, az, dist = make_test_hrir_bank()
+    synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(256),
+                                fs=cfg.fs, num_lags=cfg.n_bands,
+                                mix_dtype=dtype)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+
+    model = build_active(cfg, seed=args.seed)
+    opt = make_optimizer(model, hp)
+    chunk = make_train_chunk(model, hp, opt, synth.batch_fn(B), args.chunk)
+    one_step = make_train_chunk(model, hp, opt, synth.batch_fn(B), 1)
+    chunk(gen)                                       # warm-up
+    fused = rate_windows(lambda: chunk(gen), B * args.chunk, args.windows)
+
+    batch = fixed_batch(B, cfg.n_bands, args.seed, "cuda")
+    steps = lambda: [train_step(model, hp, opt, batch, gen)
+                     for _ in range(args.chunk)]
+    steps()
+    bare = rate_windows(steps, B * args.chunk, args.windows)
+
+    torch.cuda.reset_peak_memory_stats()
+    train_step(model, hp, opt, batch, gen)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    result = {
+        "card": smi, "batch": B, "policy": args.policy, "chunk": args.chunk,
+        "fused_train_pipeline_utterances_per_sec": fused,
+        "model_step_utt_s": bare,
+        "stages": stage_times(model, hp, opt, synth, batch, gen),
+        "profile_fused_step": device_profile(
+            lambda: one_step(gen), calls=2),
+        "peak_memory_bytes_train_step": peak,
+    }
+    text = json.dumps(result, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -6,10 +6,13 @@
 Phases, each of which raises on failure (the exit code is then not 0):
 
   1. device: a CUDA card is required; its name and power limit are printed.
-  2. build: every CUDA kernel of the serving path is compiled from the
-     sources in this checkout (kernels/cc_lags.cu).
+  2. build: every CUDA kernel of the port is compiled from the sources in
+     this checkout (kernels/cc_lags.cu, gather_windows.cu, gather_mix_kb.cu),
+     one nvcc per source, all started together.
   3. kernel vs plain: each kernel is held against its plain PyTorch version
-     on the card (TF32 off) at the serving shapes, and timed.
+     on the card (TF32 off) at the shapes of the main paths and at a ragged
+     small shape, and timed beside its plain version, one library call and
+     the card's bound for the same work.
   4. serve: the flagship dual-controller adaptive-Q model at full width,
      seeded random weights, through ``serve.infer.predict`` at batch 1, 64
      and 512 under the bf16 policy and at batch 64 under the f32 policy.
@@ -18,6 +21,20 @@ Phases, each of which raises on failure (the exit code is then not 0):
      (shapes, finite, probabilities in [0, 1], Q adapting, the CUDA CC
      against the plain CC end to end, the card against the CPU on a small
      batch) and batch-512 throughput is timed.
+  5. train: the fused synthesize -> train chunk (``train.loop.
+     make_train_chunk``) of the flagship at full width, batch 512, bf16
+     policy, with the synthesizer fixture of bench.py, for TRAIN_STEPS
+     steps; launch counts zeroed just before and read just after (one mix
+     and one CC launch per step). Then: finite losses, no skipped step,
+     finite non-zero gradient norms in both groups, parameters of both
+     groups moved (the controllers' zero-initialised output layer too, so
+     it got a non-zero gradient); one f32-policy step at batch 64 through
+     the window-gather kernel; one step's loss and gradients on the card
+     against the CPU port (same weights, dropout 0, f32, on a synthesised
+     and on bench.py's white-noise batch of 4; the frontend's limit from
+     the CPU's own spread under waveform noise on the same batch, see
+     STEP_LOSS_ATOL); and the fused-pipeline and bare-step rates at batch
+     512.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -43,6 +60,24 @@ FLAGSHIP = dict(controller_mode="dual", deltaQ_mode="relative",
                 deltaQ_base=1.0, deltaQ_low_factor=0.3, deltaQ_high_factor=5.0)
 SERVE_BATCHES = ((1, "bfloat16"), (64, "bfloat16"), (512, "bfloat16"),
                  (64, "float32"))
+H100_BF16_FLOPS = 989e12      # dense bf16 tensor cores, H100 SXM data sheet
+MIX_ATOL = 5e-5               # JAX's mix kernel vs its XLA composition
+TRAIN_BATCH = 512
+TRAIN_STEPS = 4
+# one f32 train step, card vs CPU port, on a synthesised and on bench.py's
+# white-noise batch of 4, stage by stage on the same inputs. The whole
+# gradient is not compared: it jumps where a phase difference crosses the
+# IPD wrap at +-pi or a body ReLU input crosses 0, and rounding alone
+# moves such crossings. Checked: the loss to 1e-5; the backend's gradients
+# and the cotangents it returns to the frontend, both sides run on the
+# card's frontend outputs, to BACKEND_RTOL in relative L2; the frontend's
+# gradients under the card's cotangents, to WITNESS_FACTOR times the
+# CPU's own spread under WITNESS_DRAWS draws of white waveform noise,
+# scaled to move the CPU's spectra as far as the card's arithmetic does
+# (the phase of a weak band moves the Q gradient through 1/|Z|).
+STEP_LOSS_ATOL = 1e-5
+BACKEND_RTOL = 1e-4
+WITNESS_DRAWS, WITNESS_FACTOR = 3, 3.0
 
 
 def log(msg: str) -> None:
@@ -68,15 +103,10 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
 
 
 def phase_kernels(torch, rng):
-    """Build cc_lags.cu, hold it against the plain version, time both."""
+    """Hold cc_lags.cu against the plain version, time both."""
     from biear_tpu_torch.device import no_tf32
-    from biear_tpu_torch.kernels.build import cc_lags_lib
     from biear_tpu_torch.ops.window_gather import cc_kept_lags_cuda
     from biear_tpu_torch.ops.xcorr import cc_kept_lags_plain
-
-    t0 = time.perf_counter()
-    cc_lags_lib()
-    log(f"build cc_lags.cu: {time.perf_counter() - t0:.1f} s")
 
     max_err = 0.0
     timing = None
@@ -236,6 +266,343 @@ def phase_serve(torch, rng):
     return launches
 
 
+def window_bytes(rows, offs, row_len: int) -> float:
+    """Bytes of pool the windows cover: per distinct row, the span from its
+    smallest to its largest offset plus one window (read once)."""
+    from biear_tpu_torch.ops.window_gather import WIN
+    r, o = rows.cpu().numpy(), offs.cpu().numpy().clip(0, row_len - WIN)
+    span = sum(min(int(o[r == u].max() - o[r == u].min()) + WIN, row_len)
+               for u in np.unique(r))
+    return 4.0 * span
+
+
+def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
+    t_ops, t_bytes = flops / peak_flops, nbytes / H100_HBM_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
+def training_synth(torch, mix_dtype: str):
+    """bench.py's synthesizer fixture on the card."""
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    ir, az, dist = make_test_hrir_bank()
+    return AnechoicSynthesizer(ir, az, dist, make_test_segments(256),
+                               fs=16000, num_lags=100, mix_dtype=mix_dtype)
+
+
+def phase_window_kernels(torch, synth):
+    """gather_mix_kb.cu and gather_windows.cu against their plain versions
+    at the training shape (batch 512: 1536 windows, 125 frames) and at a
+    ragged small shape (7 windows, 61 frames), on the synthesizer's pool
+    and bf16 bank. The mix's plain version sums in f64, so its comparison
+    is also the f64 check; the kernel is held to an f32 bmm too."""
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.ops import window_gather as wg
+
+    bank = synth.bank
+    pool3, kb = bank["pool3"], bank["KB"]
+    row_len = pool3.shape[1] * 128
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = {"gather_mix_kb": 0.0, "gather_windows": 0.0}
+    timing = {}
+    for B, nf in ((TRAIN_BATCH, 125), (3, 61)):
+        _, _, meas, seg_idx, qoff, crop = synth.scene_batched(gen, B)
+        X = meas.numel() if B == TRAIN_BATCH else meas.numel() - 2
+        rows = (seg_idx * synth.n_q + qoff).reshape(-1)[:X]
+        offs, meas = crop.reshape(-1)[:X], meas.reshape(-1)[:X]
+        with no_tf32():
+            got = wg.gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf)
+            want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
+            fw = wg.frame_windows(wg.gather_windows_plain(pool3, rows, offs)
+                                  .to(kb.dtype), nf, kb.shape[1]).float()
+            kx = kb[meas.long()].float()
+            lib = lambda: torch.bmm(fw, kx)
+            f32 = lib()
+        g = wg.gather_windows_cuda(pool3, rows, offs)
+        gp = wg.gather_windows_plain(pool3, rows, offs)
+        torch.cuda.synchronize()
+        e64 = float((got - want).abs().max())
+        e32 = float((got - f32).abs().max())
+        log(f"gather_mix_kb X={X} nf={nf}: max |kernel - plain (f64 sums)| "
+            f"= {e64!r}, max |kernel - f32 bmm| = {e32!r} (atol {MIX_ATOL})")
+        if not (e64 <= MIX_ATOL and e32 <= MIX_ATOL):
+            raise RuntimeError(f"gather_mix_kb disagrees: {e64}, {e32}")
+        eg = float((g - gp).abs().max())
+        if not torch.equal(g, gp):
+            raise RuntimeError(f"gather_windows X={X}: not bit-exact ({eg})")
+        log(f"gather_windows X={X}: bit-exact against the plain version")
+        errs["gather_mix_kb"] = max(errs["gather_mix_kb"], e64)
+        errs["gather_windows"] = max(errs["gather_windows"], eg)
+        if B != TRAIN_BATCH:
+            continue
+        flat = pool3.reshape(pool3.shape[0], -1)
+        t = torch.arange(16384, device="cuda")
+        glib = lambda: flat[rows.long()[:, None], offs.long()[:, None] + t]
+        if not torch.equal(glib().reshape(g.shape), g):
+            raise RuntimeError("gather_windows: library gather differs")
+        win_b = window_bytes(rows, offs, row_len)
+        ncol = kb.shape[1]
+        kb_b = 2.0 * ncol * 256 * int(torch.unique(meas).numel())
+        with no_tf32():
+            timing["gather_mix_kb"] = dict(
+                ms=cuda_ms(lambda: wg.gather_mix_kb_cuda(pool3, rows, offs,
+                                                         meas, kb, nf)),
+                plain_ms=cuda_ms(lambda: wg.gather_mix_kb_plain(
+                    pool3, rows, offs, meas, kb, nf)),
+                library_ms=cuda_ms(lib),
+                **bound(win_b + kb_b + 12.0 * X + 4.0 * X * nf * 256,
+                        2.0 * X * nf * ncol * 256, H100_BF16_FLOPS))
+        timing["gather_windows"] = dict(
+            ms=cuda_ms(lambda: wg.gather_windows_cuda(pool3, rows, offs)),
+            plain_ms=cuda_ms(lambda: wg.gather_windows_plain(pool3, rows,
+                                                             offs)),
+            library_ms=cuda_ms(glib),
+            **bound(win_b + 8.0 * X + 4.0 * X * 16384, 0.0, H100_F32_FLOPS))
+        log(f"window kernels at X={X}: {timing}")
+
+    # the shape of tools/bench_win_kernel.py (kern_chunk, kern_aligned: the
+    # same gather): 1024 x 3 windows from a 256-row random pool
+    tgen = torch.Generator(device="cuda").manual_seed(6)
+    tpool = torch.randn((256, 133, 128), generator=tgen, device="cuda")
+    trows = torch.randint(0, 256, (3072,), generator=tgen, device="cuda")
+    toffs = torch.randint(0, 384, (3072,), generator=tgen, device="cuda")
+    tflat = tpool.reshape(256, -1)
+    t = torch.arange(16384, device="cuda")
+    g = wg.gather_windows_cuda(tpool, trows, toffs)
+    gp = wg.gather_windows_plain(tpool, trows, toffs)
+    errs["gather_windows"] = max(errs["gather_windows"],
+                                 float((g - gp).abs().max()))
+    if not torch.equal(g, gp):
+        raise RuntimeError("gather_windows at the tool's shape: not exact")
+    tool = dict(
+        ms=cuda_ms(lambda: wg.gather_windows_cuda(tpool, trows, toffs)),
+        plain_ms=cuda_ms(lambda: wg.gather_windows_plain(tpool, trows,
+                                                         toffs)),
+        library_ms=cuda_ms(lambda: tflat[trows[:, None],
+                                         toffs[:, None] + t]),
+        **bound(window_bytes(trows, toffs, 133 * 128) + 8.0 * 3072
+                + 4.0 * 3072 * 16384, 0.0, H100_F32_FLOPS))
+    log(f"gather_windows at tools/bench_win_kernel.py's shape (X=3072, "
+        f"256 rows): bit-exact; {tool}")
+    return errs, timing
+
+
+def snapshot(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def step_stages(torch, model, hp, batch, front=None):
+    """One f32 step, no update: (loss, gradients by name, the frontend's
+    outputs, their cotangents, the body's ReLU inputs). `front` (leaf
+    tensors) replaces the frontend's outputs, so that the backend runs on
+    given inputs."""
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.train.loop import active_loss
+
+    held, relu_in = [], []
+
+    def take(m, args, out):
+        out = out if front is None else tuple(front)
+        held.extend(out)
+        return out
+    hooks = [model.bifb.register_forward_hook(take)] + [
+        model.body[i].register_forward_hook(
+            lambda m, a, out: relu_in.append(out.detach().reshape(-1).cpu()))
+        for i in (0, 3, 6)]
+    model.train()
+    names, params = zip(*model.named_parameters())
+    with no_tf32():
+        loss, _ = active_loss(model, hp, batch, torch.Generator(
+            device=batch[0].device))
+        grads = torch.autograd.grad(loss, params + tuple(held),
+                                    allow_unused=True)
+    for h in hooks:
+        h.remove()
+    k = len(params)
+    return (float(loss.detach()), dict(zip(names, grads[:k])),
+            [t.detach() for t in held], list(grads[k:]), torch.cat(relu_in))
+
+
+def frontend_grads(torch, model, wavs, cot):
+    """Gradients of the frontend's parameters under cotangents `cot` of its
+    outputs, on waveforms `wavs` (sanitised as the train step does)."""
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.train.losses import sanitize_wav
+    names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if n.startswith("bifb.")])
+    model.train()
+    with no_tf32():
+        out = model.bifb(*sanitize_wav(*wavs), torch.Generator(), True)
+        return out, dict(zip(names, torch.autograd.grad(out, params, cot)))
+
+
+def rel_l2(torch, a, b):
+    """Relative L2 distance of tensor lists (or name -> tensor dicts) a
+    from b, over the keys of b that are not None."""
+    keys = list(b) if isinstance(b, dict) else range(len(b))
+    keys = [k for k in keys if b[k] is not None]
+    x = torch.cat([a[k].cpu().reshape(-1) for k in keys])
+    y = torch.cat([b[k].cpu().reshape(-1) for k in keys])
+    return float((x - y).norm() / y.norm())
+
+
+def spectra_of(torch, cfg, wavs):
+    """Real and imaginary spectra of both ears' waveforms, flattened, on
+    the CPU."""
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.models.frontend import device_constants, spectra
+    c = device_constants(cfg, wavs[0].device)
+    with no_tf32():
+        return torch.cat([x.reshape(-1).cpu() for w in wavs
+                          for x in spectra(cfg, w, c)[1:]])
+
+
+def step_card_vs_cpu(torch, hp, cfg, batch, label):
+    """One f32 step on the card against the CPU port (same weights, same
+    batch), stage by stage; see STEP_LOSS_ATOL. Raises on disagreement."""
+    from biear_tpu_torch.models import build_active
+    from biear_tpu_torch.models.backend import ipd_features
+
+    cb = tuple(b.cpu() for b in batch)
+    gpu = build_active(cfg, seed=3)
+    cpu = build_active(cfg, seed=3, device="cpu")
+    lg, gg, fg, cg, rg = step_stages(torch, gpu, hp, batch)
+    lc, gc, fc, _, rc = step_stages(torch, cpu, hp, cb)
+    dl = abs(lg - lc)
+    fcard = [f.cpu().requires_grad_() for f in fg]
+    _, gb, _, cb_cot, _ = step_stages(torch, cpu, hp, cb, front=fcard)
+    back = [n for n in gb if not n.startswith("bifb.")]
+    d_back = rel_l2(torch, gg, {n: gb[n] for n in back})
+    d_cot = rel_l2(torch, cg, cb_cot)
+    cot = [c.cpu() for c in cg]
+    front = [n for n in gg if n.startswith("bifb.")]
+    _, gf = frontend_grads(torch, cpu, cb[:2], cot)
+    d_front = rel_l2(torch, gg, gf)
+
+    # witness noise: white, per waveform row in units of its rms, scaled
+    # (linear in the noise) to the card's distance from the CPU's spectra
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    spec = spectra_of(torch, cfg, cb[:2])
+    d_spec = rel(spectra_of(torch, cfg, batch[:2]), spec)
+    noise = torch.Generator().manual_seed(7)
+    unit = lambda w: (w.pow(2).mean(-1, keepdim=True).sqrt()
+                      * torch.randn(w.shape, generator=noise))
+    probe = 1e-5
+    eps = probe * d_spec / rel(spectra_of(
+        torch, cfg, [w + probe * unit(w) for w in cb[:2]]), spec)
+    spread = max(rel_l2(torch, frontend_grads(
+        torch, cpu, [w + eps * unit(w) for w in cb[:2]], cot)[1], gf)
+        for _ in range(WITNESS_DRAWS))
+    limit = WITNESS_FACTOR * spread
+
+    wraps = int(((ipd_features(fg[4], fg[5]).cpu()
+                  - ipd_features(fc[4], fc[5])).abs() > 3.0).sum())
+    whole = {g: rel_l2(torch, gg, {n: gc[n] for n in names})
+             for g, names in (("frontend", front), ("backend", back))}
+    log(f"B=4 f32 step on the {label} batch, card vs CPU: loss {lg!r} vs "
+        f"{lc!r} (|d| {dl!r}, atol {STEP_LOSS_ATOL}); backend on the card's "
+        f"frontend outputs: gradients {d_back!r}, cotangents {d_cot!r} "
+        f"(limit {BACKEND_RTOL}); frontend under the card's cotangents: "
+        f"gradients {d_front!r} (limit {limit!r}: CPU's own spread "
+        f"{spread!r} under waveform noise {eps!r} rms, {WITNESS_DRAWS} "
+        f"draws; spectra {d_spec!r})")
+    log(f"  whole gradients (not compared): {whole!r}; IPD values across "
+        f"the +-pi wrap {wraps}, body ReLU inputs of opposite sign "
+        f"{int(((rg > 0) != (rc > 0)).sum())} of {rc.numel()}")
+    if not (dl <= STEP_LOSS_ATOL and d_back <= BACKEND_RTOL
+            and d_cot <= BACKEND_RTOL and d_front <= limit):
+        raise RuntimeError(f"train step on the {label} batch: card and CPU "
+                           "disagree")
+
+
+def phase_train(torch, synth):
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.train.loop import make_train_chunk, train_step
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import fixed_batch, rate_windows
+
+    hp = TrainHyper()
+    cfg = BiEARConfig(**FLAGSHIP, fb_w_dtype="bfloat16")
+    model = build_active(cfg, seed=0)
+    opt = make_optimizer(model, hp)
+    chunk = make_train_chunk(model, hp, opt, synth.batch_fn(TRAIN_BATCH),
+                             TRAIN_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = snapshot(model)
+
+    LAUNCHES.clear()
+    ms = chunk(gen)
+    torch.cuda.synchronize()
+    launches = {"train_bf16": dict(LAUNCHES)}
+    log(f"train chunk ({TRAIN_STEPS} steps, B={TRAIN_BATCH}, bf16) "
+        f"launches: {launches['train_bf16']}")
+    for k in ("gather_mix_kb", "cc_lags"):
+        if LAUNCHES.get(k, 0) != TRAIN_STEPS:
+            raise RuntimeError(f"{k} launched {LAUNCHES.get(k, 0)} times in "
+                               f"{TRAIN_STEPS} train steps")
+    losses = ms["loss"].tolist()
+    log(f"train losses {losses!r}, skipped {ms['skipped'].tolist()}")
+    log(f"grad norms: frontend {ms['grad_fb_norm'].tolist()!r}, backend "
+        f"{ms['grad_backend_norm'].tolist()!r}")
+    if not all(np.isfinite(losses)) or float(ms["skipped"].sum()) != 0:
+        raise RuntimeError("train chunk: nonfinite loss or skipped step")
+    for k in ("grad_fb_norm", "grad_backend_norm"):
+        v = ms[k]
+        if not (bool(torch.isfinite(v).all()) and float(v.min()) > 0):
+            raise RuntimeError(f"train chunk: {k} = {v.tolist()}")
+    after = snapshot(model)
+    moved = {n: float((after[n] - before[n]).abs().max()) for n in before}
+    fe = max(v for n, v in moved.items() if n.startswith("bifb."))
+    be = max(v for n, v in moved.items() if not n.startswith("bifb."))
+    out_layer = float(after["bifb.fb_L.q_out.8.weight"].abs().max())
+    log(f"max parameter change: frontend {fe!r}, backend {be!r}; "
+        f"controller output layer (zero at start) max |w| {out_layer!r}")
+    if not (fe > 0 and be > 0 and out_layer > 0):
+        raise RuntimeError("train chunk: a parameter group did not move")
+
+    # f32 policy, smaller batch: the window-gather kernel
+    cfg32 = BiEARConfig(**FLAGSHIP, fb_w_dtype="float32")
+    m32 = build_active(cfg32, seed=0)
+    synth32 = training_synth(torch, "float32")
+    chunk32 = make_train_chunk(m32, hp, make_optimizer(m32, hp),
+                               synth32.batch_fn(64), 1)
+    LAUNCHES.clear()
+    ms32 = chunk32(gen)
+    torch.cuda.synchronize()
+    launches["train_f32"] = dict(LAUNCHES)
+    log(f"train step (B=64, f32) launches: {launches['train_f32']}, loss "
+        f"{float(ms32['loss'][0])!r}")
+    if (LAUNCHES.get("gather_windows", 0) != 1
+            or LAUNCHES.get("gather_mix_kb", 0) != 0
+            or not bool(torch.isfinite(ms32["loss"]).all())
+            or float(ms32["skipped"].sum()) != 0):
+        raise RuntimeError("f32 train step: wrong kernels or bad loss")
+
+    # one step on the card against the CPU port: a synthesised batch (the
+    # generator's state here is fixed by the seed and the steps above) and
+    # bench.py's white-noise batch
+    cfg0 = BiEARConfig(**FLAGSHIP, fb_w_dtype="float32", ctrl_dropout=0.0,
+                       backend_dropout=0.0)
+    step_card_vs_cpu(torch, hp, cfg0, synth32.sample_batch(gen, 4),
+                     "synthesised")
+    step_card_vs_cpu(torch, hp, cfg0, fixed_batch(4, cfg0.n_bands, 0, "cuda"),
+                     "white-noise")
+
+    # rates at batch 512, bf16
+    fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * TRAIN_STEPS, 3)
+    fb = fixed_batch(TRAIN_BATCH, cfg.n_bands, 0, "cuda")
+    bare = rate_windows(
+        lambda: [train_step(model, hp, opt, fb, gen)
+                 for _ in range(TRAIN_STEPS)], TRAIN_BATCH * TRAIN_STEPS, 3)
+    log(f"train B={TRAIN_BATCH} bf16: fused pipeline {fused['median']!r} "
+        f"utterances/s [{fused['min']!r}-{fused['max']!r}], bare step "
+        f"{bare['median']!r} utterances/s [{bare['min']!r}-{bare['max']!r}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -249,15 +616,43 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {smi}")
 
+    from biear_tpu_torch.kernels.build import build_all
+    t0 = time.perf_counter()
+    libs = build_all(verbose=True)         # prints ptxas's register report
+    log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+
     rng = np.random.default_rng(0)
     max_err, timing = phase_kernels(torch, rng)
-    launches = phase_serve(torch, rng)
+    synth = training_synth(torch, "bfloat16")
+    errs, wtiming = phase_window_kernels(torch, synth)
+    launches = {"serve": phase_serve(torch, rng)}
+    launches.update(phase_train(torch, synth))
+    total = lambda k: sum(p.get(k, 0) for p in launches.values())
+    by_path = lambda k: {p: c.get(k, 0) for p, c in launches.items()}
 
     kernels = [dict(name="cc_lags", route="cuda",
                     source="biear_tpu_torch/kernels/cc_lags.cu",
                     replaces="biear_tpu/ops/window_gather.py:250",
-                    status="ported", launches=launches["cc_lags"],
-                    max_abs_err=max_err, **timing)]
+                    status="ported", launches=total("cc_lags"),
+                    launches_by_path=by_path("cc_lags"),
+                    max_abs_err=max_err, **timing),
+               dict(name="gather_mix_kb", route="cuda",
+                    source="biear_tpu_torch/kernels/gather_mix_kb.cu",
+                    replaces="biear_tpu/ops/window_gather.py:118",
+                    status="ported", launches=total("gather_mix_kb"),
+                    launches_by_path=by_path("gather_mix_kb"),
+                    max_abs_err=errs["gather_mix_kb"],
+                    **wtiming["gather_mix_kb"]),
+               dict(name="gather_windows", route="cuda",
+                    source="biear_tpu_torch/kernels/gather_windows.cu",
+                    replaces="biear_tpu/ops/window_gather.py:81",
+                    status="ported", launches=total("gather_windows"),
+                    launches_by_path=by_path("gather_windows"),
+                    max_abs_err=errs["gather_windows"],
+                    **wtiming["gather_windows"])]
+    for k in kernels:
+        if k["launches"] <= 0:
+            raise RuntimeError(f"{k['name']} never launched on a main path")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

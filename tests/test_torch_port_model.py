@@ -252,9 +252,15 @@ def test_active_forward_matches_jax(kw, tol):
 
 
 def test_training_forward_is_refused():
-    model = ActiveBiEAR(BiEARConfig(**FLAGSHIP)).train()
-    with pytest.raises(NotImplementedError, match="training"):
-        model(torch.zeros(1, 16000), torch.zeros(1, 16000))
+    """Without a generator the training forward is refused (JAX refuses
+    train=True without rng); with one it runs."""
+    model = ActiveBiEAR(BiEARConfig(**FLAGSHIP)).init_weights_(0).train()
+    w = torch.zeros(1, 16000)
+    with pytest.raises(ValueError, match="requires a torch.Generator"):
+        model(w, w)
+    sound, aoa, dist, aux = model(w, w, gen=torch.Generator().manual_seed(0))
+    assert sound.shape == (1, 8) and dist.shape == (1, 8, 5)
+    assert bool(torch.isfinite(sound).all()) and sound.requires_grad
 
 
 # ---------------- sanitisation and the serving slice ----------------

@@ -2,8 +2,9 @@
 
 ``biear_tpu_torch`` and ``chip_smoke.py`` must import neither JAX nor the
 JAX package; entry points must refuse to run on the CPU unless asked to;
-a CPU tensor must take the plain CC, and the smoke script must fail (and
-print no result) where there is no card or no repository around it.
+a CPU tensor must take the plain CC, window gather and mix, and the smoke
+script must fail (and print no result) where there is no card or no
+repository around it.
 
 The tests marked ``cuda`` need the card and skip without one. This file
 imports no JAX, so they run on a machine without it:
@@ -97,6 +98,24 @@ def test_entry_points_without_device_raise_when_no_cuda(monkeypatch, tmp_path):
                 ).device.type == "cpu"
 
 
+def test_training_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch):
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.train import profile_train
+
+    _no_cuda(monkeypatch)
+    ir, az, dist = make_test_hrir_bank()
+    segs = make_test_segments(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AnechoicSynthesizer(ir, az, dist, segs)
+    with pytest.raises(SystemExit, match="CUDA card"):
+        profile_train.main(["--batch", "2"])
+    synth = AnechoicSynthesizer(ir, az, dist, segs, device="cpu")
+    assert synth.bank["pool3"].device.type == "cpu"
+
+
 def test_cli_without_device_raises_when_no_cuda(monkeypatch, tmp_path):
     import json
     from biear_tpu_torch.serve import infer
@@ -135,17 +154,97 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         cc_kept_lags_cuda(x, x, 8)
 
 
+def _small_pool(seed=0, X=5):
+    from biear_tpu_torch.ops.window_gather import pad_pool_for_windows
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((3, 16000)).astype(np.float32)
+    pool3 = torch.tensor(pad_pool_for_windows(pool, 255, 255))
+    rows = torch.tensor(rng.integers(0, 3, X), dtype=torch.int32)
+    offs = torch.tensor(rng.integers(0, 256, X), dtype=torch.int32)
+    meas = torch.tensor(rng.integers(0, 4, X), dtype=torch.int32)
+    kb = torch.tensor(rng.standard_normal((4, 384, 256)) * 0.1,
+                      dtype=torch.float32).to(torch.bfloat16)
+    return pool3, rows, offs, meas, kb
+
+
+@pytest.mark.parametrize("name", ["gather_windows", "gather_mix_kb"])
+def test_window_kernel_wrappers_refuse_cpu_tensors(name):
+    from biear_tpu_torch.ops import window_gather as wg
+    pool3, rows, offs, meas, kb = _small_pool()
+    with pytest.raises(ValueError, match="CUDA"):
+        if name == "gather_windows":
+            wg.gather_windows_cuda(pool3, rows, offs)
+        else:
+            wg.gather_mix_kb_cuda(pool3, rows, offs, meas, kb, 13)
+
+
+def test_cpu_tensors_take_the_plain_mix_and_gather_and_count_no_launch(
+        monkeypatch):
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.ops import window_gather as wg
+
+    calls = []
+    for fn in ("gather_windows_cuda", "gather_mix_kb_cuda"):
+        monkeypatch.setattr(wg, fn, lambda *a: calls.append(a) or None)
+    LAUNCHES.clear()
+    pool3, rows, offs, meas, kb = _small_pool(1)
+    win = wg.gather_windows(pool3, rows, offs)
+    mix = wg.gather_mix_kb(pool3, rows, offs, meas, kb, 13)
+    assert win.shape == (5, 128, 128) and mix.shape == (5, 13, 256)
+    assert calls == [] and sum(LAUNCHES.values()) == 0
+    torch.testing.assert_close(win, wg.gather_windows_plain(pool3, rows,
+                                                            offs),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(mix, wg.gather_mix_kb_plain(
+        pool3, rows, offs, meas, kb, 13), rtol=0, atol=0)
+
+
 def test_kernel_sources_ship_with_the_package():
     """The build reads only repository sources, into a git-ignored dir."""
     from biear_tpu_torch.kernels import build
-    assert os.path.isfile(os.path.join(build.KERNEL_DIR, "cc_lags.cu"))
+    assert build.KERNELS == ("cc_lags", "gather_windows", "gather_mix_kb")
     assert build.BUILD_DIR.startswith(PORT)
     assert "sm_90a" in " ".join(build.CUDA_FLAGS)
     gitignore = open(os.path.join(REPO, ".gitignore")).read().split()
     assert "biear_tpu_torch/kernels/_build/" in gitignore
-    src = open(os.path.join(build.KERNEL_DIR, "cc_lags.cu")).read()
-    for lib in ("cublas", "cudnn", "cufft", "torch/"):
-        assert lib not in src.lower()
+    for name in build.KERNELS:
+        path = os.path.join(build.KERNEL_DIR, f"{name}.cu")
+        assert os.path.isfile(path)
+        src = open(path).read()
+        for lib in ("cublas", "cudnn", "cufft", "torch/"):
+            assert lib not in src.lower()
+        assert "replaces the tpu kernel" in src.lower()
+        assert 'extern "C"' in src
+        assert build.build_dir(name).startswith(build.BUILD_DIR)
+
+
+def test_build_all_builds_each_kernel_in_its_own_directory(monkeypatch,
+                                                          tmp_path):
+    """build_all hands every source to cpp_extension.load with its own
+    build directory (so the builds can run together) and the sm_90a
+    flags; a failing build raises."""
+    import torch.utils.cpp_extension as cpp
+    from biear_tpu_torch.kernels import build
+
+    calls = []
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cpp, "load", lambda **kw: calls.append(kw)
+                        or os.path.join(kw["build_directory"], "lib.so"))
+    libs = build.build_all()
+    assert sorted(libs) == sorted(build.KERNELS)
+    dirs = {kw["build_directory"] for kw in calls}
+    assert len(dirs) == len(build.KERNELS) == len(calls)
+    for kw in calls:
+        assert kw["sources"][0].endswith(kw["name"][len("biear_"):] + ".cu")
+        assert "-gencode=arch=compute_90a,code=sm_90a" in \
+            kw["extra_cuda_cflags"]
+        assert kw["is_python_module"] is False
+
+    def fail(**kw):
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(cpp, "load", fail)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build_all()
 
 
 def test_chip_smoke_fails_without_a_card():
@@ -198,6 +297,74 @@ def test_cc_kernel_matches_plain_on_card():
             got = cc_kept_lags(lf, rf, mk)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
     assert LAUNCHES["cc_lags"] == len(shapes)
+
+
+@pytest.mark.cuda
+def test_window_kernels_match_plain_on_card():
+    """gather_windows.cu bit-exact and gather_mix_kb.cu within 5e-5 (the
+    JAX kernel-vs-XLA tolerance) of their plain versions, on the
+    synthesizer's pool and bf16 bank, at 1536 windows and a ragged shape."""
+    _need_card()
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.ops import window_gather as wg
+
+    ir, az, dist = make_test_hrir_bank()
+    synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(64),
+                                mix_dtype="bfloat16")
+    pool3, kb = synth.bank["pool3"], synth.bank["KB"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    LAUNCHES.clear()
+    for B, nf in ((512, 125), (3, 61), (1, 1)):
+        _, _, meas, seg, qoff, crop = synth.scene_batched(gen, B)
+        rows = (seg * synth.n_q + qoff).reshape(-1)
+        offs, meas = crop.reshape(-1), meas.reshape(-1)
+        assert torch.equal(wg.gather_windows(pool3, rows, offs),
+                           wg.gather_windows_plain(pool3, rows, offs))
+        with no_tf32():
+            torch.testing.assert_close(
+                wg.gather_mix_kb(pool3, rows, offs, meas, kb, nf),
+                wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf),
+                rtol=0, atol=5e-5)
+    assert LAUNCHES["gather_windows"] == 3 and LAUNCHES["gather_mix_kb"] == 3
+    # a contiguous bank view off the 16-byte grid is refused, not launched
+    shifted = torch.empty(kb.numel() + 8, dtype=kb.dtype, device="cuda")
+    shifted = shifted[1:kb.numel() + 1].view(kb.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        wg.gather_mix_kb(pool3, rows, offs, meas, shifted, 1)
+    assert LAUNCHES["gather_mix_kb"] == 3
+
+
+@pytest.mark.cuda
+def test_train_chunk_on_card_launches_the_kernels():
+    """Two fused synthesize -> train steps on the card: one mix and one CC
+    launch per step, finite losses, nothing skipped."""
+    _need_card()
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+
+    cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative",
+                      fb_w_dtype="bfloat16")
+    ir, az, dist = make_test_hrir_bank()
+    synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(16),
+                                mix_dtype="bfloat16")
+    model = build_active(cfg, seed=2)
+    hp = TrainHyper()
+    chunk = make_train_chunk(model, hp, make_optimizer(model, hp),
+                             synth.batch_fn(8), 2)
+    LAUNCHES.clear()
+    ms = chunk(torch.Generator(device="cuda").manual_seed(0))
+    assert LAUNCHES["gather_mix_kb"] == 2 and LAUNCHES["cc_lags"] == 2
+    assert bool(torch.isfinite(ms["loss"]).all())
+    assert float(ms["skipped"].sum()) == 0.0
 
 
 @pytest.mark.cuda
