@@ -5,8 +5,11 @@ Each kernel is one ``.cu`` file in this directory with a plain C interface
 ``torch.utils.cpp_extension.load`` compiles it for ``sm_90a`` into its own
 directory ``_build/<name>/`` beside this file (git-ignored; ninja skips an
 unchanged source), and ``ctypes`` binds its C functions. One directory per
-kernel lets ``build_all`` run the three builds at once. Nothing is built
-at import time: the CPU tests import every module of the package on a
+kernel lets ``build_all`` run the three builds (``cc_lags``,
+``gather_windows``, ``gather_mix_kb``) at once;
+``build_all_with_report`` also returns what ``ptxas -v`` said of each
+entry function (registers, spills, shared memory). Nothing is built at
+import time: the CPU tests import every module of the package on a
 machine without ``nvcc``.
 
 A build or launch failure raises; there is no fallback.
@@ -17,10 +20,14 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
+import sys
+import tempfile
 
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
-# -Xptxas=-v: the register and shared-memory report, shown when verbose
+# -Xptxas=-v: the register and shared-memory report, shown when verbose and
+# parsed by ptxas_report
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v"]
 KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb")
@@ -46,9 +53,7 @@ def build(name: str, verbose: bool = False) -> str:
 def cc_lags_lib() -> ctypes.CDLL:
     """The cross-correlation lag kernel (cc_lags.cu), built and bound."""
     lib = ctypes.CDLL(build("cc_lags"))
-    lib.cc_lags_partial_floats.argtypes = [ctypes.c_int] * 3
-    lib.cc_lags_partial_floats.restype = ctypes.c_int64
-    lib.cc_lags_launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    lib.cc_lags_launch.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
                                    + [ctypes.c_void_p])
     lib.cc_lags_launch.restype = ctypes.c_int
     return lib
@@ -83,6 +88,57 @@ def build_all(verbose: bool = False) -> dict:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         paths = pool.map(lambda name: build(name, verbose), KERNELS)
         return dict(zip(KERNELS, paths))
+
+
+def ptxas_report(text: str) -> list:
+    """The ``ptxas -v`` lines of a compiler log as one dict per entry
+    function: kernel (the name in KERNELS its symbol holds), entry (the
+    mangled symbol), registers, stack, spill_stores, spill_loads (bytes)
+    and smem (static bytes; dynamic shared memory is set at launch)."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)' for", line)
+        if m:
+            entry = m.group(1)
+            kernel = next((k for k in sorted(KERNELS, key=len, reverse=True)
+                           if k in entry), None)
+            cur = {"kernel": kernel, "entry": entry, "smem": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = (
+                int(g) for g in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(smem.group(1)) if smem else 0
+            out.append(cur)
+            cur = None
+    return out
+
+
+def build_all_with_report() -> tuple:
+    """build_all with the compiler's output caught on its way to the
+    process's standard output: ({name: library path}, the output's text,
+    ptxas_report of it). A build that ninja finds up to date compiles
+    nothing and reports nothing."""
+    sys.stdout.flush()
+    with tempfile.TemporaryFile() as log:
+        saved = os.dup(1)
+        os.dup2(log.fileno(), 1)
+        try:
+            libs = build_all(verbose=True)
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        log.seek(0)
+        text = log.read().decode(errors="replace")
+    return libs, text, ptxas_report(text)
 
 
 def check_launch(err: int, name: str) -> None:

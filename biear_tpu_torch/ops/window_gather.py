@@ -55,7 +55,8 @@ def _check(lf: torch.Tensor, rf: torch.Tensor, max_kept: int) -> None:
 
 def cc_kept_lags_cuda(lf: torch.Tensor, rf: torch.Tensor,
                       max_kept: int) -> torch.Tensor:
-    """Launch ``cc_lags.cu`` on the current stream: (B, n) x2 -> (B, 2K+1)."""
+    """Launch ``cc_lags.cu`` on the current stream, one kernel launch with
+    one block per row: (B, n) x2 -> (B, 2K+1)."""
     from ..kernels.build import cc_lags_lib, check_launch
 
     _check(lf, rf, max_kept)
@@ -66,16 +67,15 @@ def cc_kept_lags_cuda(lf: torch.Tensor, rf: torch.Tensor,
         raise TypeError(f"cc kernel takes float32, got {lf.dtype}/{rf.dtype}")
     lf, rf = lf.contiguous(), rf.contiguous()
     B, n = lf.shape
-    lib = cc_lags_lib()
-    partial = torch.empty(int(lib.cc_lags_partial_floats(B, n, max_kept)),
-                          dtype=torch.float32, device=lf.device)
     out = torch.empty((B, 2 * max_kept + 1), dtype=torch.float32,
                       device=lf.device)
+    if B == 0:
+        return out
     with torch.cuda.device(lf.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.cc_lags_launch(lf.data_ptr(), rf.data_ptr(),
-                                 partial.data_ptr(), out.data_ptr(),
-                                 B, n, max_kept, stream)
+        err = cc_lags_lib().cc_lags_launch(lf.data_ptr(), rf.data_ptr(),
+                                           out.data_ptr(), B, n, max_kept,
+                                           stream)
     check_launch(err, "cc_lags")
     LAUNCHES["cc_lags"] += 1
     return out
@@ -215,9 +215,10 @@ def gather_mix_kb_plain(pool3, rows, offs, meas, kb,
 def gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf: int) -> torch.Tensor:
     """Launch ``gather_mix_kb.cu`` on the current stream -> (X, nf, 256).
 
-    The bank streams through shared memory in row tiles, so its size is
-    not limited by the kernel; kb must be bfloat16 (the bf16 mix policy)
-    with 256 columns."""
+    The products run on the bf16 tensor cores. The bank streams through
+    a ring of shared-memory tiles, so its size is not limited by the
+    kernel; kb must be bfloat16 (the bf16 mix policy) with 256 columns,
+    16-byte aligned."""
     from ..kernels.build import check_launch, gather_mix_kb_lib
 
     _check_mix(pool3, rows, offs, meas, kb, nf)
@@ -235,10 +236,15 @@ def gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf: int) -> torch.Tensor:
     if not (pool3.is_contiguous() and kb.is_contiguous()):
         raise ValueError("mix kernel needs contiguous pool3 and kb")
     if kb.data_ptr() % 16:
-        # the kernel reads the bank in 16-byte words
+        # the kernel copies the bank in 16-byte words (cp.async)
         raise ValueError("mix kernel needs kb 16-byte aligned, got a view "
                          "at a storage offset of "
                          f"{kb.storage_offset()} elements")
+    if pool3.data_ptr() % 16:
+        # the kernel reads the windows with aligned 16-byte loads
+        raise ValueError("mix kernel needs pool3 16-byte aligned, got a "
+                         "view at a storage offset of "
+                         f"{pool3.storage_offset()} elements")
     NP, nb, _ = pool3.shape
     M, ncol, _ = kb.shape
     X = rows.shape[0]

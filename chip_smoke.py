@@ -8,11 +8,17 @@ Phases, each of which raises on failure (the exit code is then not 0):
   1. device: a CUDA card is required; its name and power limit are printed.
   2. build: every CUDA kernel of the port is compiled from the sources in
      this checkout (kernels/cc_lags.cu, gather_windows.cu, gather_mix_kb.cu),
-     one nvcc per source, all started together.
+     one nvcc per source, all started together. The ptxas report of every
+     entry function (registers, spills, shared memory) is caught and
+     logged; a spill in cc_lags.cu or gather_mix_kb.cu fails the run.
   3. kernel vs plain: each kernel is held against its plain PyTorch version
-     on the card (TF32 off) at the shapes of the main paths and at a ragged
-     small shape, and timed beside its plain version, one library call and
-     the card's bound for the same work.
+     on the card (TF32 off) at the shapes of the main paths and at ragged
+     ones (CC: batch 1 and 3, n = 128 and 16000, K = 1, 17 and 63; mix: one
+     window, 1, 64, 65 and 128 frames, banks of 128, 256 and 512 rows and
+     of one measurement, indices out of range that must clamp), and timed
+     beside its plain version, one library call and the card's bound for
+     the same work. Two launches of the CC and of the mix kernel on the
+     same inputs must give the same bits.
   4. serve: the flagship dual-controller adaptive-Q model at full width,
      seeded random weights, through ``serve.infer.predict`` at batch 1, 64
      and 512 under the bf16 policy and at batch 64 under the f32 policy.
@@ -102,6 +108,16 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+CC_SHAPES = ((512, 16000, 48), (1, 16000, 48), (7, 1024, 63),
+             (3, 16000, 63), (3, 128, 1), (1, 128, 63), (5, 2560, 17))
+# gather_mix_kb.cu beyond the training shape: (windows, frames, bank rows,
+# measurements, indices out of range)
+MIX_RAGGED = ((1, 1, 384, 1, False), (5, 64, 384, 4, False),
+              (5, 65, 384, 4, False), (7, 61, 128, 1, False),
+              (4, 125, 512, 3, False), (6, 128, 128, 2, False),
+              (9, 33, 256, 5, True))
+
+
 def phase_kernels(torch, rng):
     """Hold cc_lags.cu against the plain version, time both."""
     from biear_tpu_torch.device import no_tf32
@@ -111,7 +127,7 @@ def phase_kernels(torch, rng):
     max_err = 0.0
     timing = None
     with no_tf32():
-        for B, n, K in ((512, 16000, 48), (1, 16000, 48), (7, 1024, 63)):
+        for B, n, K in CC_SHAPES:
             lf = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32,
                               device="cuda")
             rf = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32,
@@ -122,9 +138,17 @@ def phase_kernels(torch, rng):
             torch.testing.assert_close(got, want, rtol=CC_RTOL, atol=CC_ATOL)
             err = float((got - want).abs().max())
             max_err = max(max_err, err)
-            log(f"cc_lags B={B} n={n} K={K}: max |kernel - plain| = {err!r}")
+            if not torch.equal(got, cc_kept_lags_cuda(lf, rf, K)):
+                raise RuntimeError(f"cc_lags B={B} n={n} K={K}: two launches "
+                                   "differ")
+            log(f"cc_lags B={B} n={n} K={K}: max |kernel - plain| = {err!r}, "
+                "two launches bit-equal")
             if timing is None:           # the serving shape
                 timing = cc_timing(torch, lf, rf, K)
+            elif (B, n, K) == (1, 16000, 48):
+                timing["batch1_ms"] = cuda_ms(
+                    lambda: cc_kept_lags_cuda(lf, rf, K))
+                log(f"cc_lags at batch 1: {timing['batch1_ms']!r} ms")
     return max_err, timing
 
 
@@ -292,6 +316,48 @@ def training_synth(torch, mix_dtype: str):
                                fs=16000, num_lags=100, mix_dtype=mix_dtype)
 
 
+def mix_ragged(torch, pool3):
+    """gather_mix_kb.cu on seeded random banks at MIX_RAGGED's shapes,
+    against the plain version (f64 sums) and an f32 bmm, both to MIX_ATOL;
+    two launches must give the same bits. Returns the largest error."""
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.ops import window_gather as wg
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    NP, nb, _ = pool3.shape
+    worst = 0.0
+    for X, nf, ncol, M, wild in MIX_RAGGED:
+        kb = (torch.randn((M, ncol, 256), generator=gen, device="cuda")
+              * 0.1).to(torch.bfloat16)
+        draw = lambda lo, hi: torch.randint(lo, hi, (X,), generator=gen,
+                                            device="cuda")
+        if wild:    # every index may lie outside its range
+            rows, offs, meas = (draw(-3, NP + 3), draw(-500, nb * 128 + 500),
+                                draw(-2, M + 2))
+        else:
+            rows, offs, meas = (draw(0, NP), draw(0, nb * 128 - wg.WIN + 1),
+                                draw(0, M))
+        with no_tf32():
+            got = wg.gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf)
+            want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
+            fw = wg.frame_windows(wg.gather_windows_plain(pool3, rows, offs)
+                                  .to(kb.dtype), nf, ncol).float()
+            f32 = torch.bmm(fw, kb[meas.long().clamp(0, M - 1)].float())
+        same = torch.equal(got, wg.gather_mix_kb_cuda(pool3, rows, offs,
+                                                      meas, kb, nf))
+        e64 = float((got - want).abs().max())
+        e32 = float((got - f32).abs().max())
+        log(f"gather_mix_kb X={X} nf={nf} ncol={ncol} M={M}"
+            f"{' indices out of range' if wild else ''}: max |kernel - plain"
+            f" (f64 sums)| = {e64!r}, max |kernel - f32 bmm| = {e32!r} (atol "
+            f"{MIX_ATOL}), two launches bit-equal: {same}")
+        if not (e64 <= MIX_ATOL and e32 <= MIX_ATOL and same):
+            raise RuntimeError(f"gather_mix_kb disagrees at X={X} nf={nf} "
+                               f"ncol={ncol} M={M}")
+        worst = max(worst, e64)
+    return worst
+
+
 def phase_window_kernels(torch, synth):
     """gather_mix_kb.cu and gather_windows.cu against their plain versions
     at the training shape (batch 512: 1536 windows, 125 frames) and at a
@@ -305,7 +371,7 @@ def phase_window_kernels(torch, synth):
     pool3, kb = bank["pool3"], bank["KB"]
     row_len = pool3.shape[1] * 128
     gen = torch.Generator(device="cuda").manual_seed(5)
-    errs = {"gather_mix_kb": 0.0, "gather_windows": 0.0}
+    errs = {"gather_mix_kb": mix_ragged(torch, pool3), "gather_windows": 0.0}
     timing = {}
     for B, nf in ((TRAIN_BATCH, 125), (3, 61)):
         _, _, meas, seg_idx, qoff, crop = synth.scene_batched(gen, B)
@@ -329,6 +395,9 @@ def phase_window_kernels(torch, synth):
             f"= {e64!r}, max |kernel - f32 bmm| = {e32!r} (atol {MIX_ATOL})")
         if not (e64 <= MIX_ATOL and e32 <= MIX_ATOL):
             raise RuntimeError(f"gather_mix_kb disagrees: {e64}, {e32}")
+        if not torch.equal(got, wg.gather_mix_kb_cuda(pool3, rows, offs, meas,
+                                                      kb, nf)):
+            raise RuntimeError(f"gather_mix_kb X={X}: two launches differ")
         eg = float((g - gp).abs().max())
         if not torch.equal(g, gp):
             raise RuntimeError(f"gather_windows X={X}: not bit-exact ({eg})")
@@ -345,10 +414,16 @@ def phase_window_kernels(torch, synth):
         win_b = window_bytes(rows, offs, row_len)
         ncol = kb.shape[1]
         kb_b = 2.0 * ncol * 256 * int(torch.unique(meas).numel())
+        # the synthesizer hands the wrapper int64 indices, which it casts
+        # to int32 in three small launches of its own; with int32 indices
+        # the wrapper launches the kernel alone
+        r32, o32, m32 = (a.to(torch.int32) for a in (rows, offs, meas))
         with no_tf32():
             timing["gather_mix_kb"] = dict(
-                ms=cuda_ms(lambda: wg.gather_mix_kb_cuda(pool3, rows, offs,
-                                                         meas, kb, nf)),
+                ms=cuda_ms(lambda: wg.gather_mix_kb_cuda(pool3, r32, o32,
+                                                         m32, kb, nf)),
+                int64_indices_ms=cuda_ms(lambda: wg.gather_mix_kb_cuda(
+                    pool3, rows, offs, meas, kb, nf)),
                 plain_ms=cuda_ms(lambda: wg.gather_mix_kb_plain(
                     pool3, rows, offs, meas, kb, nf)),
                 library_ms=cuda_ms(lib),
@@ -616,10 +691,21 @@ def main() -> int:
         check=True).stdout.strip().splitlines()[0]
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {smi}")
 
-    from biear_tpu_torch.kernels.build import build_all
+    from biear_tpu_torch.kernels.build import build_all_with_report
     t0 = time.perf_counter()
-    libs = build_all(verbose=True)         # prints ptxas's register report
+    libs, compiler_log, ptxas = build_all_with_report()
+    sys.stdout.write(compiler_log)
     log(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    if not ptxas:
+        log("no ptxas report: the build was up to date and compiled nothing")
+    for e in ptxas:
+        log(f"ptxas {e['kernel']} {e['entry']}: {e['registers']} registers, "
+            f"{e['spill_stores']} bytes spill stores, {e['spill_loads']} "
+            f"bytes spill loads, {e['stack']} bytes stack, {e['smem']} bytes "
+            "static shared memory")
+        if e["kernel"] in ("cc_lags", "gather_mix_kb") and (
+                e["spill_stores"] or e["spill_loads"]):
+            raise RuntimeError(f"{e['entry']} spills registers")
 
     rng = np.random.default_rng(0)
     max_err, timing = phase_kernels(torch, rng)
@@ -651,6 +737,9 @@ def main() -> int:
                     max_abs_err=errs["gather_windows"],
                     **wtiming["gather_windows"])]
     for k in kernels:
+        k["ptxas"] = [{f: e[f] for f in ("registers", "spill_stores",
+                                          "spill_loads", "smem")}
+                      for e in ptxas if e["kernel"] == k["name"]]
         if k["launches"] <= 0:
             raise RuntimeError(f"{k['name']} never launched on a main path")
     print(smi)

@@ -278,7 +278,9 @@ def _need_card():
 @pytest.mark.cuda
 def test_cc_kernel_matches_plain_on_card():
     """The CUDA kernel against its plain version, TF32 off, at the serving
-    shapes and odd B (rtol 2e-5 / atol 2e-4, the JAX kernel's tolerance)."""
+    shapes, at batch 1 and 3, n = 128 and 16000, K = 1, 17 and 63 (rtol
+    2e-5 / atol 2e-4, the JAX kernel's tolerance); two launches on the same
+    inputs give the same bits."""
     _need_card()
     from biear_tpu_torch.device import no_tf32
     from biear_tpu_torch.kernels import LAUNCHES
@@ -287,7 +289,9 @@ def test_cc_kernel_matches_plain_on_card():
 
     rng = np.random.default_rng(8)
     LAUNCHES.clear()
-    shapes = ((512, 16000, 48), (1, 16000, 48), (7, 1024, 63), (3, 2560, 1))
+    shapes = ((512, 16000, 48), (1, 16000, 48), (7, 1024, 63), (3, 2560, 1),
+              (3, 16000, 63), (1, 128, 1), (3, 128, 63), (1, 16000, 1),
+              (5, 2560, 17))
     for B, n, mk in shapes:
         lf, rf = (torch.tensor(rng.standard_normal((B, n)),
                                dtype=torch.float32, device="cuda")
@@ -296,7 +300,17 @@ def test_cc_kernel_matches_plain_on_card():
             want = cc_kept_lags_plain(lf, rf, mk)
             got = cc_kept_lags(lf, rf, mk)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
-    assert LAUNCHES["cc_lags"] == len(shapes)
+        assert torch.equal(got, cc_kept_lags(lf, rf, mk))
+    assert LAUNCHES["cc_lags"] == 2 * len(shapes)
+    # rows off the 16-byte grid (a view one float into its storage) and a K
+    # that is no multiple of 4 take the 4-byte staging copies
+    lf, rf = (torch.tensor(rng.standard_normal(1 + 2 * 1280),
+                           dtype=torch.float32, device="cuda")[1:].view(2, -1)
+              for _ in range(2))
+    with no_tf32():
+        torch.testing.assert_close(cc_kept_lags(lf, rf, 48),
+                                   cc_kept_lags_plain(lf, rf, 48),
+                                   rtol=2e-5, atol=2e-4)
 
 
 @pytest.mark.cuda
@@ -330,12 +344,51 @@ def test_window_kernels_match_plain_on_card():
                 wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf),
                 rtol=0, atol=5e-5)
     assert LAUNCHES["gather_windows"] == 3 and LAUNCHES["gather_mix_kb"] == 3
-    # a contiguous bank view off the 16-byte grid is refused, not launched
+    # a contiguous bank view off the 16-byte grid is refused, not launched,
+    # and so is such a pool
     shifted = torch.empty(kb.numel() + 8, dtype=kb.dtype, device="cuda")
     shifted = shifted[1:kb.numel() + 1].view(kb.shape)
     with pytest.raises(ValueError, match="aligned"):
         wg.gather_mix_kb(pool3, rows, offs, meas, shifted, 1)
+    moved = torch.empty(pool3.numel() + 4, dtype=pool3.dtype, device="cuda")
+    moved = moved[1:pool3.numel() + 1].view(pool3.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        wg.gather_mix_kb(moved, rows, offs, meas, kb, 1)
     assert LAUNCHES["gather_mix_kb"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("X,nf,ncol,M,wild", [
+    (1, 1, 384, 1, False), (5, 64, 384, 4, False), (5, 65, 384, 4, False),
+    (7, 61, 128, 1, False), (4, 125, 512, 3, False), (6, 128, 128, 2, False),
+    (9, 33, 256, 5, True), (300, 125, 384, 32, True)])
+def test_mix_kernel_ragged_shapes_on_card(X, nf, ncol, M, wild):
+    """gather_mix_kb.cu within 5e-5 of its plain version at one window, 1,
+    64, 65 and 128 frames, banks of 128 to 512 rows and of one measurement,
+    and with indices out of range (`wild`), which clamp; two launches on
+    the same inputs give the same bits."""
+    _need_card()
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.ops import window_gather as wg
+
+    gen = torch.Generator(device="cuda").manual_seed(X + nf + ncol)
+    NP, nb = 6, 140
+    pool3 = torch.randn((NP, nb, 128), generator=gen, device="cuda")
+    kb = (torch.randn((M, ncol, 256), generator=gen, device="cuda")
+          * 0.1).to(torch.bfloat16)
+    draw = lambda lo, hi: torch.randint(lo, hi, (X,), generator=gen,
+                                        device="cuda")
+    if wild:
+        rows, offs, meas = (draw(-3, NP + 3), draw(-500, nb * 128 + 500),
+                            draw(-2, M + 2))
+    else:
+        rows, offs, meas = (draw(0, NP), draw(0, nb * 128 - wg.WIN + 1),
+                            draw(0, M))
+    with no_tf32():
+        got = wg.gather_mix_kb(pool3, rows, offs, meas, kb, nf)
+        want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
+    torch.testing.assert_close(got, want, rtol=0, atol=5e-5)
+    assert torch.equal(got, wg.gather_mix_kb(pool3, rows, offs, meas, kb, nf))
 
 
 @pytest.mark.cuda
