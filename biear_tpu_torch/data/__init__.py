@@ -1,1 +1,2 @@
-"""Data of the port: labels and the on-device anechoic synthesizer."""
+"""Data of the port: labels, the on-device anechoic synthesizer and the
+``.shard`` reader."""

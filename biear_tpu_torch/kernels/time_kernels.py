@@ -6,9 +6,12 @@ checkout, at the shapes of the main paths.
 
 Without ``--compare`` it builds the kernels of the checkout named by
 ``--repo`` (default: the one this file lies in), holds the CC and mix
-kernels to their plain versions, checks that two launches give the same
-bits, times them with CUDA events (median of 7 x 20 launches) and prints
-one JSON line. With ``--compare`` it runs itself as four processes in
+kernels to their plain versions and the window gather bit for bit, checks
+that two launches give the same bits, times them with CUDA events (median
+of 7 x 20 launches) and prints one JSON line. The window gather is also
+timed beside its library call (one advanced-indexing gather) and its
+bound: the pool span its windows cover plus the indices read once and the
+windows written once, over the HBM rate. With ``--compare`` it runs itself as four processes in
 turn (other, this, this, other), so that two commits are timed on one card
 in one call; the other checkout needs only the wrappers
 ``cc_kept_lags_cuda`` and ``gather_mix_kb_cuda``, not this file.
@@ -23,6 +26,7 @@ import statistics
 import subprocess
 import sys
 
+H100_HBM_BYTES_S = 3.35e12    # HBM3, H100 SXM data sheet
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(os.path.dirname(HERE))
 CC_SHAPES = ((512, 16000, 48), (64, 16000, 48), (1, 16000, 48))
@@ -42,6 +46,16 @@ def cuda_ms(torch, fn, reps: int = 7, inner: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
+
+
+def window_bytes(rows, offs, row_len: int, win: int = 16384) -> float:
+    """Bytes of pool the windows cover: per distinct row, the span from its
+    smallest to its largest offset plus one window (read once)."""
+    import numpy as np
+    r, o = rows.cpu().numpy(), offs.cpu().numpy().clip(0, row_len - win)
+    span = sum(min(int(o[r == u].max() - o[r == u].min()) + win, row_len)
+               for u in np.unique(r))
+    return 4.0 * span
 
 
 def measure(repo: str, verbose: bool = False) -> dict:
@@ -101,6 +115,21 @@ def measure(repo: str, verbose: bool = False) -> dict:
     res["gather_mix_kb"]["X=1536 nf=125"] = {
         "ms": cuda_ms(torch, run), "max_abs_err": err,
         "same_bits": bool(torch.equal(got, run()))}
+
+    gather = lambda: wg.gather_windows_cuda(pool3, rows, offs)
+    g = gather()
+    if not torch.equal(g, wg.gather_windows_plain(pool3, rows, offs)):
+        raise RuntimeError("gather_windows is not bit-exact")
+    flat = pool3.reshape(pool3.shape[0], -1)
+    t = torch.arange(wg.WIN, device="cuda")
+    lib = lambda: flat[rows.long()[:, None], offs.long()[:, None] + t]
+    X = rows.numel()
+    nbytes = (window_bytes(rows, offs, flat.shape[1], wg.WIN) + 8.0 * X
+              + 4.0 * X * wg.WIN)
+    res["gather_windows"] = {"X=1536": {
+        "ms": cuda_ms(torch, gather), "library_ms": cuda_ms(torch, lib),
+        "bound_ms": nbytes / H100_HBM_BYTES_S * 1e3, "bound_by": "bytes",
+        "max_abs_err": 0.0, "same_bits": bool(torch.equal(g, gather()))}}
     return res
 
 

@@ -1,4 +1,4 @@
-"""The flagship active waveform model (dual Q-controllers).
+"""The active waveform model (dual or single Q-controller, or fixed Q).
 
 Counterpart of ``biear_tpu/models/biear.py::active_forward``: eval mode
 is ``train=False``; ``.train()`` mode is ``train=True`` and needs a
@@ -17,7 +17,7 @@ from ..device import no_tf32, resolve_device
 from .backend import (Encoder, SubHead, SubHeads, ild_features, ipd_features,
                       make_body)
 from .config import BiEARConfig
-from .frontend import DualFrontend
+from .frontend import make_frontend
 from .layers import init_module_
 
 
@@ -25,16 +25,13 @@ class ActiveBiEAR(nn.Module):
     """Waveforms (B, Nsamp) x2 and the CC feature x3 (B, N) ->
     (sound_logits (B, S), aoa (B, S), dist_logits (B, S, C), aux with Q).
 
-    Only the dual-controller and fixed-Q frontends are ported."""
+    ``cfg.controller_mode`` picks the frontend: "single" one shared
+    controller, anything else two per-ear ones (the JAX dispatch)."""
 
     def __init__(self, cfg: BiEARConfig):
         super().__init__()
-        if cfg.controller_mode != "dual":
-            raise NotImplementedError(
-                f"controller_mode={cfg.controller_mode!r}: only the dual "
-                "frontend is ported")
         self.cfg = cfg
-        self.bifb = DualFrontend(cfg)
+        self.bifb = make_frontend(cfg)
         self.encoder_ild = Encoder(cfg.n_bands, 200, cfg.latent_dim)
         self.encoder_ipd = Encoder(cfg.n_bands, 200, cfg.latent_dim)
         feat_dim = 2 * cfg.latent_dim
@@ -52,12 +49,26 @@ class ActiveBiEAR(nn.Module):
         with each controller's output layer at zero (Q starts at Q0)."""
         gen = torch.Generator().manual_seed(seed)
         init_module_(self, gen)
-        if not self.cfg.fixed_frontend_q:
-            with torch.no_grad():
-                for ctrl in (self.bifb.fb_L, self.bifb.fb_R):
-                    ctrl.q_out[8].weight.zero_()
-                    ctrl.q_out[8].bias.zero_()
+        with torch.no_grad():
+            for ctrl in self.bifb.controllers():
+                ctrl.q_out[8].weight.zero_()
+                ctrl.q_out[8].bias.zero_()
         return self
+
+    def heads(self, z_ild: torch.Tensor, z_ipd: torch.Tensor,
+              x3: torch.Tensor | None, gen: torch.Generator | None = None,
+              train: bool = False):
+        """Encoder summaries (B, latent) x2 and x3 (B, N) or None (zeros)
+        -> (sound_logits, aoa, dist_logits): the CC projection, body and
+        sector heads (JAX ``_heads``), shared by ``forward`` and the
+        streaming readout."""
+        feats = [z_ild, z_ipd]
+        if self.cfg.use_cc:
+            if x3 is None:
+                x3 = z_ild.new_zeros((z_ild.shape[0], self.cfg.n_bands))
+            feats.append(self.cc_proj(x3))
+        body = self.body(torch.cat(feats, -1), gen, train)
+        return self.subheads(body, gen, train)
 
     def forward(self, wavL: torch.Tensor, wavR: torch.Tensor,
                 x3: torch.Tensor | None = None,
@@ -69,20 +80,14 @@ class ActiveBiEAR(nn.Module):
             raise ValueError("ActiveBiEAR in training mode requires a "
                              "torch.Generator for dropout: pass gen= or "
                              "call .eval()")
-        cfg = self.cfg
         with no_tf32():
             wavL, wavR = wavL.float(), wavR.float()
             YL, YR, QL, QR, phL, phR = self.bifb(wavL, wavR, gen, train)
             x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
             x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
-            feats = [self.encoder_ild(ild_features(x1, x2)),
-                     self.encoder_ipd(ipd_features(phL, phR))]
-            if cfg.use_cc:
-                if x3 is None:
-                    x3 = wavL.new_zeros((wavL.shape[0], cfg.n_bands))
-                feats.append(self.cc_proj(x3))
-            body = self.body(torch.cat(feats, -1), gen, train)
-            sound, aoa, dist = self.subheads(body, gen, train)
+            sound, aoa, dist = self.heads(
+                self.encoder_ild(ild_features(x1, x2)),
+                self.encoder_ipd(ipd_features(phL, phR)), x3, gen, train)
         return sound, aoa, dist, {"QL": QL, "QR": QR, "Q": 0.5 * (QL + QR)}
 
 

@@ -1,9 +1,20 @@
-"""Adaptive-Q binaural frontend (dual controller) and the fixed-Q path.
+"""Adaptive-Q binaural frontends (dual and single controller) and the
+fixed-Q path.
 
 Counterpart of ``biear_tpu/models/frontend.py``. All T frames are framed
-and transformed at once; only the Q feedback loop runs frame by frame.
-Each frame builds the Gaussian filterbank for both ears in one batch (at
-batch 512 one frame's G for both ears is ~210 MB in f32).
+and transformed at once; only the Q feedback loop runs frame by frame, in
+``forward``'s loop over the frontend's ``frame`` method, which streaming
+(``serve/streaming.py``) calls on one frame at a time, as the JAX
+package's scan bodies ``adaptive_step`` and ``single_step`` serve both.
+Each frame builds the Gaussian filterbank for both ears in one (2B) batch
+(at batch 512 one frame's G for both ears is ~210 MB in f32).
+
+  * ``DualFrontend``: two independent per-ear controllers (``fb_L``,
+    ``fb_R``) on [Y_ctrl, memory] (2N inputs each).
+  * ``SingleFrontend``: one shared controller (``q_rnn``, ``q_out``
+    directly under ``bifb``) on [YL_ctrl, memL, YR_ctrl, memR] (4N
+    inputs) sets one Q for both ears; the (2B) filterbank call repeats Q,
+    so its gradient sums over both ears.
 
 Training (``train=True`` with a generator): the controllers' dropout masks
 for all frames, both ears and both sites are drawn in one call, and the
@@ -16,12 +27,15 @@ the filterbank call is recomputed in the backward
 step (``cfg.remat_frontend``).
 
 Quirks of the reference kept exactly:
-  * the Y-memory input is 0.2 * log1p(max(Y, 0)) of the CURRENT frame
-    (the dual mode re-creates its memory every frame), detached;
+  * dual: the Y-memory input is 0.2 * log1p(max(Y, 0)) of the CURRENT
+    frame (the dual mode re-creates its memory every frame), detached;
+  * single: the per-ear EMA memories persist across frames, updated after
+    the controller step as 0.8 mem + 0.2 detach(Y_ctrl);
   * the controller's output layer starts at zero (Q = Q0);
   * Q is clamped to [q_min, q_max] after each update;
-  * a nonfinite Q anywhere in an ear's batch resets that ear's Q to Q0
-    and its controller state to zero (a device-side select, no host sync).
+  * a nonfinite Q anywhere in a controller's batch resets its Q to Q0 and
+    its state to zero (a device-side select, no host sync);
+  * freeze_q keeps Q at Q0 and the state (memories included) at zero.
 """
 
 from __future__ import annotations
@@ -79,12 +93,11 @@ def device_constants(cfg: BiEARConfig, device) -> dict:
             else v for k, v in frontend_constants(cfg).items()}
 
 
-def spectra(cfg: BiEARConfig, wav: torch.Tensor, c: dict):
-    """wav (B, Nsamp) -> (Xmag, Xre, Xim), each (B, T, F).
+def frame_spectra(cfg: BiEARConfig, frames: torch.Tensor, c: dict):
+    """frames (..., win) -> (Xmag, Xre, Xim), each (..., F).
 
     "fft": rFFT of the Hann-windowed, zero-padded frames. "matmul": the
     windowed DFT bases as one f32 product each (TF32 off on the card)."""
-    frames = frame_1s(wav, cfg.fs, cfg.timesteps, c["win"], c["hop"])
     if cfg.use_dft_matmul:
         re = frames @ c["dft_re"]
         im = frames @ c["dft_im"]
@@ -93,35 +106,51 @@ def spectra(cfg: BiEARConfig, wav: torch.Tensor, c: dict):
     return X.abs(), X.real, X.imag
 
 
+def spectra(cfg: BiEARConfig, wav: torch.Tensor, c: dict):
+    """wav (B, Nsamp) -> (Xmag, Xre, Xim), each (B, T, F)."""
+    frames = frame_1s(wav, cfg.fs, cfg.timesteps, c["win"], c["hop"])
+    return frame_spectra(cfg, frames, c)
+
+
+def make_q_out(cfg: BiEARConfig) -> nn.Sequential:
+    """[Linear, LN, SiLU, Dropout] x2 and Linear(H -> N); indices 0, 1, 4,
+    5, 8 are the reference's."""
+    H = cfg.ctrl_hidden
+    return nn.Sequential(
+        nn.Linear(H, H), nn.LayerNorm(H), nn.SiLU(),
+        nn.Dropout(cfg.ctrl_dropout),
+        nn.Linear(H, H), nn.LayerNorm(H), nn.SiLU(),
+        nn.Dropout(cfg.ctrl_dropout),
+        nn.Linear(H, cfg.n_bands))
+
+
+def controller_update(q_rnn: GRU, q_out: nn.Sequential, rate: float,
+                      h: torch.Tensor, feat: torch.Tensor, drops=None):
+    """One controller update: returns (delta in [-1, 1], new hidden).
+    drops: the keep-masks (2, B, H) of the two dropout sites, or None for
+    none (the nn.Dropout modules at indices 3 and 7 are never called)."""
+    h = q_rnn.step(feat, h)
+    z = q_out[2](q_out[1](q_out[0](h)))
+    if drops is not None:
+        z = dropout_apply(drops[0], z, rate)
+    z = q_out[6](q_out[5](q_out[4](z)))
+    if drops is not None:
+        z = dropout_apply(drops[1], z, rate)
+    return torch.tanh(q_out[8](z)), h
+
+
 class Controller(nn.Module):
-    """Q-controller: GRU(2N -> H), then [Linear, LN, SiLU, Dropout] x2 and
-    Linear(H -> N). Indices 0, 1, 4, 5, 8 of ``q_out`` are the reference's."""
+    """Q-controller: GRU(n_in -> H) and ``make_q_out``."""
 
     def __init__(self, cfg: BiEARConfig, n_in: int):
         super().__init__()
-        H = cfg.ctrl_hidden
         self.rate = cfg.ctrl_dropout
-        self.q_rnn = GRU(n_in, H)
-        self.q_out = nn.Sequential(
-            nn.Linear(H, H), nn.LayerNorm(H), nn.SiLU(),
-            nn.Dropout(cfg.ctrl_dropout),
-            nn.Linear(H, H), nn.LayerNorm(H), nn.SiLU(),
-            nn.Dropout(cfg.ctrl_dropout),
-            nn.Linear(H, cfg.n_bands))
+        self.q_rnn = GRU(n_in, cfg.ctrl_hidden)
+        self.q_out = make_q_out(cfg)
 
     def forward(self, h: torch.Tensor, feat: torch.Tensor, drops=None):
-        """One update: returns (delta in [-1, 1], new hidden). drops: the
-        keep-masks (2, B, H) of the two dropout sites, or None for none
-        (the nn.Dropout modules at indices 3 and 7 are never called)."""
-        h = self.q_rnn.step(feat, h)
-        q = self.q_out
-        z = q[2](q[1](q[0](h)))
-        if drops is not None:
-            z = dropout_apply(drops[0], z, self.rate)
-        z = q[6](q[5](q[4](z)))
-        if drops is not None:
-            z = dropout_apply(drops[1], z, self.rate)
-        return torch.tanh(q[8](z)), h
+        return controller_update(self.q_rnn, self.q_out, self.rate, h, feat,
+                                 drops)
 
 
 def next_q(cfg: BiEARConfig, c: dict, delta: torch.Tensor) -> torch.Tensor:
@@ -142,7 +171,8 @@ def finite_reset(Q: torch.Tensor, h: torch.Tensor, Q0: torch.Tensor):
 
 def adaptive_step(ctrl: Controller, cfg: BiEARConfig, c: dict, Q, h, Y,
                   drops=None):
-    """Controller half of one frame for one ear, from its band energy Y."""
+    """Controller half of one dual-mode frame for one ear, from its band
+    energy Y."""
     Y_ctrl = torch.log1p(torch.clamp(Y, min=0.0))
     feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl.detach()], dim=-1)
     delta, h = ctrl(h, feat, drops)
@@ -163,16 +193,17 @@ def fixed_forward(cfg: BiEARConfig, c: dict, Xmag, Xre, Xim):
     return Y, Qc.expand(B, T, cfg.n_bands), phase
 
 
-class DualFrontend(nn.Module):
-    """Two independent per-ear Q-controllers (``fb_L``, ``fb_R``), or none
-    when the frontend Q is fixed."""
+class _Frontend(nn.Module):
+    """Spectra, the fixed-Q path and the frame loop shared by both
+    adaptive frontends. A subclass defines ``init_carry``, ``mask_shape``,
+    ``controllers`` and ``frame``; ``STREAM_AXIS`` is the batch axis of
+    its carry."""
+
+    STREAM_AXIS = 0
 
     def __init__(self, cfg: BiEARConfig):
         super().__init__()
         self.cfg = cfg
-        if not cfg.fixed_frontend_q:
-            self.fb_L = Controller(cfg, 2 * cfg.n_bands)
-            self.fb_R = Controller(cfg, 2 * cfg.n_bands)
 
     def forward(self, wavL: torch.Tensor, wavR: torch.Tensor,
                 gen: torch.Generator | None = None, train: bool = False):
@@ -193,35 +224,27 @@ class DualFrontend(nn.Module):
         # (T, 2B, 4, F): both ears batched into every frame's filterbank
         rhs = torch.cat([stack_rhs(*specL, bf16), stack_rhs(*specR, bf16)])
         rhs = rhs.transpose(0, 1)
-        Q = c["Q0"].expand(2, B, cfg.n_bands)
-        h = wavL.new_zeros((2, B, cfg.ctrl_hidden))
-        masks = None                    # [frame, ear, site] -> (B, H)
+        carry = self.init_carry(c, B, wavL.device)
+        masks = None
         if train and gen is not None and cfg.ctrl_dropout > 0.0:
             masks = dropout_masks(gen, cfg.ctrl_dropout,
-                                  (T, 2, 2, B, cfg.ctrl_hidden))
-        fb = self._filterbank(c, bf16)
+                                  (T, *self.mask_shape(B)))
+        fb = self.filterbank(c)
         Ys, Qs, phases = [], [], []
         for t in range(T):
-            Y, Zre, Zim = fb(Q.reshape(2 * B, -1), rhs[t])
-            Y = Y.reshape(2, B, -1)
+            carry, (Y, Q, phase) = self.frame(
+                c, fb, carry, rhs[t], None if masks is None else masks[t])
             Ys.append(Y)
             Qs.append(Q)
-            phases.append(band_phase(Zre, Zim).reshape(2, B, -1))
-            if cfg.freeze_q:
-                continue
-            dL = dR = None
-            if masks is not None:
-                dL, dR = masks[t, 0], masks[t, 1]
-            QL, hL = adaptive_step(self.fb_L, cfg, c, Q[0], h[0], Y[0], dL)
-            QR, hR = adaptive_step(self.fb_R, cfg, c, Q[1], h[1], Y[1], dR)
-            Q, h = torch.stack([QL, QR]), torch.stack([hL, hR])
+            phases.append(phase)
         Y, Q, phase = (torch.stack(a, dim=2) for a in (Ys, Qs, phases))
         return Y[0], Y[1], Q[0], Q[1], phase[0], phase[1]
 
-    def _filterbank(self, c: dict, bf16: bool):
+    def filterbank(self, c: dict):
         """(Q, rhs) -> (Y, Zre, Zim) for one frame: the plain forward
         without autograd, else the VJP cfg.fb_vjp resolves to."""
         cfg = self.cfg
+        bf16 = cfg.fb_w_dtype == "bfloat16"
         fc, f_fft = c["fc"], c["f_fft"]
         if not torch.is_grad_enabled():
             return lambda Q, rhs: fb_forward(Q, fc, f_fft, rhs, bf16)
@@ -232,3 +255,112 @@ class DualFrontend(nn.Module):
                                              bf16, use_reentrant=False)
         return lambda Q, rhs: filterbank_apply_rhs(Q, fc, f_fft, rhs, bf16,
                                                    vjp, cfg.fb_x_grad)
+
+
+class DualFrontend(_Frontend):
+    """Two independent per-ear Q-controllers (``fb_L``, ``fb_R``), or none
+    when the frontend Q is fixed. The carry is ear-stacked: (Q (2, B, N),
+    h (2, B, H))."""
+
+    STREAM_AXIS = 1
+
+    def __init__(self, cfg: BiEARConfig):
+        super().__init__(cfg)
+        if not cfg.fixed_frontend_q:
+            self.fb_L = Controller(cfg, 2 * cfg.n_bands)
+            self.fb_R = Controller(cfg, 2 * cfg.n_bands)
+
+    def controllers(self) -> list:
+        """The modules that own a ``q_out``."""
+        return [] if self.cfg.fixed_frontend_q else [self.fb_L, self.fb_R]
+
+    def init_carry(self, c: dict, B: int, device) -> tuple:
+        cfg = self.cfg
+        return (c["Q0"].expand(2, B, cfg.n_bands),
+                torch.zeros((2, B, cfg.ctrl_hidden), device=device))
+
+    def mask_shape(self, B: int) -> tuple:
+        """Per frame: [ear, site] -> (B, H)."""
+        return (2, 2, B, self.cfg.ctrl_hidden)
+
+    def frame(self, c: dict, fb, carry: tuple, rhs: torch.Tensor,
+              drops=None):
+        """One frame, both ears: rhs (2B, 4, F) -> (carry', (Y, Q, phase)),
+        each output (2, B, N), Q the one this frame was filtered with."""
+        cfg = self.cfg
+        Q, h = carry
+        B = Q.shape[1]
+        Y, Zre, Zim = fb(Q.reshape(2 * B, -1), rhs)
+        Y = Y.reshape(2, B, -1)
+        out = (Y, Q, band_phase(Zre, Zim).reshape(2, B, -1))
+        if cfg.freeze_q:
+            return carry, out
+        dL = dR = None
+        if drops is not None:
+            dL, dR = drops[0], drops[1]
+        QL, hL = adaptive_step(self.fb_L, cfg, c, Q[0], h[0], Y[0], dL)
+        QR, hR = adaptive_step(self.fb_R, cfg, c, Q[1], h[1], Y[1], dR)
+        return (torch.stack([QL, QR]), torch.stack([hL, hR])), out
+
+
+class SingleFrontend(_Frontend):
+    """One shared Q-controller for both ears. Its parameters sit directly
+    on this module (``q_rnn``, ``q_out``: ``bifb.q_rnn.*`` in a reference
+    checkpoint); none when the frontend Q is fixed. The carry is (Q (B, N),
+    h (B, H), memL (B, N), memR (B, N))."""
+
+    BETA = 0.8
+
+    def __init__(self, cfg: BiEARConfig):
+        super().__init__(cfg)
+        if not cfg.fixed_frontend_q:
+            self.rate = cfg.ctrl_dropout
+            self.q_rnn = GRU(4 * cfg.n_bands, cfg.ctrl_hidden)
+            self.q_out = make_q_out(cfg)
+
+    def controllers(self) -> list:
+        return [] if self.cfg.fixed_frontend_q else [self]
+
+    def init_carry(self, c: dict, B: int, device) -> tuple:
+        cfg = self.cfg
+        zeros = lambda n: torch.zeros((B, n), device=device)
+        return (c["Q0"].expand(B, cfg.n_bands), zeros(cfg.ctrl_hidden),
+                zeros(cfg.n_bands), zeros(cfg.n_bands))
+
+    def mask_shape(self, B: int) -> tuple:
+        """Per frame: [site] -> (B, H)."""
+        return (2, B, self.cfg.ctrl_hidden)
+
+    def frame(self, c: dict, fb, carry: tuple, rhs: torch.Tensor,
+              drops=None):
+        """One frame, both ears through one (2B) filterbank call with Q
+        repeated: rhs (2B, 4, F) -> (carry', (Y, Q, phase)), each output
+        (2, B, N)."""
+        cfg = self.cfg
+        Q, h, memL, memR = carry
+        B = Q.shape[0]
+        Y, Zre, Zim = fb(torch.cat([Q, Q]), rhs)
+        Y = Y.reshape(2, B, -1)
+        out = (Y, Q.expand(2, B, cfg.n_bands),
+               band_phase(Zre, Zim).reshape(2, B, -1))
+        if cfg.freeze_q:
+            zero = torch.zeros_like
+            return (c["Q0"].expand_as(Q), zero(h), zero(memL),
+                    zero(memR)), out
+        YL_ctrl = torch.log1p(torch.clamp(Y[0], min=0.0))
+        YR_ctrl = torch.log1p(torch.clamp(Y[1], min=0.0))
+        feat = torch.cat([YL_ctrl, memL, YR_ctrl, memR], dim=-1)
+        delta, h = controller_update(self.q_rnn, self.q_out, self.rate, h,
+                                     feat, drops)
+        Qn, h = finite_reset(next_q(cfg, c, delta), h, c["Q0"][None])
+        beta = self.BETA
+        memL = beta * memL + (1.0 - beta) * YL_ctrl.detach()
+        memR = beta * memR + (1.0 - beta) * YR_ctrl.detach()
+        return (Qn, h, memL, memR), out
+
+
+def make_frontend(cfg: BiEARConfig) -> _Frontend:
+    """``SingleFrontend`` for controller_mode "single", else
+    ``DualFrontend`` (the JAX package's dispatch)."""
+    return (SingleFrontend if cfg.controller_mode == "single"
+            else DualFrontend)(cfg)

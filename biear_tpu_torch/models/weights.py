@@ -5,7 +5,8 @@ numpy arrays (``jax.tree.map(np.asarray, params)``), into this package's
 state dict. The names are those of the reference checkpoints, the same
 that ``biear_tpu/train/state.py::to_torch_state_dict`` writes; the
 ear-stacked ``bifb.fb`` leaves (axis 0: fb_L, fb_R) and the head-stacked
-``subheads`` leaves (axis 0: sector) are split here.
+``subheads`` leaves (axis 0: sector) are split here; the single
+controller's ``bifb.ctrl`` leaves sit directly under ``bifb.``.
 """
 
 from __future__ import annotations
@@ -77,4 +78,6 @@ def state_dict_from_jax(params_np: dict, cfg: BiEARConfig) -> dict:
     if "fb" in bifb:
         for e, ear in enumerate(("fb_L", "fb_R")):
             _controller(sd, f"bifb.{ear}", _take(bifb["fb"], e))
+    elif "ctrl" in bifb:
+        _controller(sd, "bifb", bifb["ctrl"])
     return sd

@@ -1,1 +1,2 @@
-"""Serving entry points of the port."""
+"""Serving entry points of the port: batch prediction (``infer``),
+streaming (``streaming``) and their profiles."""

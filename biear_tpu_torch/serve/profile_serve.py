@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
 """Where the serving time goes on the card: per-stage times and a kernel
-breakdown of ``serve.infer.predict`` for the flagship model.
+breakdown of ``serve.infer.predict`` for the flagship model, or for the
+single-controller one.
 
-    python -m biear_tpu_torch.serve.profile_serve [--batch 512] [--out f.json]
+    python -m biear_tpu_torch.serve.profile_serve [--batch 512]
+        [--controller-mode dual|single] [--out f.json]
 
-Stages are timed with CUDA events (median of repeated runs): the CC
-feature (sanitize + correlation + resample), the frame spectra of both
-ears, the whole dual frontend (spectra included, 19 frames of filterbank
-and controllers), the backend (encoders, body, heads) and the whole
-``predict``. Then ``torch.profiler`` traces a few ``predict`` calls: the
+``--controller-mode`` picks the geometry (``GEOMETRY``): "dual" the
+flagship of ``bench.py:100-102``, "single" that of
+``conf/config_single_ctrl.yaml`` (one shared controller, absolute deltaQ,
+base 2.0, low 0.5, high 5). Stages are timed with CUDA events (median of
+repeated runs): the CC feature (sanitize + correlation + resample), the
+frame spectra of both ears, the whole frontend (spectra included, 19
+frames of filterbank and controllers), the backend (encoders, body,
+heads) and the whole ``predict``. Then ``torch.profiler`` traces a few ``predict`` calls: the
 device time summed by kernel name, and the device's idle share of the
 traced wall time. Seeded random weights; needs a CUDA card.
 """
@@ -34,6 +39,10 @@ from .infer import predict
 
 FLAGSHIP = dict(controller_mode="dual", deltaQ_mode="relative",
                 deltaQ_base=1.0, deltaQ_low_factor=0.3, deltaQ_high_factor=5.0)
+SINGLE_CTRL = dict(controller_mode="single", deltaQ_mode="absolute",
+                   deltaQ_base=2.0, deltaQ_low_factor=0.5,
+                   deltaQ_high_factor=5.0)
+GEOMETRY = {"dual": FLAGSHIP, "single": SINGLE_CTRL}
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -77,10 +86,8 @@ def stage_times(model, wavL, wavR) -> dict:
             YL, YR, _, _, phL, phR = fe
             x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
             x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
-            feats = [model.encoder_ild(ild_features(x1, x2)),
-                     model.encoder_ipd(ipd_features(phL, phR)),
-                     model.cc_proj(x3)]
-            return model.subheads(model.body(torch.cat(feats, -1)))
+            return model.heads(model.encoder_ild(ild_features(x1, x2)),
+                               model.encoder_ipd(ipd_features(phL, phR)), x3)
 
         return {
             "cc_feature_ms": cuda_ms(lambda: sanitize_x3(
@@ -88,7 +95,7 @@ def stage_times(model, wavL, wavR) -> dict:
                                           num_lags=cfg.n_bands))),
             "spectra_both_ears_ms": cuda_ms(
                 lambda: (spectra(cfg, wl, c), spectra(cfg, wr, c))),
-            "dual_frontend_ms": cuda_ms(lambda: model.bifb(wl, wr)),
+            "frontend_ms": cuda_ms(lambda: model.bifb(wl, wr)),
             "backend_ms": cuda_ms(backend),
             "predict_ms": cuda_ms(lambda: predict(model, wavL, wavR)),
             "predict_host_ms_runs": host_ms(
@@ -136,20 +143,25 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--policy", default="bfloat16",
                     choices=("bfloat16", "float32"))
+    ap.add_argument("--controller-mode", default="dual",
+                    choices=tuple(GEOMETRY))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve needs a CUDA card")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    model = build_active(BiEARConfig(**FLAGSHIP, fb_w_dtype=args.policy),
-                         seed=args.seed)
+    model = build_active(BiEARConfig(**GEOMETRY[args.controller_mode],
+                                     fb_w_dtype=args.policy), seed=args.seed)
     rng = np.random.default_rng(args.seed)
     wavL, wavR = (torch.tensor(rng.uniform(-1, 1, (args.batch, 16000)),
                                dtype=torch.float32, device="cuda")
                   for _ in range(2))
     result = {"card": smi, "batch": args.batch, "policy": args.policy,
+              "controller_mode": args.controller_mode,
               "stages": stage_times(model, wavL, wavR),
               "profile": kernel_breakdown(model, wavL, wavR)}
     runs = sorted(result["stages"]["predict_host_ms_runs"])

@@ -1,0 +1,318 @@
+"""Streaming (frame-by-frame) inference for the active models.
+
+Counterpart of ``biear_tpu/serve/streaming.py``. A real-time deployment
+receives one hop of audio per stream per tick (win = hop = 842 samples,
+52.6 ms at 16 kHz and 19 frames) and advances every concurrent stream by
+one frame, instead of re-running a whole 1 s forward per hop:
+
+    state = stream_init(model, batch)
+    for each hop:  state = stream_step(model, state, chunkL, chunkR)
+    sound, aoa, dist = stream_readout(model, state[, tailL, tailR])
+
+The functions take the model (an ``ActiveBiEAR``), run under
+``torch.inference_mode()`` with TF32 off, and keep their state as a dict
+of tensors on the model's device; the batch axis is the concurrent-streams
+axis, and ``stream_reset`` re-initialises slots when streams end. Dual,
+single and fixed-Q frontends stream.
+
+Equivalence with the model's forward on the same 1 s crop (T hop-chunks,
+then the fs - T * hop residual samples to ``stream_readout``):
+
+  * the frontend runs the same per-frame method (``frame``) as the
+    forward's loop, on the same spectra code (``frame_spectra``);
+  * the encoders run ``in_norm`` and the GRU cells one frame at a time
+    (``GRU.step``) and keep a running sum, where the forward runs the
+    sequence through ``nn.GRU`` (cuDNN on the card) and takes a time mean:
+    the same function, summed in another order;
+  * the CC feature accumulates raw lag sums hop by hop over a K-sample
+    halo (K = 48 at 16 kHz) and removes the means at readout by a closed
+    form, where the forward centres the whole crop first.
+
+So the outputs agree to rounding (2e-4 with the CC feature, 2e-6 without,
+the tolerances of the JAX package's tests). Continuous operation past T
+frames is defined: the readout is a running mean over all frames seen
+(per-stream counters), though equality with the forward holds at T.
+Only hop_ratio == 1 configurations stream (win == hop).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..device import no_tf32
+from ..models.backend import ild_features, ipd_features
+from ..models.biear import ActiveBiEAR
+from ..models.config import BiEARConfig
+from ..models.frontend import device_constants, fixed_forward, frame_spectra
+from ..ops.filterbank import stack_rhs
+from ..ops.framing import frame_params
+from ..ops.xcorr import interp_to_lags, lag_plan
+
+GRU1_HIDDEN = 200
+
+
+@functools.lru_cache(maxsize=None)
+def stream_plan(cfg: BiEARConfig) -> dict:
+    """Static geometry: frame size, the CC lag window K and interpolation
+    plan (the batch path's ``lag_plan`` for a 1 s crop), and the residual
+    tail the 1 s protocol leaves after T frames."""
+    win, hop = frame_params(cfg.fs, cfg.timesteps, cfg.hop_ratio)
+    if win != hop:
+        raise NotImplementedError(
+            "streaming inference requires hop_ratio == 1.0 (win == hop); "
+            f"got win={win}, hop={hop}")
+    kept, j0, w = lag_plan(cfg.fs, cfg.fs, cfg.n_bands, 3.0)
+    K = int(np.max(np.abs(kept)))
+    if len(kept) != 2 * K + 1:
+        raise AssertionError("CC lag window is not contiguous")
+    if win < K:
+        raise NotImplementedError(
+            f"first chunk must cover the CC head buffer: win={win} < K={K}")
+    return {"win": win, "hop": hop, "K": K, "j0": j0, "w": w,
+            "tail_len": cfg.fs - cfg.timesteps * hop}
+
+
+def _device(model: ActiveBiEAR) -> torch.device:
+    return next(model.parameters()).device
+
+
+# ---------------- state ----------------
+
+@torch.inference_mode()
+def stream_init(model: ActiveBiEAR, batch: int) -> dict:
+    """Fresh state for `batch` concurrent streams, on the model's device.
+
+    ``fe`` is the frontend's carry: () for fixed Q, (Q, h, memL, memR) for
+    the single controller, the ear-stacked (Q, h) of shape (2, B, ...) for
+    the dual one. ``t`` and ``cc.n`` count frames and samples per stream."""
+    cfg, dev = model.cfg, _device(model)
+    z = lambda *s: torch.zeros(s, device=dev)
+    fe = ()
+    if not cfg.fixed_frontend_q:
+        c = device_constants(cfg, dev)
+        fe = tuple(a.contiguous() for a in model.bifb.init_carry(c, batch,
+                                                                 dev))
+    enc = lambda: {"h1": z(batch, GRU1_HIDDEN), "h2": z(batch, cfg.latent_dim),
+                   "sum": z(batch, cfg.latent_dim)}
+    state = {"t": torch.zeros(batch, dtype=torch.int32, device=dev),
+             "fe": fe, "ild": enc(), "ipd": enc()}
+    if cfg.use_cc:
+        K = stream_plan(cfg)["K"]
+        state["cc"] = {"raw": z(batch, 2 * K + 1),
+                       "n": torch.zeros(batch, dtype=torch.int32, device=dev),
+                       "sumL": z(batch), "sumR": z(batch),
+                       "headL": z(batch, K), "headR": z(batch, K),
+                       "tailL": z(batch, K), "tailR": z(batch, K)}
+    return state
+
+
+def _tree_map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, tuple):
+        return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+@torch.inference_mode()
+def stream_reset(model: ActiveBiEAR, state: dict, mask) -> dict:
+    """Re-initialise the slots where `mask` (B,) is true (a stream ended and
+    a new one takes its slot). Reset slots equal a ``stream_init`` slot bit
+    for bit; the others are untouched. The frontend carry's streams axis
+    is the frontend's ``STREAM_AXIS`` (1 for the ear-stacked dual carry)."""
+    mask = torch.as_tensor(mask, device=_device(model)).bool()
+    B = mask.shape[0]
+    fresh = stream_init(model, B)
+
+    def sel(axis):
+        def f(s0, s):
+            m = mask.reshape((1,) * axis + (B,) + (1,) * (s.ndim - axis - 1))
+            return torch.where(m, s0, s)
+        return f
+
+    fe_axis = model.bifb.STREAM_AXIS
+    return {k: _tree_map(sel(fe_axis if k == "fe" else 0), fresh[k],
+                         state[k]) for k in state}
+
+
+# ---------------- CC accumulator ----------------
+
+def _lagged_dots(x: torch.Tensor, ext: torch.Tensor, S: int) -> torch.Tensor:
+    """D[b, s] = sum_{m < w} x[b, m] ext[b, s + m] for s in [0, S), with
+    x (R, w) and ext (R, >= S - 1 + w).
+
+    A block product instead of S shifted copies: with blocks of P = S
+    samples, x[P f + i] meets ext[P f + i + s], so G[i, j] = sum_f
+    x[P f + i] E2[f, j] (E2[f] = ext blocks f and f + 1 side by side) holds
+    D[s] on the diagonals j = i + s, read at flat stride 2P + 1 after a
+    pad. Memory per row: (P, 2P) floats, not (S, w)."""
+    R, w = x.shape
+    P = S
+    nf = -(-w // P)
+    xb = F.pad(x, (0, nf * P - w)).reshape(R, nf, P)
+    eb = F.pad(ext[:, :nf * P + P], (0, max(0, nf * P + P - ext.shape[1])))
+    eb = eb.reshape(R, nf + 1, P)
+    e2 = torch.cat([eb[:, :nf], eb[:, 1:]], dim=-1)        # (R, nf, 2P)
+    G = torch.bmm(xb.transpose(1, 2), e2)                  # (R, P, 2P)
+    Gp = F.pad(G.reshape(R, 2 * P * P), (0, P))
+    return Gp.reshape(R, P, 2 * P + 1)[:, :, :S].sum(dim=1)
+
+
+def _cc_accumulate(cc: dict, chunkL: torch.Tensor, chunkR: torch.Tensor,
+                   K: int) -> dict:
+    """Fold one chunk (B, w) per ear into the raw-lag accumulator.
+
+    raw[K + l] accumulates sum_m left[m + l] right[m] over the raw signals,
+    each pair counted in the chunk that holds its later sample, so only a
+    K-sample halo (the tail buffers) is kept: for l >= 0 the chunk's left
+    samples meet the halo-extended right signal, for l < 0 the chunk's
+    right samples the extended left one, in one ``_lagged_dots`` call."""
+    B, w = chunkL.shape
+    extL = torch.cat([cc["tailL"], chunkL], dim=1)          # (B, K + w)
+    extR = torch.cat([cc["tailR"], chunkR], dim=1)
+    D = _lagged_dots(torch.cat([chunkL, chunkR]), torch.cat([extR, extL]),
+                     K + 1)
+    # l >= 0: D[:B, K - l]; l < 0: D[B:, K + l]
+    contrib = torch.cat([D[B:, :K], D[:B].flip(-1)], dim=1)
+
+    first = (cc["n"] == 0)[:, None]
+    if w >= K:
+        head = lambda old, chunk: torch.where(first, chunk[:, :K], old)
+    else:
+        # a chunk narrower than K is never the first (stream_plan)
+        head = lambda old, chunk: old
+    tail = lambda old, chunk: torch.cat([old, chunk], dim=1)[:, -K:]
+    return {"raw": cc["raw"] + contrib, "n": cc["n"] + w,
+            "sumL": cc["sumL"] + chunkL.sum(dim=1),
+            "sumR": cc["sumR"] + chunkR.sum(dim=1),
+            "headL": head(cc["headL"], chunkL),
+            "headR": head(cc["headR"], chunkR),
+            "tailL": tail(cc["tailL"], chunkL),
+            "tailR": tail(cc["tailR"], chunkR)}
+
+
+def _cc_readout(cc: dict, plan: dict) -> torch.Tensor:
+    """Accumulated raw lags -> the x3 feature (B, num_lags).
+
+    Exact mean removal: with a = |l| and overlap n - a,
+      centered[l] = raw[l] - muL S_R(l) - muR S_L(l) + (n - a) muL muR,
+    S_R / S_L the raw sums over each lag's overlap (the whole sum minus a
+    head or tail edge sum of the first / last K samples). Then the batch
+    path's peak normalisation and resampling (``interp_to_lags``)."""
+    K = plan["K"]
+    n = torch.clamp(cc["n"].float(), min=1.0)
+    muL = cc["sumL"] / n
+    muR = cc["sumR"] / n
+    dev = n.device
+    ls = np.arange(-K, K + 1)
+    a = torch.as_tensor(np.abs(ls), device=dev)
+    pos = torch.as_tensor(ls >= 0, device=dev)[None, :]
+    cum = lambda b: F.pad(torch.cumsum(b, dim=1), (1, 0))
+    headL, headR = cum(cc["headL"])[:, a], cum(cc["headR"])[:, a]
+    tailL = cum(cc["tailL"].flip(1))[:, a]
+    tailR = cum(cc["tailR"].flip(1))[:, a]
+    S_R = cc["sumR"][:, None] - torch.where(pos, tailR, headR)
+    S_L = cc["sumL"][:, None] - torch.where(pos, headL, tailL)
+    centered = (cc["raw"] - muL[:, None] * S_R - muR[:, None] * S_L
+                + (n[:, None] - a[None, :]) * (muL * muR)[:, None])
+    return interp_to_lags(centered, plan["j0"], plan["w"])
+
+
+# ---------------- per-frame step ----------------
+
+def _frontend_step(model: ActiveBiEAR, c: dict, fe: tuple, xsL, xsR):
+    """One frame through the model's frontend: spectra (B, F) per ear ->
+    (fe', YL, YR, phaseL, phaseR), each output (B, N)."""
+    cfg = model.cfg
+    if cfg.fixed_frontend_q:
+        ex = lambda xs: tuple(x[:, None] for x in xs)      # (B, 1, F)
+        YL, _, phL = fixed_forward(cfg, c, *ex(xsL))
+        YR, _, phR = fixed_forward(cfg, c, *ex(xsR))
+        return fe, YL[:, 0], YR[:, 0], phL[:, 0], phR[:, 0]
+    bf16 = cfg.fb_w_dtype == "bfloat16"
+    rhs = torch.cat([stack_rhs(*xsL, bf16), stack_rhs(*xsR, bf16)])
+    fe, (Y, _, phase) = model.bifb.frame(c, model.bifb.filterbank(c), fe,
+                                         rhs)
+    return fe, Y[0], Y[1], phase[0], phase[1]
+
+
+def _enc_step(enc, st: dict, x: torch.Tensor) -> dict:
+    """One frame through an encoder: in_norm, then the two GRU cells, and
+    the running sum of the second one's state (the forward's time mean)."""
+    x = enc.in_norm(x)
+    h1 = enc.gru1.step(x, st["h1"])
+    h2 = enc.gru2.step(h1, st["h2"])
+    return {"h1": h1, "h2": h2, "sum": st["sum"] + h2}
+
+
+@torch.inference_mode()
+def stream_step(model: ActiveBiEAR, state: dict, chunkL, chunkR) -> dict:
+    """Advance every stream by one frame: chunkL / chunkR (B, hop) new
+    samples per ear, on the model's device (numpy is moved there)."""
+    cfg = model.cfg
+    dev = _device(model)
+    plan = stream_plan(cfg)
+    chunkL = torch.as_tensor(chunkL, device=dev).float()
+    chunkR = torch.as_tensor(chunkR, device=dev).float()
+    c = device_constants(cfg, dev)
+    with no_tf32():
+        xsL = frame_spectra(cfg, chunkL, c)
+        xsR = frame_spectra(cfg, chunkR, c)
+        fe, YL, YR, phL, phR = _frontend_step(model, c, state["fe"], xsL, xsR)
+        x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
+        x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
+        out = {"t": state["t"] + 1, "fe": fe,
+               "ild": _enc_step(model.encoder_ild, state["ild"],
+                                ild_features(x1, x2)),
+               "ipd": _enc_step(model.encoder_ipd, state["ipd"],
+                                ipd_features(phL, phR))}
+        if cfg.use_cc:
+            out["cc"] = _cc_accumulate(state["cc"], chunkL, chunkR,
+                                       plan["K"])
+    return out
+
+
+@torch.inference_mode()
+def stream_readout(model: ActiveBiEAR, state: dict, tailL=None, tailR=None):
+    """The current belief: (sound_logits (B, S), aoa (B, S) in [0, 1],
+    dist_logits (B, S, C)). tailL / tailR: residual samples that belong to
+    no frame (the 1 s protocol leaves fs - T * hop); they update only the
+    CC statistics, as the forward correlates the whole crop."""
+    cfg = model.cfg
+    dev = _device(model)
+    plan = stream_plan(cfg)
+    with no_tf32():
+        cc = state.get("cc")
+        if cc is not None and tailL is not None and tailL.shape[1]:
+            cc = _cc_accumulate(cc, torch.as_tensor(tailL, device=dev).float(),
+                                torch.as_tensor(tailR, device=dev).float(),
+                                plan["K"])
+        t = torch.clamp(state["t"].float(), min=1.0)[:, None]
+        nz = lambda z: torch.nan_to_num(z, nan=0.0, posinf=0.0, neginf=0.0)
+        x3 = _cc_readout(cc, plan) if cc is not None else None
+        return model.heads(nz(state["ild"]["sum"] / t),
+                           nz(state["ipd"]["sum"] / t), x3)
+
+
+@torch.inference_mode()
+def stream_apply(model: ActiveBiEAR, wavL, wavR):
+    """A whole (B, fs) crop through the streaming path: T hops in a Python
+    loop, then the residual tail at readout. The equivalence harness
+    against the model's forward."""
+    plan = stream_plan(model.cfg)
+    hop, T = plan["hop"], model.cfg.timesteps
+    dev = _device(model)
+    wavL = torch.as_tensor(wavL, device=dev).float()
+    wavR = torch.as_tensor(wavR, device=dev).float()
+    state = stream_init(model, wavL.shape[0])
+    for t in range(T):
+        sl = slice(t * hop, (t + 1) * hop)
+        state = stream_step(model, state, wavL[:, sl], wavR[:, sl])
+    end = T * hop + plan["tail_len"]
+    return stream_readout(model, state, wavL[:, T * hop:end],
+                          wavR[:, T * hop:end])

@@ -1,2 +1,2 @@
 """Training of the port: losses, the optimizer, the train step and chunk,
-and the training profile."""
+the training profile, and checkpoint evaluation."""

@@ -4,10 +4,13 @@ pipeline of the flagship model, the bare train step, per-stage times and a
 kernel breakdown.
 
     python -m biear_tpu_torch.train.profile_train [--batch 512]
-        [--policy bf16|f32] [--chunk 16] [--windows 3] [--out f.json]
+        [--policy bf16|f32] [--controller-mode dual|single] [--chunk 16]
+        [--windows 3] [--out f.json]
 
 Counterpart of ``bench.py::measure_ours``: the flagship config
-(``bench.py:100-102``) at full width, seeded random weights, and the
+(``bench.py:100-102``), or with ``--controller-mode single`` that of
+``conf/config_single_ctrl.yaml`` (``serve.profile_serve.GEOMETRY``), at
+full width, seeded random weights, and the
 synthesizer fixture of ``bench.py`` (``make_test_hrir_bank()``,
 ``make_test_segments(256)``, 100 lags). Policies: bf16 = bf16 filterbank
 operands and the bf16 HRIR mix (the CUDA mix kernel); f32 = both in f32
@@ -43,12 +46,10 @@ from ..device import no_tf32
 from ..models import BiEARConfig, build_active
 from ..ops.window_gather import cc_kept_lags, gather_mix_kb, gather_windows
 from ..ops.xcorr import lag_plan
-from ..serve.profile_serve import device_profile
+from ..serve.profile_serve import GEOMETRY, device_profile
 from .loop import active_loss, make_train_chunk, train_step
 from .optim import TrainHyper, make_optimizer
 
-FLAGSHIP = dict(controller_mode="dual", deltaQ_mode="relative",
-                deltaQ_base=1.0, deltaQ_low_factor=0.3, deltaQ_high_factor=5.0)
 POLICIES = {"bf16": "bfloat16", "f32": "float32"}
 
 
@@ -151,6 +152,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--policy", default="bf16", choices=tuple(POLICIES))
+    ap.add_argument("--controller-mode", default="dual",
+                    choices=tuple(GEOMETRY))
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--windows", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -163,7 +166,7 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     dtype = POLICIES[args.policy]
-    cfg = BiEARConfig(**FLAGSHIP, fb_w_dtype=dtype)
+    cfg = BiEARConfig(**GEOMETRY[args.controller_mode], fb_w_dtype=dtype)
     B = args.batch
     hp = TrainHyper()
     ir, az, dist = make_test_hrir_bank()
@@ -191,6 +194,7 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated()
     result = {
         "card": smi, "batch": B, "policy": args.policy, "chunk": args.chunk,
+        "controller_mode": args.controller_mode,
         "fused_train_pipeline_utterances_per_sec": fused,
         "model_step_utt_s": bare,
         "stages": stage_times(model, hp, opt, synth, batch, gen),

@@ -41,6 +41,27 @@ Phases, each of which raises on failure (the exit code is then not 0):
      the CPU's own spread under waveform noise on the same batch, see
      STEP_LOSS_ATOL); and the fused-pipeline and bare-step rates at batch
      512.
+  6. single serve: phase 4 for the single-controller model
+     (conf/config_single_ctrl.yaml's geometry: one shared controller,
+     absolute deltaQ, base 2.0, low 0.5, high 5) at full width.
+  7. single train: a SINGLE_TRAIN_STEPS-step fused chunk of the single-
+     controller model at batch 512, bf16 (one mix and one CC launch per
+     step, finite losses, nothing skipped, both groups and the shared
+     controller's zero-initialised output layer move), with its rates.
+  8. stream: ``serve.streaming.stream_apply`` of the dual, single and
+     fixed-Q models at full width, batch 64, against the model's forward
+     on the same crop (STREAM_ATOL on every output, f32 with TF32 off and
+     bf16 with the DFT as a product); half the slots reset mid-stream must
+     equal fresh streams bit for bit; per-hop times at batch 1 and 512.
+  9. evaluate: a 256-row shard synthesised on the card (the bf16 mix and
+     CC kernels), written to a temporary directory, evaluated with
+     ``train.evaluate.evaluate`` for a seeded single-controller model on
+     the card; its predictions against the CPU port's on the same shard:
+     equal row by row except where a presence logit or distance margin
+     lies within the serving tolerance of its boundary (counted and
+     printed); over all rows, the accuracies that ``evaluate`` returned on
+     the card differ from the CPU's by no more than the flipped presence /
+     distance decisions; MAE to 1e-4.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -62,14 +83,17 @@ import numpy as np
 H100_F32_FLOPS = 67e12        # non-tensor-core f32, H100 SXM data sheet
 H100_HBM_BYTES_S = 3.35e12    # HBM3, H100 SXM data sheet
 CC_RTOL, CC_ATOL = 2e-5, 2e-4
-FLAGSHIP = dict(controller_mode="dual", deltaQ_mode="relative",
-                deltaQ_base=1.0, deltaQ_low_factor=0.3, deltaQ_high_factor=5.0)
 SERVE_BATCHES = ((1, "bfloat16"), (64, "bfloat16"), (512, "bfloat16"),
                  (64, "float32"))
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor cores, H100 SXM data sheet
 MIX_ATOL = 5e-5               # JAX's mix kernel vs its XLA composition
 TRAIN_BATCH = 512
 TRAIN_STEPS = 4
+SINGLE_TRAIN_STEPS = 2
+SERVE_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # card vs CPU, serving
+STREAM_ATOL = 2e-4            # tests/test_streaming.py
+STREAM_BATCH = 64
+EVAL_ROWS = 256
 # one f32 train step, card vs CPU port, on a synthesised and on bench.py's
 # white-noise batch of 4, stage by stage on the same inputs. The whole
 # gradient is not compared: it jumps where a phase difference crosses the
@@ -201,7 +225,7 @@ def perturb_controllers(torch, model, seed: int):
     """Non-zero controller output layers (seeded), so Q really moves."""
     gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for ctrl in (model.bifb.fb_L, model.bifb.fb_R):
+        for ctrl in model.bifb.controllers():
             for p in (ctrl.q_out[8].weight, ctrl.q_out[8].bias):
                 p.copy_(torch.rand(p.shape, generator=gen) * 0.1 - 0.05)
 
@@ -220,14 +244,19 @@ def check_outputs(torch, out, B):
                                rtol=0, atol=1e-5)
 
 
-def phase_serve(torch, rng):
+def phase_serve(torch, rng, label="dual"):
+    """predict of one geometry (``profile_serve.GEOMETRY[label]``) at
+    SERVE_BATCHES, checked and timed."""
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.serve.infer import predict
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY
+
+    geometry = GEOMETRY[label]
 
     models = {}
     for dt in ("bfloat16", "float32"):
-        m = build_active(BiEARConfig(**FLAGSHIP, fb_w_dtype=dt), seed=0)
+        m = build_active(BiEARConfig(**geometry, fb_w_dtype=dt), seed=0)
         perturb_controllers(torch, m, seed=1)
         models[dt] = m
     wav = {B: [torch.tensor(rng.uniform(-1, 1, (B, 16000)),
@@ -238,34 +267,35 @@ def phase_serve(torch, rng):
     outs = {(B, dt): predict(models[dt], *wav[B]) for B, dt in SERVE_BATCHES}
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
-    log(f"serving path launches: {launches}")
+    log(f"{label} serving path launches: {launches}")
     if launches.get("cc_lags", 0) != len(SERVE_BATCHES):
         raise RuntimeError(f"cc_lags launched {launches.get('cc_lags', 0)} "
                            f"times for {len(SERVE_BATCHES)} served batches")
 
     for (B, dt), out in outs.items():
         check_outputs(torch, out, B)
-        log(f"serve B={B} {dt}: shapes and ranges ok")
+        log(f"{label} serve B={B} {dt}: shapes and ranges ok")
 
     model = models["bfloat16"]
     with torch.inference_mode():
         _, _, _, aux = model(*wav[64])
     Q0 = aux["Q"][:, :1]
     q_move = float((aux["Q"][:, 1:] - Q0).abs().max())
-    log(f"max |Q(t) - Q(0)| at B=64: {q_move!r}")
+    log(f"{label}: max |Q(t) - Q(0)| at B=64: {q_move!r}")
     if not q_move > 1e-4:
         raise RuntimeError("the controllers do not move Q")
 
     plain = predict_plain_cc(torch, model, *wav[512])
     err = max(float((a - b).abs().max())
               for a, b in zip(outs[(512, "bfloat16")], plain))
-    log(f"B=512 CUDA CC vs plain CC, end to end: max abs diff {err!r}")
+    log(f"{label} B=512 CUDA CC vs plain CC, end to end: max abs diff "
+        f"{err!r}")
     if not err <= 1e-4:
         raise RuntimeError(f"CUDA-CC forward differs from plain-CC: {err}")
 
     # the card against the CPU run of the same port (held against the JAX
     # package by the CPU tests), on a small batch
-    for dt, tol in (("float32", 2e-3), ("bfloat16", 2e-2)):
+    for dt, tol in SERVE_TOL.items():
         cpu_model = build_active(models[dt].cfg, seed=0, device="cpu")
         cpu_model.load_state_dict(models[dt].state_dict())
         wl, wr = (w[:4] for w in wav[64])
@@ -273,7 +303,7 @@ def phase_serve(torch, rng):
         cpu_out = predict(cpu_model, wl.cpu(), wr.cpu())
         d = max(float((g.cpu() - c).abs().max())
                 for g, c in zip(gpu_out, cpu_out))
-        log(f"B=4 {dt}: max |card - CPU| = {d!r} (tolerance {tol})")
+        log(f"{label} B=4 {dt}: max |card - CPU| = {d!r} (tolerance {tol})")
         if not d <= tol:
             raise RuntimeError(f"{dt}: card and CPU differ by {d}")
 
@@ -285,19 +315,9 @@ def phase_serve(torch, rng):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     t = statistics.median(times[1:])
-    log(f"serve B=512 bf16: median {t * 1e3!r} ms per batch, "
+    log(f"{label} serve B=512 bf16: median {t * 1e3!r} ms per batch, "
         f"{512 / t!r} utterances/s")
     return launches
-
-
-def window_bytes(rows, offs, row_len: int) -> float:
-    """Bytes of pool the windows cover: per distinct row, the span from its
-    smallest to its largest offset plus one window (read once)."""
-    from biear_tpu_torch.ops.window_gather import WIN
-    r, o = rows.cpu().numpy(), offs.cpu().numpy().clip(0, row_len - WIN)
-    span = sum(min(int(o[r == u].max() - o[r == u].min()) + WIN, row_len)
-               for u in np.unique(r))
-    return 4.0 * span
 
 
 def bound(nbytes: float, flops: float, peak_flops: float) -> dict:
@@ -365,6 +385,7 @@ def phase_window_kernels(torch, synth):
     and bf16 bank. The mix's plain version sums in f64, so its comparison
     is also the f64 check; the kernel is held to an f32 bmm too."""
     from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.kernels.time_kernels import window_bytes
     from biear_tpu_torch.ops import window_gather as wg
 
     bank = synth.bank
@@ -592,54 +613,92 @@ def step_card_vs_cpu(torch, hp, cfg, batch, label):
                            "disagree")
 
 
-def phase_train(torch, synth):
+def train_chunk_phase(torch, synth, label: str, steps: int):
+    """A fused chunk of `steps` synthesize -> train steps of the geometry
+    ``profile_serve.GEOMETRY[label]`` at
+    TRAIN_BATCH, bf16: one mix and one CC launch per step, finite losses,
+    nothing skipped, finite non-zero gradient norms, both groups and every
+    controller's zero-initialised output layer moved; then the fused and
+    bare-step rates. Returns the chunk's launch counts."""
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.train.loop import make_train_chunk, train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY
     from biear_tpu_torch.train.profile_train import fixed_batch, rate_windows
 
+    geometry = GEOMETRY[label]
+
     hp = TrainHyper()
-    cfg = BiEARConfig(**FLAGSHIP, fb_w_dtype="bfloat16")
+    cfg = BiEARConfig(**geometry, fb_w_dtype="bfloat16")
     model = build_active(cfg, seed=0)
     opt = make_optimizer(model, hp)
     chunk = make_train_chunk(model, hp, opt, synth.batch_fn(TRAIN_BATCH),
-                             TRAIN_STEPS)
+                             steps)
     gen = torch.Generator(device="cuda").manual_seed(0)
     before = snapshot(model)
 
     LAUNCHES.clear()
     ms = chunk(gen)
     torch.cuda.synchronize()
-    launches = {"train_bf16": dict(LAUNCHES)}
-    log(f"train chunk ({TRAIN_STEPS} steps, B={TRAIN_BATCH}, bf16) "
-        f"launches: {launches['train_bf16']}")
+    launches = dict(LAUNCHES)
+    log(f"{label} train chunk ({steps} steps, B={TRAIN_BATCH}, bf16) "
+        f"launches: {launches}")
     for k in ("gather_mix_kb", "cc_lags"):
-        if LAUNCHES.get(k, 0) != TRAIN_STEPS:
-            raise RuntimeError(f"{k} launched {LAUNCHES.get(k, 0)} times in "
-                               f"{TRAIN_STEPS} train steps")
+        if launches.get(k, 0) != steps:
+            raise RuntimeError(f"{label}: {k} launched {launches.get(k, 0)} "
+                               f"times in {steps} train steps")
     losses = ms["loss"].tolist()
-    log(f"train losses {losses!r}, skipped {ms['skipped'].tolist()}")
-    log(f"grad norms: frontend {ms['grad_fb_norm'].tolist()!r}, backend "
-        f"{ms['grad_backend_norm'].tolist()!r}")
+    log(f"{label} train losses {losses!r}, skipped {ms['skipped'].tolist()}")
+    log(f"{label} grad norms: frontend {ms['grad_fb_norm'].tolist()!r}, "
+        f"backend {ms['grad_backend_norm'].tolist()!r}")
     if not all(np.isfinite(losses)) or float(ms["skipped"].sum()) != 0:
-        raise RuntimeError("train chunk: nonfinite loss or skipped step")
+        raise RuntimeError(f"{label} train chunk: nonfinite loss or skipped "
+                           "step")
     for k in ("grad_fb_norm", "grad_backend_norm"):
         v = ms[k]
         if not (bool(torch.isfinite(v).all()) and float(v.min()) > 0):
-            raise RuntimeError(f"train chunk: {k} = {v.tolist()}")
+            raise RuntimeError(f"{label} train chunk: {k} = {v.tolist()}")
     after = snapshot(model)
     moved = {n: float((after[n] - before[n]).abs().max()) for n in before}
     fe = max(v for n, v in moved.items() if n.startswith("bifb."))
     be = max(v for n, v in moved.items() if not n.startswith("bifb."))
-    out_layer = float(after["bifb.fb_L.q_out.8.weight"].abs().max())
-    log(f"max parameter change: frontend {fe!r}, backend {be!r}; "
-        f"controller output layer (zero at start) max |w| {out_layer!r}")
-    if not (fe > 0 and be > 0 and out_layer > 0):
-        raise RuntimeError("train chunk: a parameter group did not move")
+    out_layers = [n for n in after if n.endswith("q_out.8.weight")]
+    out_layer = min(float(after[n].abs().max()) for n in out_layers)
+    log(f"{label} max parameter change: frontend {fe!r}, backend {be!r}; "
+        f"controller output layers {out_layers} (zero at start) min max |w| "
+        f"{out_layer!r}")
+    if not (fe > 0 and be > 0 and out_layers and out_layer > 0):
+        raise RuntimeError(f"{label} train chunk: a parameter group did not "
+                           "move")
+
+    fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * steps, 3)
+    fb = fixed_batch(TRAIN_BATCH, cfg.n_bands, 0, "cuda")
+    bare = rate_windows(
+        lambda: [train_step(model, hp, opt, fb, gen) for _ in range(steps)],
+        TRAIN_BATCH * steps, 3)
+    log(f"{label} train B={TRAIN_BATCH} bf16: fused pipeline "
+        f"{fused['median']!r} utterances/s [{fused['min']!r}-"
+        f"{fused['max']!r}], bare step {bare['median']!r} utterances/s "
+        f"[{bare['min']!r}-{bare['max']!r}] (windows of {steps} steps)")
+    return launches
+
+
+def phase_train(torch, synth):
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY
+    from biear_tpu_torch.train.profile_train import fixed_batch
+
+    launches = {"train_bf16": train_chunk_phase(torch, synth, "dual",
+                                                TRAIN_STEPS)}
+    hp = TrainHyper()
+    gen = torch.Generator(device="cuda").manual_seed(1)
 
     # f32 policy, smaller batch: the window-gather kernel
-    cfg32 = BiEARConfig(**FLAGSHIP, fb_w_dtype="float32")
+    cfg32 = BiEARConfig(**GEOMETRY["dual"], fb_w_dtype="float32")
     m32 = build_active(cfg32, seed=0)
     synth32 = training_synth(torch, "float32")
     chunk32 = make_train_chunk(m32, hp, make_optimizer(m32, hp),
@@ -657,24 +716,179 @@ def phase_train(torch, synth):
         raise RuntimeError("f32 train step: wrong kernels or bad loss")
 
     # one step on the card against the CPU port: a synthesised batch (the
-    # generator's state here is fixed by the seed and the steps above) and
+    # generator's state here is fixed by the seed and the step above) and
     # bench.py's white-noise batch
-    cfg0 = BiEARConfig(**FLAGSHIP, fb_w_dtype="float32", ctrl_dropout=0.0,
-                       backend_dropout=0.0)
+    cfg0 = BiEARConfig(**GEOMETRY["dual"], fb_w_dtype="float32",
+                       ctrl_dropout=0.0, backend_dropout=0.0)
     step_card_vs_cpu(torch, hp, cfg0, synth32.sample_batch(gen, 4),
                      "synthesised")
     step_card_vs_cpu(torch, hp, cfg0, fixed_batch(4, cfg0.n_bands, 0, "cuda"),
                      "white-noise")
+    return launches
 
-    # rates at batch 512, bf16
-    fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * TRAIN_STEPS, 3)
-    fb = fixed_batch(TRAIN_BATCH, cfg.n_bands, 0, "cuda")
-    bare = rate_windows(
-        lambda: [train_step(model, hp, opt, fb, gen)
-                 for _ in range(TRAIN_STEPS)], TRAIN_BATCH * TRAIN_STEPS, 3)
-    log(f"train B={TRAIN_BATCH} bf16: fused pipeline {fused['median']!r} "
-        f"utterances/s [{fused['min']!r}-{fused['max']!r}], bare step "
-        f"{bare['median']!r} utterances/s [{bare['min']!r}-{bare['max']!r}]")
+
+def stream_hop_ms(torch, model, batch: int, reps: int = 10) -> float:
+    """Median host time of one synchronised stream_step at `batch`."""
+    from biear_tpu_torch.serve.profile_stream import Streams, host_ms
+    return statistics.median(host_ms(Streams(model, batch, False), reps))
+
+
+def phase_stream(torch, rng):
+    """stream_apply against the forward on the same crop (dual, single,
+    fixed-Q; f32 and bf16 with the matmul DFT), the churn check, per-hop
+    times. Returns the launch counts of the streamed runs alone."""
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.ops.xcorr import cross_correlation_feature
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY
+    from biear_tpu_torch.serve.streaming import (stream_apply, stream_init,
+                                                 stream_plan, stream_readout,
+                                                 stream_reset, stream_step)
+
+    B = STREAM_BATCH
+    wavL, wavR = (torch.tensor(rng.uniform(-1, 1, (B, 16000)),
+                               dtype=torch.float32, device="cuda")
+                  for _ in range(2))
+    launches = {}
+    models = {}
+    for (mode, fixed, dt) in (("dual", False, "float32"),
+                              ("single", False, "float32"),
+                              ("dual", True, "float32"),
+                              ("dual", False, "bfloat16"),
+                              ("single", False, "bfloat16"),
+                              ("dual", True, "bfloat16")):
+        cfg = BiEARConfig(**GEOMETRY[mode], fixed_frontend_q=fixed,
+                          fb_w_dtype=dt,
+                          dft_mode="matmul" if dt == "bfloat16" else "fft")
+        model = build_active(cfg, seed=0)
+        perturb_controllers(torch, model, seed=1)
+        label = f"{mode}{' fixed-Q' if fixed else ''} {dt}"
+        models[label] = model
+        with torch.inference_mode():
+            x3 = cross_correlation_feature(wavL, wavR, cfg.fs)
+            want = model(wavL, wavR, x3)[:3]
+        LAUNCHES.clear()
+        got = stream_apply(model, wavL, wavR)
+        torch.cuda.synchronize()
+        launches[label] = dict(LAUNCHES)
+        errs = [float((g - w).abs().max()) for g, w in zip(got, want)]
+        log(f"stream {label} B={B}: max |stream_apply - forward| (sound, "
+            f"aoa, dist) = {errs!r} (atol {STREAM_ATOL}); launches of the "
+            f"port's kernels while streaming: {launches[label]}")
+        if not max(errs) <= STREAM_ATOL:
+            raise RuntimeError(f"stream {label}: differs from the forward")
+
+    # churn: reset half the slots after 9 hops, feed 10 more; the reset
+    # slots must equal fresh streams fed the same audio, bit for bit
+    for label in ("dual float32", "single bfloat16"):
+        model = models[label]
+        hop = stream_plan(model.cfg)["hop"]
+
+        def hops(state, t0, n):
+            for t in range(t0, t0 + n):
+                sl = slice(t * hop, (t + 1) * hop)
+                state = stream_step(model, state, wavL[:, sl], wavR[:, sl])
+            return state
+
+        mask = torch.arange(B, device="cuda") % 2 == 0
+        churned = stream_reset(model, hops(stream_init(model, B), 0, 9), mask)
+        got = stream_readout(model, hops(churned, 9, 10))
+        ref = stream_readout(model, hops(stream_init(model, B), 9, 10))
+        same = all(torch.equal(g[mask], r[mask]) for g, r in zip(got, ref))
+        log(f"stream churn {label}: {int(mask.sum())} slots reset after 9 "
+            f"hops equal fresh streams bit for bit: {same}")
+        if not same:
+            raise RuntimeError(f"stream churn {label}: reset slots differ "
+                               "from fresh streams")
+
+    for label in ("dual bfloat16", "single bfloat16"):
+        t1, t512 = (stream_hop_ms(torch, models[label], b) for b in (1, 512))
+        log(f"stream {label}: stream_step host p50 {t1!r} ms per hop at "
+            f"batch 1, {t512!r} ms at batch 512 (hop 52.625 ms)")
+    total = {}
+    for c in launches.values():
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_evaluate(torch, synth):
+    """A synthesised shard evaluated on the card and on the CPU."""
+    import tempfile
+    from biear_tpu_torch.data.shard import ShardDataset, write_shard
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY
+    from biear_tpu_torch.train import evaluate as ev
+
+    settings = {"Active": True, "MODEL_KIND": "active", "USE_CC": True,
+                "Controller_Mode": "single", "DELTAQ_MODE": "absolute",
+                "DELTAQ_BASE": 2.0, "DELTAQ_LOW_FACTOR": 0.5,
+                "DELTAQ_HIGH_FACTOR": 5.0,
+                "GEOMETRY": {"FB_W_DTYPE": "bfloat16"}}
+    cfg = ev.config_from_settings(settings)
+    tol = SERVE_TOL[cfg.fb_w_dtype]
+    shapes = [(cfg.fs,), (cfg.fs,), (cfg.n_bands,), (56,)]
+    with tempfile.TemporaryDirectory() as tmp:
+        LAUNCHES.clear()
+        batch = synth.sample_batch(torch.Generator(device="cuda")
+                                   .manual_seed(3), EVAL_ROWS)
+        shard = os.path.join(tmp, "test.shard")
+        write_shard(shard, [a.cpu().numpy() for a in batch],
+                    ["i16", "i16", "f32", "f32"])
+        model = build_active(BiEARConfig(**GEOMETRY["single"],
+                                         fb_w_dtype="bfloat16"), seed=4)
+        perturb_controllers(torch, model, seed=5)
+        ckpt = os.path.join(tmp, "run", "best.pth")
+        os.makedirs(os.path.dirname(ckpt))
+        torch.save(model.state_dict(), ckpt)
+        with open(os.path.join(tmp, "run", "settings.json"), "w") as f:
+            json.dump(settings, f)
+        m_card = ev.evaluate(ckpt, test_shard=shard,
+                             out_path=os.path.join(tmp, "card.json"))
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        ds = ShardDataset(shard, shapes)
+        card = ev.collect_predictions(ev.load_model(ckpt, cfg), ds, 64)
+        cpu = ev.collect_predictions(ev.load_model(ckpt, cfg, "cpu"), ds, 64)
+    m_cpu = ev.metrics_from_predictions(*cpu)
+    if m_card != ev.metrics_from_predictions(*card):
+        raise RuntimeError("evaluate: its metrics differ from those of its "
+                           "own predictions")
+    log(f"evaluate: {EVAL_ROWS}-row shard synthesised on the card; launches "
+        f"(synthesis and the card's evaluation): {launches}")
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(card[:3], cpu[:3]))
+    # per (row, sector): presence flips only where the CPU's logit is
+    # within tol of 0, distance flips only where its top-2 margin is within
+    # 2 tol (each logit may move by tol)
+    top2 = np.sort(cpu[2], axis=-1)[..., -2:]
+    flip_el = np.concatenate([(card[0] > 0) != (cpu[0] > 0),
+                              card[2].argmax(-1) != cpu[2].argmax(-1)], 1)
+    near_el = np.concatenate([np.abs(cpu[0]) <= tol,
+                              top2[..., 1] - top2[..., 0] <= 2 * tol], 1)
+    flipped = flip_el.any(1)
+    near = near_el.any(1)
+    # all rows: each flipped decision moves its accuracy by 1 / (rows x 8)
+    n_el = cpu[0].size
+    d_acc = {k: abs(m_card["overall"][k] - m_cpu["overall"][k]) * n_el
+             for k in ("sound_acc", "dist_acc")}
+    n_flip = {"sound_acc": int(flip_el[:, :8].sum()),
+              "dist_acc": int(flip_el[:, 8:].sum())}
+    d_mae = abs(m_card["overall"]["aoa_mae"] - m_cpu["overall"]["aoa_mae"])
+    log(f"evaluate card vs CPU: max |logit or aoa difference| {diff!r}; "
+        f"rows with a different prediction {int(flipped.sum())} (each "
+        f"within {tol} of its boundary: {not (flip_el & ~near_el).any()}; "
+        f"rows near a boundary {int(near.sum())}); accuracies (sound, dist) "
+        f"{m_card['overall']['sound_acc']!r} / "
+        f"{m_card['overall']['dist_acc']!r} (card) and "
+        f"{m_cpu['overall']['sound_acc']!r} / "
+        f"{m_cpu['overall']['dist_acc']!r} (CPU), decisions apart "
+        f"{d_acc!r} against flipped {n_flip}; |d MAE| {d_mae!r}")
+    log(f"evaluate card metrics: {json.dumps(m_card['overall'])}")
+    if ((flip_el & ~near_el).any()
+            or any(round(d_acc[k]) > n_flip[k] for k in d_acc)
+            or not d_mae <= 1e-4 or set(m_card) != set(m_cpu)):
+        raise RuntimeError("evaluate: card and CPU disagree")
     return launches
 
 
@@ -713,6 +927,13 @@ def main() -> int:
     errs, wtiming = phase_window_kernels(torch, synth)
     launches = {"serve": phase_serve(torch, rng)}
     launches.update(phase_train(torch, synth))
+    launches["serve_single"] = phase_serve(torch, rng, "single")
+    launches["train_single_bf16"] = train_chunk_phase(
+        torch, synth, "single", SINGLE_TRAIN_STEPS)
+    launches["stream"] = phase_stream(torch, rng)
+    launches["evaluate"] = phase_evaluate(torch, synth)
+    log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
+        "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())
     by_path = lambda k: {p: c.get(k, 0) for p, c in launches.items()}
 

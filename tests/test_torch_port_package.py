@@ -116,6 +116,58 @@ def test_training_entry_points_without_device_raise_when_no_cuda(
     assert synth.bank["pool3"].device.type == "cpu"
 
 
+def test_new_entry_points_without_device_raise_when_no_cuda(monkeypatch,
+                                                            tmp_path):
+    """evaluate and its CLI, profile_stream, and both profiles' single-
+    controller flags refuse to run without a card unless given the CPU."""
+    import json
+    from biear_tpu_torch.data.shard import write_shard
+    from biear_tpu_torch.serve import profile_serve, profile_stream
+    from biear_tpu_torch.train import evaluate, profile_train
+
+    _no_cuda(monkeypatch)
+    (tmp_path / "settings.json").write_text(json.dumps(
+        {"Controller_Mode": "single"}))
+    shard = str(tmp_path / "t.shard")
+    write_shard(shard, [np.zeros((1, 16000), np.float32)] * 2
+                + [np.zeros((1, 100), np.float32),
+                   np.zeros((1, 56), np.float32)])
+    ckpt = str(tmp_path / "best.pth")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.evaluate(ckpt, test_shard=shard)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        evaluate.main(["--checkpoint", ckpt, "--test-shard", shard])
+    with pytest.raises(SystemExit, match="CUDA card"):
+        profile_stream.main([])
+    for prof in (profile_serve, profile_train):
+        with pytest.raises(SystemExit, match="CUDA card"):
+            prof.main(["--batch", "2", "--controller-mode", "single"])
+
+
+def test_streaming_state_lives_on_the_model_device():
+    """The streaming functions follow the model: a CPU model keeps a CPU
+    state, and numpy hops are moved to the model's device."""
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.serve import streaming
+
+    cfg = BiEARConfig(controller_mode="single", fs=1600, timesteps=4,
+                      n_fft=256, n_bands=24, fmax=700.0, latent_dim=8,
+                      ctrl_hidden=8)
+    model = build_active(cfg, seed=0, device="cpu")
+    state = streaming.stream_init(model, 2)
+    hop = streaming.stream_plan(cfg)["hop"]
+    state = streaming.stream_step(model, state,
+                                  np.zeros((2, hop), np.float32),
+                                  np.zeros((2, hop), np.float32))
+    leaves = [state["t"], *state["fe"], *state["ild"].values(),
+              *state["cc"].values()]
+    assert all(t.device.type == "cpu" for t in leaves)
+    assert [tuple(t.shape) for t in state["fe"]] == [(2, 24), (2, 8),
+                                                     (2, 24), (2, 24)]
+    out = streaming.stream_readout(model, state)
+    assert out[0].shape == (2, 8) and out[0].device.type == "cpu"
+
+
 def test_cli_without_device_raises_when_no_cuda(monkeypatch, tmp_path):
     import json
     from biear_tpu_torch.serve import infer
@@ -442,3 +494,62 @@ def test_predict_on_card_matches_cpu():
         assert LAUNCHES["cc_lags"] == 1
         for g, w in zip(got, predict(cpu, wavL, wavR)):
             torch.testing.assert_close(g.cpu(), w, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_single_predict_on_card_matches_cpu():
+    """The single-controller model served on the card against the same
+    weights on the CPU (one CC launch per call)."""
+    _need_card()
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.serve.infer import predict
+
+    rng = np.random.default_rng(10)
+    wavL, wavR = (rng.uniform(-1, 1, (3, 16000)).astype(np.float32)
+                  for _ in range(2))
+    for policy, tol in (("float32", 2e-3), ("bfloat16", 2e-2)):
+        cfg = BiEARConfig(controller_mode="single", deltaQ_mode="absolute",
+                          deltaQ_base=2.0, deltaQ_low_factor=0.5,
+                          deltaQ_high_factor=5.0, fb_w_dtype=policy)
+        gpu = build_active(cfg, seed=1)
+        cpu = build_active(cfg, seed=1, device="cpu")
+        LAUNCHES.clear()
+        got = predict(gpu, wavL, wavR)
+        assert LAUNCHES["cc_lags"] == 1
+        for g, w in zip(got, predict(cpu, wavL, wavR)):
+            torch.testing.assert_close(g.cpu(), w, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,fixed", [("dual", False), ("single", False),
+                                        ("dual", True)])
+def test_stream_apply_on_card_matches_forward(mode, fixed):
+    """stream_apply on the card against the model's forward on the same
+    crop, to 2e-4 (tests/test_streaming.py), f32 with TF32 off; the state
+    stays on the card."""
+    _need_card()
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.ops.xcorr import cross_correlation_feature
+    from biear_tpu_torch.serve.streaming import stream_apply, stream_init
+
+    cfg = BiEARConfig(controller_mode=mode, fixed_frontend_q=fixed,
+                      deltaQ_mode="relative")
+    model = build_active(cfg, seed=2)
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for ctrl in model.bifb.controllers():
+            w = ctrl.q_out[8].weight
+            w.copy_(0.25 * torch.randn(w.shape, generator=gen).cuda())
+    rng = np.random.default_rng(11)
+    wavL, wavR = (torch.tensor(rng.uniform(-1, 1, (4, 16000)),
+                               dtype=torch.float32, device="cuda")
+                  for _ in range(2))
+    with torch.inference_mode():
+        want = model(wavL, wavR, cross_correlation_feature(wavL, wavR,
+                                                           16000))[:3]
+    got = stream_apply(model, wavL, wavR)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g, w, rtol=0, atol=2e-4)
+    assert stream_init(model, 2)["t"].device.type == "cuda"

@@ -351,9 +351,13 @@ def _jax_trajectory(cfg_j, params, hp, batches):
     return losses, params
 
 
-@pytest.mark.parametrize("fb_vjp", ["autodiff", "custom"])
-def test_three_step_trajectory_matches_jax(fb_vjp):
-    kw = dict(TINY, ctrl_dropout=0.0, backend_dropout=0.0, fb_vjp=fb_vjp)
+@pytest.mark.parametrize("controller_mode,fb_vjp", [
+    ("dual", "autodiff"), ("dual", "custom"), ("single", "autodiff"),
+    ("single", "custom")],
+    ids=["autodiff", "custom", "single-autodiff", "single-custom"])
+def test_three_step_trajectory_matches_jax(controller_mode, fb_vjp):
+    kw = dict(TINY, ctrl_dropout=0.0, backend_dropout=0.0, fb_vjp=fb_vjp,
+              controller_mode=controller_mode)
     cfg_j, params, model = _pair(kw, seed=0)
     rng = np.random.default_rng(10)
     batches = [_batch(rng, cfg_j) for _ in range(3)]
@@ -377,7 +381,9 @@ def test_three_step_trajectory_matches_jax(fb_vjp):
                                               key=lambda kv: -kv[1])[:5]
     assert all(int(g.count) == 3 for g in opt.groups)
     # Q left its start: the controllers really trained
-    assert diffs and float(got["bifb.fb_L.q_out.8.weight"].abs().max()) > 0
+    out_layer = ("bifb.q_out.8.weight" if controller_mode == "single"
+                 else "bifb.fb_L.q_out.8.weight")
+    assert diffs and float(got[out_layer].abs().max()) > 0
 
 
 def test_poisoned_batch_leaves_params_and_adam_state_bit_identical():
