@@ -1,2 +1,2 @@
-"""Data of the port: labels, the on-device anechoic synthesizer and the
-``.shard`` reader."""
+"""Data of the port: labels, the on-device anechoic synthesizer, the
+``.shard`` and H5 readers and the input pipeline."""

@@ -1,0 +1,67 @@
+"""Reader of the reference's active H5 schema (x1, x2 waveforms, x3 CC, y
+labels), the read side of ``biear_tpu/data/h5io.py``.
+
+``h5py`` is imported at first use. Where it is missing (the card's machine
+has none) the reader raises an ImportError that points to the ``.shard``
+format: convert the split with ``tools/h5_to_shard.py`` and set
+``DATA_FORMAT: shard``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def _h5py():
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "h5py is not installed, so H5 splits cannot be read here: "
+            "convert them with tools/h5_to_shard.py and set "
+            "'DATA_FORMAT: shard' in the run config") from e
+    return h5py
+
+
+class ActiveH5Dataset:
+    """The (wavL, wavR, x3, y) reader. preload=True (default) reads the
+    whole split into RAM once; preload=False keeps the file open and reads
+    the rows asked for."""
+
+    KEYS = ("x1", "x2", "x3", "y")
+
+    def __init__(self, path: str, preload: bool = True):
+        h5py = _h5py()
+        self.path = path
+        self.preload = preload
+        with h5py.File(path, "r") as f:
+            for k in self.KEYS:
+                if k not in f:
+                    raise KeyError(f"{path} missing dataset '{k}' "
+                                   f"(expected schema {self.KEYS})")
+            self.length = f[self.KEYS[0]].shape[0]
+            self.shapes = {k: f[k].shape[1:] for k in self.KEYS}
+            if preload:
+                self._data = {k: f[k][:].astype(np.float32)
+                              for k in self.KEYS}
+        self._file = None
+
+    def __len__(self) -> int:
+        return self.length
+
+    def rows(self, idx) -> tuple:
+        idx = np.asarray(idx)
+        if self.preload:
+            return tuple(self._data[k][idx] for k in self.KEYS)
+        if self._file is None:
+            self._file = _h5py().File(self.path, "r", libver="latest",
+                                      swmr=True)
+        # h5py selections need sorted unique indices: read those, expand
+        uniq, inverse = np.unique(idx, return_inverse=True)
+        return tuple(self._file[k][uniq][inverse].astype(np.float32)
+                     for k in self.KEYS)
+
+    def close(self):
+        if self._file is not None:
+            self._file.close()
+            self._file = None

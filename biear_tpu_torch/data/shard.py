@@ -11,8 +11,9 @@ gather core is not used): little-endian
 i16 fields store round(x * 32767) clipped to int16 and decode with scale
 1 / 32767. The reader maps the file and decodes only the rows asked for.
 
-There is no H5 reader in the port: the card's machine has no ``h5py``.
-Convert H5 splits with ``tools/h5_to_shard.py`` first.
+The card's machine has no ``h5py``, so there the splits are ``.shard``
+files: convert H5 splits with ``tools/h5_to_shard.py`` (``data/h5io.py``
+reads H5 where ``h5py`` is installed).
 """
 
 from __future__ import annotations

@@ -295,3 +295,49 @@ def make_test_segments(n: int = 16, seg_len: int = 16000, seed: int = 1):
         x = env * rng.standard_normal(seg_len)
         segs.append((x / (np.abs(x).max() + 1e-8)).astype(np.float32))
     return np.stack(segs)
+
+
+# ---------------- scene -> synthesizer (the runner's entry) ----------------
+
+def load_sofa_hrir(path: str, fs_target: int = 16000):
+    """An anechoic HRIR SOFA file (HDF5) -> (ir (M, 2, L) float32 at
+    fs_target, az_deg (M,), dist_m (M,)): Data.IR, Data.SamplingRate and
+    SourcePosition [azimuth, elevation, distance], polyphase-resampled by
+    the rates' gcd. A copy of ``tools/sofa_io.py::load_sofa_hrir``; h5py is
+    imported here, at first use."""
+    import h5py
+    from scipy.signal import resample_poly
+
+    with h5py.File(path, "r") as f:
+        ir = np.asarray(f["Data.IR"])
+        fs = float(np.asarray(f["Data.SamplingRate"]).reshape(-1)[0])
+        pos = np.asarray(f["SourcePosition"])
+    if ir.ndim != 3:
+        raise ValueError(f"expected anechoic (M, R, N) IR, got {ir.shape}")
+    az = pos[:, 0] % 360.0
+    dist = pos[:, 2]
+    if fs != fs_target:
+        g = np.gcd(int(fs), int(fs_target))
+        ir = resample_poly(ir, int(fs_target // g), int(fs // g), axis=-1)
+    return (ir.astype(np.float32), az.astype(np.float64),
+            dist.astype(np.float64))
+
+
+def build_synthesizer(scene: str, sofa: str | None, segments, fs: int,
+                      num_lags: int = 100, device=None):
+    """Scene -> synthesizer on `device`, as
+    ``tools/generate_binaural_data.py::build_synthesizer`` builds it for
+    ``train_biear.py`` (no noise, the f32 mix): the anechoic scene over a
+    SOFA HRIR bank, or the built-in test bank without one. num_lags is the
+    CC feature's width (the model's n_bands). The reverberant scenes are
+    not ported."""
+    if scene != "anechoic":
+        raise NotImplementedError(
+            f"scene {scene!r}: the reverberant synthesizer (auditorium, "
+            "spirit) is not ported yet (ROADMAP.md, Queue 2 item 5)")
+    if sofa:
+        ir, az, dist = load_sofa_hrir(sofa, fs)
+    else:
+        ir, az, dist = make_test_hrir_bank()
+    return AnechoicSynthesizer(ir, az, dist, segments, fs=fs,
+                               num_lags=num_lags, device=device)

@@ -12,19 +12,21 @@ in the same directory or up to two levels above):
     python -m biear_tpu_torch.serve.infer --checkpoint run/best.pth a.wav b.wav
 
 It runs on the card unless ``--device cpu`` is given. Orbax checkpoints of
-the JAX runner are not read yet.
+the JAX runner are not read: convert them with
+``biear_tpu_torch.train.state`` where JAX is installed (README.md).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import sys
 
 import numpy as np
 import torch
 
+from ..config import (config_from_settings,  # noqa: F401 (re-exported)
+                      load_settings_near_checkpoint)
 from ..device import resolve_device
 from ..models.biear import ActiveBiEAR
 from ..models.config import BiEARConfig
@@ -50,59 +52,7 @@ def predict(model: ActiveBiEAR, wavL, wavR):
     return torch.sigmoid(sound), aoa, torch.softmax(dist, dim=-1)
 
 
-# ---------------- checkpoint and settings ----------------
-
-def load_settings_near_checkpoint(ckpt_path: str) -> dict | None:
-    """meta/settings.json beside the checkpoint or up to two levels up."""
-    d = os.path.dirname(os.path.abspath(ckpt_path))
-    for parent in (d, os.path.dirname(d), os.path.dirname(os.path.dirname(d))):
-        p = os.path.join(parent, "meta", "settings.json")
-        if os.path.exists(p):
-            with open(p) as f:
-                return json.load(f)
-    return None
-
-
-def _choice(v, key: str, allowed) -> str:
-    s = str(v).lower()
-    if s not in allowed:
-        raise ValueError(f"{key} must be one of {allowed}, got {v!r}")
-    return s
-
-
-def config_from_settings(s: dict) -> BiEARConfig:
-    """Model config from a settings.json dict, with the evaluator's
-    defaults (the model part of ``biear_tpu/config.py::config_from_settings``).
-    A settings file without DFT_MODE predates that key and trained on the
-    rFFT spectra, so it is read as "fft"."""
-    g = s.get("GEOMETRY", {})
-    return BiEARConfig(
-        use_cc=bool(s.get("USE_CC", True)),
-        fixed_frontend_q=bool(s.get("FIXED_FRONTEND_Q", False)),
-        controller_mode=str(s.get("Controller_Mode", "dual")).lower(),
-        alpha=float(s.get("ALPHA", 0)),
-        deltaQ_base=float(s.get("DELTAQ_BASE", 1.0)),
-        deltaQ_low_factor=float(s.get("DELTAQ_LOW_FACTOR", 0.3)),
-        deltaQ_high_factor=float(s.get("DELTAQ_HIGH_FACTOR", 5.0)),
-        deltaQ_mode=str(s.get("DELTAQ_MODE", "relative")),
-        fs=int(g.get("FS", 16000)),
-        timesteps=int(g.get("TIMESTEPS", 19)),
-        n_fft=int(g.get("N_FFT", 1024)),
-        n_bands=int(g.get("N_BANDS", 100)),
-        fmin=float(g.get("FMIN", 50.0)),
-        fmax=g.get("FMAX", None),
-        hop_ratio=float(g.get("HOP_RATIO", 1.0)),
-        latent_dim=int(g.get("LATENT_DIM", 100)),
-        d_model=int(g.get("D_MODEL", 128)),
-        fb_w_dtype=_choice(g.get("FB_W_DTYPE", "float32"), "FB_W_DTYPE",
-                           ("float32", "bfloat16")),
-        fb_vjp=_choice(g.get("FB_VJP", "auto"), "FB_VJP",
-                       ("auto", "custom", "autodiff")),
-        fb_x_grad=bool(g.get("FB_X_GRAD", False)),
-        dft_mode=_choice(g.get("DFT_MODE", "fft"), "DFT_MODE",
-                         ("auto", "fft", "matmul")),
-    )
-
+# ---------------- checkpoint ----------------
 
 def load_state_dict(path: str) -> dict:
     """A reference-format .pth, unwrapped from {"state_dict"} / {"model"}."""

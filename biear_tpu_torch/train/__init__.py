@@ -1,2 +1,3 @@
 """Training of the port: losses, the optimizer, the train step and chunk,
-the training profile, and checkpoint evaluation."""
+the runner and its checkpoints, the training profile, and checkpoint
+evaluation."""

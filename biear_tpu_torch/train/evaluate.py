@@ -9,14 +9,17 @@ with repeated rows, which are dropped), and the train-identical metric
 definitions over all N x 8 sectors, overall and for 1, 2 and 3 sources.
 The passive and AuralNet models are not ported (ROADMAP.md, Queue 2).
 
-Command line (a reference-format ``.pth``; the settings are found as the
-serving CLI finds them, or in a ``settings.json`` beside the checkpoint):
+The checkpoint is a reference-format ``.pth`` or a checkpoint directory of
+the port's runner (``<run>/checkpoints/best``, read as its
+``params.pth``). Command line (the settings are found as the serving CLI
+finds them, walking up to ``meta/settings.json``, or in a
+``settings.json`` beside the checkpoint):
 
     python -m biear_tpu_torch.train.evaluate --checkpoint run/best.pth \\
         --test-shard test.shard [--settings S.json] [--device cpu]
 
 It runs on the card unless ``--device cpu`` is given. The test split is a
-``.shard`` file (``data/shard.py``); there is no H5 reader in the port.
+``.shard`` file (``data/shard.py``; the card's machine has no ``h5py``).
 """
 
 from __future__ import annotations
@@ -28,9 +31,10 @@ import os
 import numpy as np
 import torch
 
+from ..config import config_from_settings, load_settings_near_checkpoint
+from ..data.pipeline import batch_iterator
 from ..data.shard import ShardDataset
-from ..serve.infer import (config_from_settings, load_model,
-                           load_settings_near_checkpoint)
+from ..serve.infer import load_model
 from .losses import sanitize_wav, sanitize_x3
 
 N_SECTORS = 8
@@ -50,21 +54,6 @@ def find_settings(checkpoint_path: str) -> dict | None:
     return None
 
 
-def padded_batches(ds, batch_size: int):
-    """(rows..., weights) in order: every batch holds batch_size rows, the
-    last one padded by repeating its own rows with weight 0."""
-    n = len(ds)
-    for s in range(0, n, batch_size):
-        sel = np.arange(s, min(s + batch_size, n))
-        n_valid = len(sel)
-        if n_valid < batch_size:
-            sel = np.concatenate(
-                [sel, sel[np.arange(batch_size - n_valid) % n_valid]])
-        w = np.zeros(batch_size, np.float32)
-        w[:n_valid] = 1.0
-        yield (*ds.rows(sel), w)
-
-
 @torch.inference_mode()
 def collect_predictions(model, ds, batch_size: int):
     """(sound_logits, aoa, dist_logits, y) over the whole split, as numpy,
@@ -72,7 +61,7 @@ def collect_predictions(model, ds, batch_size: int):
     device = next(model.parameters()).device
     model.eval()
     outs = []
-    for wavL, wavR, x3, y, w in padded_batches(ds, batch_size):
+    for wavL, wavR, x3, y, w in batch_iterator(ds, batch_size, shuffle=False):
         t = lambda a: torch.as_tensor(a, device=device)
         wl, wr = sanitize_wav(t(wavL), t(wavR))
         s, a, d, _ = model(wl, wr, sanitize_x3(t(x3)))
@@ -156,13 +145,16 @@ def metrics_from_predictions(s_all, a_all, d_all, y_all) -> dict:
 def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
              test_shard: str | None = None, batch_size: int = 64,
              out_path: str | None = None, device=None) -> dict:
-    """Evaluate a reference-format ``.pth`` of the active family on a test
-    split (`dataset` with ``rows()`` / ``len()``, or a ``.shard`` path);
-    returns {overall, 1spk, 2spk, 3spk} and writes it as JSON to out_path
-    (default: evaluate_biear_metrics.json in the checkpoint's parent
-    directory). Runs on the card unless device='cpu'."""
+    """Evaluate a checkpoint of the active family (a reference-format
+    ``.pth`` or a runner checkpoint directory) on a test split (`dataset`
+    with ``rows()`` / ``len()``, or a ``.shard`` path); returns {overall,
+    1spk, 2spk, 3spk} and writes it as JSON to out_path (default:
+    evaluate_biear_metrics.json in the checkpoint's parent directory).
+    Runs on the card unless device='cpu'."""
+    pth = (os.path.join(checkpoint, "params.pth")
+           if os.path.isdir(checkpoint) else checkpoint)
     if settings is None:
-        settings = find_settings(checkpoint)
+        settings = find_settings(pth)
     if settings is None:
         raise ValueError("no meta/settings.json or settings.json near the "
                          "checkpoint; pass settings= explicitly")
@@ -173,13 +165,12 @@ def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
             "fixed-Q) is ported; the passive and AuralNet models are queued "
             "in ROADMAP.md (Queue 2)")
     if dataset is None and test_shard is None:
-        raise ValueError("pass dataset= or a .shard test split (the port "
-                         "reads no H5)")
+        raise ValueError("pass dataset= or a .shard test split")
     cfg = config_from_settings(settings)
     if dataset is None:
         dataset = ShardDataset(test_shard, shapes=[
             (cfg.fs,), (cfg.fs,), (cfg.n_bands,), (56,)])
-    model = load_model(checkpoint, cfg, device)
+    model = load_model(pth, cfg, device)
     out = metrics_from_predictions(*collect_predictions(model, dataset,
                                                         batch_size))
     if out_path is None:
@@ -193,7 +184,8 @@ def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--checkpoint", required=True,
-                    help="reference-format .pth")
+                    help="reference-format .pth or a runner checkpoint "
+                         "directory")
     ap.add_argument("--test-shard", required=True, help="test split .shard")
     ap.add_argument("--settings", default=None,
                     help="settings.json (default: found near the checkpoint)")

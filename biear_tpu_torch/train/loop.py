@@ -30,6 +30,28 @@ from .optim import Adam, TrainHyper, is_frontend
 GRAD_HIST_EDGES = np.logspace(-12.0, 4.0, 17).astype(np.float32)
 
 
+def is_better_tuple(curr, best, eps: float = 1e-12) -> bool:
+    """Lexicographic checkpoint selection: sound_acc up, then aoa_mae
+    down, then dist_acc up; ties within eps go to the next key."""
+    if best is None:
+        return True
+    cs, ca, cd = curr
+    bs, ba, bd = best
+    if cs > bs + eps:
+        return True
+    if abs(cs - bs) <= eps:
+        if ca < ba - eps:
+            return True
+        if abs(ca - ba) <= eps and cd > bd + eps:
+            return True
+    return False
+
+
+def grad_hist_names(model, max_leaves: int) -> list:
+    """Parameter names in the row order of the train step's grad_hist."""
+    return [n for n, _ in model.named_parameters()][:max_leaves]
+
+
 def _all_finite(tensors) -> torch.Tensor:
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 

@@ -79,6 +79,41 @@ class Adam:
                 dev = g.params[0].device if g.params else None
                 g.count = torch.zeros((), dtype=torch.int32, device=dev)
 
+    def state_dict(self) -> dict:
+        """The Adam state on the CPU, by group label: {"count": int32
+        0-dim, "m": {name: tensor}, "v": {name: tensor}}. A frozen group
+        keeps no state and has no entry."""
+        def cpu(t):
+            return t.detach().to("cpu", copy=True)
+        return {g.label: {"count": cpu(g.count),
+                          "m": {n: cpu(t) for n, t in zip(g.names, g.m)},
+                          "v": {n: cpu(t) for n, t in zip(g.names, g.v)}}
+                for g in self.groups if not g.frozen}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Restore `state` (the layout of ``state_dict``) in place, on the
+        parameters' device. Groups, names and shapes must match; the
+        order of the names does not matter."""
+        live = {g.label: g for g in self.groups if not g.frozen}
+        if set(state) != set(live):
+            raise ValueError(f"optimizer groups {sorted(state)} do not match "
+                             f"this optimizer's {sorted(live)}")
+        for label, g in live.items():
+            st = state[label]
+            for key, dst in (("m", g.m), ("v", g.v)):
+                if set(st[key]) != set(g.names):
+                    raise ValueError(f"group {label!r}: the {key} names do "
+                                     "not match the model's parameters")
+                for n, t in zip(g.names, dst):
+                    src = st[key][n]
+                    if tuple(src.shape) != tuple(t.shape):
+                        raise ValueError(f"{label}.{key}[{n}]: shape "
+                                         f"{tuple(src.shape)}, model "
+                                         f"{tuple(t.shape)}")
+                    t.copy_(src)
+            g.count.copy_(torch.as_tensor(st["count"], dtype=torch.int32))
+
     @torch.no_grad()
     def step(self, grads: dict, ok: torch.Tensor, lr_scale=1.0) -> None:
         """One update from `grads` (name -> gradient) where `ok` (a bool

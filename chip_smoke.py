@@ -12,8 +12,10 @@ Phases, each of which raises on failure (the exit code is then not 0):
      entry function (registers, spills, shared memory) is caught and
      logged; a spill in cc_lags.cu or gather_mix_kb.cu fails the run.
   3. kernel vs plain: each kernel is held against its plain PyTorch version
-     on the card (TF32 off) at the shapes of the main paths and at ragged
-     ones (CC: batch 1 and 3, n = 128 and 16000, K = 1, 17 and 63; mix: one
+     on the card (TF32 off) at the shapes of the main paths (the runner's
+     too: batches of 64 rows and the test split's 21- and 22-row thirds,
+     RUNNER_ROWS) and at ragged ones (CC: batch 1 and 3, n = 128 and
+     16000, K = 1, 17 and 63; mix: one
      window, 1, 64, 65 and 128 frames, banks of 128, 256 and 512 rows and
      of one measurement, indices out of range that must clamp), and timed
      beside its plain version, one library call and the card's bound for
@@ -62,6 +64,22 @@ Phases, each of which raises on failure (the exit code is then not 0):
      printed); over all rows, the accuracies that ``evaluate`` returned on
      the card differ from the CPU's by no more than the flipped presence /
      distance decisions; MAE to 1e-4.
+ 10. runner: ``train.runner.train`` from ``load_run_config("conf/config.
+     yaml")`` at full width (the flagship, batch 64, f32 policy) with the
+     config's own synthesizer (``train_biear.make_synth``), RUNNER_STEPS
+     steps per epoch in chunks of RUNNER_CHUNK, eval splits of RUNNER_EVAL
+     rows, 2 epochs in a temporary RUNS_ROOT, then resumed for a third;
+     launch counts zeroed just before the first run and read after the
+     resume: one CC and one window-gather launch per training step and per
+     synthesised eval or sanity batch, no bf16 mix. Then: the run tree
+     (settings, 3 history entries, scalars, test metrics, best and last
+     with parameters and Adam state), finite losses, nothing skipped,
+     global_step 24, ``last`` restoring to the bits of the in-memory model
+     and optimizer; ``evaluate`` on ``checkpoints/best`` against a 256-row
+     shard synthesised on the card. Logged: seconds per epoch, the
+     runner's training rate against ``make_train_chunk``'s bare rate at
+     the same batch and policy, checkpoint write and eval-split
+     materialisation ms, peak memory.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -94,6 +112,11 @@ SERVE_TOL = {"float32": 2e-3, "bfloat16": 2e-2}   # card vs CPU, serving
 STREAM_ATOL = 2e-4            # tests/test_streaming.py
 STREAM_BATCH = 64
 EVAL_ROWS = 256
+RUNNER_STEPS, RUNNER_CHUNK, RUNNER_EVAL = 8, 4, 256
+# rows of the runner's batches (phase 10): conf/config.yaml's 64, and the
+# last batch of each source-count third of its RUNNER_EVAL-row test split
+# (85 = 64 + 21, 85 = 64 + 21, 86 = 64 + 22), with that third's count
+RUNNER_ROWS = ((64, 0), (21, 1), (21, 2), (22, 3))
 # one f32 train step, card vs CPU port, on a synthesised and on bench.py's
 # white-noise batch of 4, stage by stage on the same inputs. The whole
 # gradient is not compared: it jumps where a phase difference crosses the
@@ -133,7 +156,8 @@ def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
 
 
 CC_SHAPES = ((512, 16000, 48), (1, 16000, 48), (7, 1024, 63),
-             (3, 16000, 63), (3, 128, 1), (1, 128, 63), (5, 2560, 17))
+             (3, 16000, 63), (3, 128, 1), (1, 128, 63), (5, 2560, 17),
+             (64, 16000, 48), (21, 16000, 48), (22, 16000, 48))
 # gather_mix_kb.cu beyond the training shape: (windows, frames, bank rows,
 # measurements, indices out of range)
 MIX_RAGGED = ((1, 1, 384, 1, False), (5, 64, 384, 4, False),
@@ -380,9 +404,10 @@ def mix_ragged(torch, pool3):
 
 def phase_window_kernels(torch, synth):
     """gather_mix_kb.cu and gather_windows.cu against their plain versions
-    at the training shape (batch 512: 1536 windows, 125 frames) and at a
-    ragged small shape (7 windows, 61 frames), on the synthesizer's pool
-    and bf16 bank. The mix's plain version sums in f64, so its comparison
+    at the training shape (batch 512: 1536 windows, 125 frames), at a
+    ragged small shape (7 windows, 61 frames) and at the runner's batches
+    (RUNNER_ROWS: 192, 63 and 66 windows), on the synthesizer's pool and
+    bf16 bank. The mix's plain version sums in f64, so its comparison
     is also the f64 check; the kernel is held to an f32 bmm too."""
     from biear_tpu_torch.device import no_tf32
     from biear_tpu_torch.kernels.time_kernels import window_bytes
@@ -394,9 +419,11 @@ def phase_window_kernels(torch, synth):
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = {"gather_mix_kb": mix_ragged(torch, pool3), "gather_windows": 0.0}
     timing = {}
-    for B, nf in ((TRAIN_BATCH, 125), (3, 61)):
-        _, _, meas, seg_idx, qoff, crop = synth.scene_batched(gen, B)
-        X = meas.numel() if B == TRAIN_BATCH else meas.numel() - 2
+    shapes = (((TRAIN_BATCH, 125, 0, 0), (3, 61, 0, 2))
+              + tuple((B, 125, ns, 0) for B, ns in RUNNER_ROWS))
+    for B, nf, ns, trim in shapes:
+        _, _, meas, seg_idx, qoff, crop = synth.scene_batched(gen, B, ns)
+        X = meas.numel() - trim
         rows = (seg_idx * synth.n_q + qoff).reshape(-1)[:X]
         offs, meas = crop.reshape(-1)[:X], meas.reshape(-1)[:X]
         with no_tf32():
@@ -892,6 +919,148 @@ def phase_evaluate(torch, synth):
     return launches
 
 
+def synth_eval_batches(n: int, batch: int) -> tuple:
+    """Batches of a val split and of a test split split into source-count
+    thirds (``train.runner.SynthEvalDataset``)."""
+    third, made, test = n // 3, 0, 0
+    while made < n:
+        boundary = (third if made < third
+                    else 2 * third if made < 2 * third else n)
+        made += min(batch, n - made, boundary - made)
+        test += 1
+    return -(-n // batch), test
+
+
+def phase_runner(torch):
+    """The training runner on the card: 2 epochs, a resume, evaluate."""
+    import tempfile
+    from biear_tpu_torch import train_biear
+    from biear_tpu_torch.config import load_run_config
+    from biear_tpu_torch.data.shard import write_shard
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import ActiveBiEAR
+    from biear_tpu_torch.train import evaluate as ev
+    from biear_tpu_torch.train import state as ckpt
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import make_optimizer
+    from biear_tpu_torch.train.profile_train import rate_windows
+    from biear_tpu_torch.train.runner import train
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rc = load_run_config(os.path.join(here, "conf", "config.yaml"))
+    B = rc.batch_size
+    rc.synth_on_device, rc.epochs = True, 2
+    rc.raw = dict(rc.raw, SYNTH_ON_DEVICE=True,
+                  SYNTH_STEPS_PER_EPOCH=RUNNER_STEPS,
+                  SYNTH_CHUNK_STEPS=RUNNER_CHUNK,
+                  SYNTH_EVAL_SAMPLES=RUNNER_EVAL)
+    m = rc.model_cfg
+    log(f"runner: conf/config.yaml, {m.controller_mode} controllers, "
+        f"{m.deltaQ_mode} deltaQ, {m.n_bands} bands, {m.timesteps} frames, "
+        f"batch {B}, FB_W_DTYPE {m.fb_w_dtype}")
+    synth = train_biear.make_synth(rc)
+    with tempfile.TemporaryDirectory() as tmp:
+        rc.runs_root = tmp
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        first = train(rc, synth=synth, run_id="smoke", quiet=True)
+        rc.epochs = 3
+        out = train(rc, synth=synth, quiet=True,
+                    resume_from=first["run_dir"])
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        run = out["run_dir"]
+        log(f"runner launches (2 epochs and a resume): {launches}")
+        val_b, test_b = synth_eval_batches(RUNNER_EVAL, B)
+        want = 3 * RUNNER_STEPS + 2 * (1 + val_b + test_b)
+        for k in ("cc_lags", "gather_windows"):
+            if launches.get(k, 0) != want:
+                raise RuntimeError(f"runner: {k} launched "
+                                   f"{launches.get(k, 0)} times, not {want}")
+        if launches.get("gather_mix_kb", 0):
+            raise RuntimeError("runner: the bf16 mix ran under the f32 policy")
+
+        for rel in ("meta/settings.json", "logs_json/history.json",
+                    "logs_json/scalars.jsonl", "logs_json/test_metrics.json",
+                    "checkpoints/best/params.pth",
+                    "checkpoints/best/opt_state.pt",
+                    "checkpoints/last/params.pth",
+                    "checkpoints/last/opt_state.pt"):
+            if not os.path.isfile(os.path.join(run, rel)):
+                raise RuntimeError(f"runner: {rel} missing from the run tree")
+        with open(os.path.join(run, "logs_json", "history.json")) as f:
+            hist = json.load(f)
+        losses = [e["loss"] for split in ("train", "val")
+                  for e in hist[split]]
+        if (len(hist["train"]) != 3 or len(hist["val"]) != 3
+                or not all(np.isfinite(losses))
+                or any(e["skipped"] for e in hist["train"])
+                or out["global_step"] != 3 * RUNNER_STEPS):
+            raise RuntimeError(f"runner: history {hist}, global_step "
+                               f"{out['global_step']}")
+        log(f"runner history: train losses "
+            f"{[e['loss'] for e in hist['train']]!r}, val losses "
+            f"{[e['loss'] for e in hist['val']]!r}, global_step "
+            f"{out['global_step']}, test {out['test']}")
+
+        # `last` restores to the bits of the model and optimizer in memory
+        fresh = ActiveBiEAR(rc.model_cfg).cuda()
+        fopt = make_optimizer(fresh, rc.hyper)
+        ckpt.load_checkpoint(os.path.join(run, "checkpoints", "last"),
+                             fresh, fopt)
+        same = all(torch.equal(v, fresh.state_dict()[k])
+                   for k, v in out["model"].state_dict().items())
+        sa, sb = out["optimizer"].state_dict(), fopt.state_dict()
+        same = same and all(
+            torch.equal(sa[g]["count"], sb[g]["count"])
+            and all(torch.equal(sa[g][key][n], sb[g][key][n])
+                    for key in ("m", "v") for n in sa[g][key])
+            for g in sa)
+        log(f"runner: 'last' restores to the in-memory state bit for bit: "
+            f"{same}")
+        if not same:
+            raise RuntimeError("runner: 'last' differs from the final state")
+
+        # evaluate the run's best on a shard synthesised on the card
+        batch = synth.sample_batch(torch.Generator(device="cuda")
+                                   .manual_seed(9), EVAL_ROWS)
+        shard = os.path.join(tmp, "test.shard")
+        write_shard(shard, [a.cpu().numpy() for a in batch],
+                    ["i16", "i16", "f32", "f32"])
+        res = ev.evaluate(os.path.join(run, "checkpoints", "best"),
+                          test_shard=shard,
+                          out_path=os.path.join(tmp, "eval.json"))
+        o = res["overall"]
+        if not ({"overall", "1spk", "2spk", "3spk"} <= set(res)
+                and all(0.0 <= o[k] <= 1.0 for k in ("sound_acc", "dist_acc"))
+                and np.isfinite(o["aoa_mae"])):
+            raise RuntimeError(f"runner: evaluate of best gave {res}")
+        log(f"runner: evaluate of checkpoints/best on {EVAL_ROWS} rows: "
+            f"{json.dumps(o)}")
+
+    # the runner's training rate against the bare fused chunk, same call
+    epoch_s = [t["sec"] + v["sec"] for t, v in zip(hist["train"],
+                                                    hist["val"])]
+    runner_utt_s = [RUNNER_STEPS * B / t["sec"] for t in hist["train"]]
+    model = ActiveBiEAR(rc.model_cfg).init_weights_(1).cuda()
+    chunk = make_train_chunk(model, rc.hyper, make_optimizer(model, rc.hyper),
+                             synth.batch_fn(B), RUNNER_CHUNK)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    chunk(gen)
+    bare = rate_windows(lambda: chunk(gen), B * RUNNER_CHUNK, 3)
+    ck_ms = [1e3 * t for r in (first, out) for t in r["timings"]["checkpoint_s"]]
+    split_ms = [1e3 * r["timings"]["eval_splits_s"] for r in (first, out)]
+    metrics = {"epoch_s": epoch_s, "runner_train_utt_s": runner_utt_s,
+               "bare_chunk_utt_s": bare, "checkpoint_write_ms": ck_ms,
+               "eval_splits_ms": split_ms, "peak_memory_bytes": peak,
+               "wall_s": wall}
+    log(f"runner metrics (B={B}, f32): {json.dumps(metrics)}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -932,6 +1101,7 @@ def main() -> int:
         torch, synth, "single", SINGLE_TRAIN_STEPS)
     launches["stream"] = phase_stream(torch, rng)
     launches["evaluate"] = phase_evaluate(torch, synth)
+    launches["runner"] = phase_runner(torch)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())

@@ -28,6 +28,7 @@ from biear_tpu.data.native_loader import write_shard as jax_write_shard
 from biear_tpu.train import evaluate as jev
 from biear_tpu.utils import torch_import as ti
 
+from biear_tpu_torch.data.pipeline import batch_iterator
 from biear_tpu_torch.data.shard import ShardDataset, write_shard
 from biear_tpu_torch.models import BiEARConfig, build_active
 from biear_tpu_torch.train import evaluate as tev
@@ -86,7 +87,7 @@ def test_padded_batches_drop_nothing_and_pad_with_weight_zero():
         def rows(self, idx):
             return (np.asarray(idx, np.float32)[:, None],)
 
-    got = list(tev.padded_batches(DS(), 4))
+    got = list(batch_iterator(DS(), 4, shuffle=False))
     assert [len(b[0]) for b in got] == [4, 4, 4]
     np.testing.assert_array_equal(got[-1][0][:, 0], [8, 9, 8, 9])
     np.testing.assert_array_equal(got[-1][1], [1, 1, 0, 0])

@@ -50,6 +50,10 @@ def _imported_modules(path):
 def test_port_never_imports_jax_or_the_jax_package(banned):
     sources = list(_port_sources())
     assert len(sources) > 15
+    scanned = {os.path.relpath(p, PORT) for p in sources}
+    assert scanned >= {"config.py", "utils/logging.py", "data/pipeline.py",
+                       "data/h5io.py", "train/state.py", "train/runner.py",
+                       "train_biear.py"}
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p)
            if m == banned or m.startswith(banned + ".")]
@@ -142,6 +146,25 @@ def test_new_entry_points_without_device_raise_when_no_cuda(monkeypatch,
     for prof in (profile_serve, profile_train):
         with pytest.raises(SystemExit, match="CUDA card"):
             prof.main(["--batch", "2", "--controller-mode", "single"])
+
+
+def test_runner_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch, tmp_path):
+    """train and the train_biear CLI refuse to run without a card unless
+    given the CPU."""
+    from biear_tpu_torch import train_biear
+    from biear_tpu_torch.config import load_run_config
+    from biear_tpu_torch.train.runner import train
+
+    _no_cuda(monkeypatch)
+    conf = os.path.join(REPO, "conf", "config.yaml")
+    rc = load_run_config(conf)
+    rc.runs_root = str(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(rc, datasets={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_biear.main(["--config", conf, "--epochs", "1"])
+    assert os.listdir(tmp_path) == []
 
 
 def test_streaming_state_lives_on_the_model_device():
@@ -470,6 +493,140 @@ def test_train_chunk_on_card_launches_the_kernels():
     assert LAUNCHES["gather_mix_kb"] == 2 and LAUNCHES["cc_lags"] == 2
     assert bool(torch.isfinite(ms["loss"]).all())
     assert float(ms["skipped"].sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_runner_trains_an_epoch_on_card(tmp_path):
+    """train on the card for one 2-step synthesised epoch at a small
+    width: the run tree, finite losses, nothing skipped, and both hand-
+    written kernels of the f32 path launched (CC and window gather, no
+    bf16 mix)."""
+    _need_card()
+    import json
+    from biear_tpu_torch import train_biear
+    from biear_tpu_torch.config import load_run_config
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig
+    from biear_tpu_torch.train.runner import train
+
+    rc = load_run_config(os.path.join(REPO, "conf", "config.yaml"))
+    rc.runs_root, rc.epochs, rc.batch_size = str(tmp_path), 1, 8
+    rc.synth_on_device = True
+    rc.raw = dict(rc.raw, SYNTH_STEPS_PER_EPOCH=2, SYNTH_EVAL_SAMPLES=16)
+    rc.model_cfg = BiEARConfig(n_bands=32, timesteps=5, latent_dim=32,
+                               ctrl_hidden=32, deltaQ_mode="relative")
+    synth = train_biear.make_synth(rc)
+    LAUNCHES.clear()
+    out = train(rc, synth=synth, quiet=True, run_id="card")
+    run = out["run_dir"]
+    for rel in ("meta/settings.json", "logs_json/history.json",
+                "logs_json/scalars.jsonl", "logs_json/test_metrics.json",
+                "checkpoints/best/params.pth", "checkpoints/last/opt_state.pt"):
+        assert os.path.isfile(os.path.join(run, rel)), rel
+    with open(os.path.join(run, "logs_json", "history.json")) as f:
+        h = json.load(f)
+    assert len(h["train"]) == 1 and h["train"][0]["skipped"] == 0
+    assert np.isfinite(h["train"][0]["loss"]) and np.isfinite(
+        h["val"][0]["loss"])
+    assert LAUNCHES["gather_windows"] >= 2 and LAUNCHES["cc_lags"] >= 2
+    assert LAUNCHES["gather_mix_kb"] == 0
+    assert next(out["model"].parameters()).device.type == "cuda"
+
+
+def _write_shard_splits(root, fs, n_bands, rows):
+    """train / val / test ``.shard`` files of uniform waveforms and CC and
+    structurally valid labels, under the names ``data_paths`` gives."""
+    from biear_tpu_torch.data.shard import write_shard
+    rng = np.random.default_rng(13)
+    for name, n in rows.items():
+        y = np.zeros((n, 8, 7), np.float32)
+        y[:, :, 2] = 1.0
+        for b in range(n):
+            for s in rng.choice(8, size=rng.integers(1, 4), replace=False):
+                y[b, s] = 0.0
+                y[b, s, :2] = (1.0, rng.uniform())
+                y[b, s, 2 + rng.integers(1, 5)] = 1.0
+        write_shard(os.path.join(root, f"anechoic_{name}_active_wav.shard"),
+                    [rng.uniform(-1, 1, (n, fs)).astype(np.float32),
+                     rng.uniform(-1, 1, (n, fs)).astype(np.float32),
+                     rng.uniform(-1, 1, (n, n_bands)).astype(np.float32),
+                     y.reshape(n, 56)], ["i16", "i16", "f32", "f32"])
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_runner_trains_an_epoch_on_shard_splits(device, tmp_path,
+                                                 monkeypatch):
+    """DATA_FORMAT: shard, the dataset path of ``train``: the splits are
+    opened from SHARD_ROOT and fed through the prefetcher (pinned host
+    memory and side-stream copies on the card), the last train batch
+    padded with weight-0 rows (10 rows, batch 4). One epoch: the run tree,
+    3 steps, finite losses, nothing skipped."""
+    import json
+    from biear_tpu_torch.config import load_run_config
+    from biear_tpu_torch.models import BiEARConfig
+    from biear_tpu_torch.train.runner import train
+
+    if device == "cuda":
+        _need_card()
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc = load_run_config(os.path.join(REPO, "conf", "config.yaml"))
+        rc.runs_root, rc.epochs, rc.batch_size = str(tmp_path / "runs"), 1, 4
+        rc.data_format, rc.shard_root = "shard", str(tmp_path)
+        rc.model_cfg = BiEARConfig(fs=1600, timesteps=3, n_fft=256,
+                                   n_bands=16, fmin=50.0, fmax=700.0,
+                                   latent_dim=16, ctrl_hidden=16,
+                                   deltaQ_mode="relative")
+        _write_shard_splits(str(tmp_path), 1600, 16,
+                            {"train": 10, "val": 6, "test1": 6})
+        out = train(rc, quiet=True, run_id="shard", device=device)
+    finally:
+        torch.set_num_threads(threads)
+    run = out["run_dir"]
+    for rel in ("logs_json/history.json", "logs_json/test_metrics.json",
+                "checkpoints/best/params.pth", "checkpoints/last/opt_state.pt"):
+        assert os.path.isfile(os.path.join(run, rel)), rel
+    with open(os.path.join(run, "logs_json", "history.json")) as f:
+        h = json.load(f)
+    assert out["global_step"] == 3 and h["train"][0]["skipped"] == 0
+    assert all(np.isfinite(h[s][0]["loss"]) for s in ("train", "val"))
+    assert np.isfinite(out["test"]["loss"])
+    assert next(out["model"].parameters()).device.type == device
+
+
+@pytest.mark.cuda
+def test_prefetcher_copies_batches_to_the_card():
+    """The prefetcher's pinned, side-stream copies arrive on the card equal
+    to the host batches, in order, padding weights included."""
+    _need_card()
+    from biear_tpu_torch.data.pipeline import Prefetcher, batch_iterator
+
+    class Mem:
+        def __init__(self, a):
+            self.a = a
+
+        def __len__(self):
+            return len(self.a[0])
+
+        def rows(self, idx):
+            return tuple(x[idx] for x in self.a)
+
+    rng = np.random.default_rng(12)
+    ds = Mem([rng.standard_normal((37, 16000)).astype(np.float32),
+              rng.standard_normal((37, 56)).astype(np.float32)])
+    want = list(batch_iterator(ds, 8, shuffle=True))
+    pf = Prefetcher(batch_iterator(ds, 8, shuffle=True), "cuda")
+    got = []
+    for batch in pf:
+        got.append([(t * 2.0).cpu() for t in batch])   # used on the main stream
+    pf.close()
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(a.numpy(), 2.0 * b)
 
 
 @pytest.mark.cuda
