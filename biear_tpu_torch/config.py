@@ -114,7 +114,7 @@ def load_run_config(path: str) -> RunConfig:
         loss_w_dist=float(cfg["LOSS_WEIGHT_DIST"]),
     )
     active = bool(cfg["Active"])
-    kind = str(cfg.get("MODEL_KIND", "active" if active else "passive")).lower()
+    kind = model_kind(cfg)
     return RunConfig(
         root=str(cfg["ROOT"]),
         runs_root=str(cfg["RUNS_ROOT"]),
@@ -144,6 +144,22 @@ def load_run_config(path: str) -> RunConfig:
         shard_root=str(cfg.get("SHARD_ROOT", "") or ""),
         raw=cfg,
     )
+
+
+def model_kind(settings: dict) -> str:
+    """MODEL_KIND of a YAML config or a settings.json (active, passive or
+    auralnet); without the key, passive when Active is false."""
+    active = bool(settings.get("Active", True))
+    return str(settings.get("MODEL_KIND",
+                            "active" if active else "passive")).lower()
+
+
+def is_passive(src) -> bool:
+    """The passive family, for a RunConfig or a settings / YAML dict:
+    Active false or MODEL_KIND passive (the JAX runner's ``model_kind``)."""
+    if isinstance(src, RunConfig):
+        return not src.active or src.model_kind == "passive"
+    return not bool(src.get("Active", True)) or model_kind(src) == "passive"
 
 
 def check_matmul_precision(name: str) -> str:

@@ -1,5 +1,6 @@
-"""Reader of the reference's active H5 schema (x1, x2 waveforms, x3 CC, y
-labels), the read side of ``biear_tpu/data/h5io.py``.
+"""Readers of the reference's H5 schemas, the read side of
+``biear_tpu/data/h5io.py``: active (x1, x2 waveforms, x3 CC, y labels) and
+passive (x1, x2 magnitude planes, x3 CC, x4, x5 phase planes, y).
 
 ``h5py`` is imported at first use. Where it is missing (the card's machine
 has none) the reader raises an ImportError that points to the ``.shard``
@@ -23,12 +24,12 @@ def _h5py():
     return h5py
 
 
-class ActiveH5Dataset:
-    """The (wavL, wavR, x3, y) reader. preload=True (default) reads the
-    whole split into RAM once; preload=False keeps the file open and reads
-    the rows asked for."""
+class _H5Dataset:
+    """A reader of the fields KEYS. preload=True (default) reads the whole
+    split into RAM once; preload=False keeps the file open and reads the
+    rows asked for."""
 
-    KEYS = ("x1", "x2", "x3", "y")
+    KEYS: tuple = ()
 
     def __init__(self, path: str, preload: bool = True):
         h5py = _h5py()
@@ -65,3 +66,13 @@ class ActiveH5Dataset:
         if self._file is not None:
             self._file.close()
             self._file = None
+
+
+class ActiveH5Dataset(_H5Dataset):
+    """The (wavL, wavR, x3, y) reader."""
+    KEYS = ("x1", "x2", "x3", "y")
+
+
+class PassiveH5Dataset(_H5Dataset):
+    """The (x1, x2, x3, x4, x5, y) reader."""
+    KEYS = ("x1", "x2", "x3", "x4", "x5", "y")

@@ -28,6 +28,15 @@ _FIELD = struct.Struct("<IQ")
 _DTYPES = {0: np.dtype("<f4"), 1: np.dtype("<i2")}
 
 
+def shard_shapes(cfg, passive: bool) -> list:
+    """Per-row field shapes of a model config's ``.shard`` split: 4 active
+    fields (wavL, wavR, x3, y) or 6 passive ones (x1..x5, y)."""
+    if not passive:
+        return [(cfg.fs,), (cfg.fs,), (cfg.n_bands,), (56,)]
+    tb = (cfg.timesteps, cfg.n_bands)
+    return [tb, tb, (cfg.n_bands,), tb, tb, (56,)]
+
+
 def write_shard(path: str, arrays, dtypes=None) -> None:
     """arrays: (N, ...) numpy arrays with one N; dtypes[i] in {"f32",
     "i16"} (default all "f32")."""

@@ -1,19 +1,19 @@
-"""On-device anechoic binaural synthesis, the fast path.
+"""On-device anechoic binaural synthesis.
 
-Counterpart of ``biear_tpu/data/synth.py::AnechoicSynthesizer`` where its
-``_fast`` geometry holds (fs a multiple of 128, HRIRs of at most 257
-taps, at most 8 block offsets per segment): every batch is one scene draw,
-one HRIR mix through the window-gather kernels, the CC feature and the
+Counterpart of ``biear_tpu/data/synth.py::AnechoicSynthesizer``: every
+batch is one batched scene draw, one HRIR mix, the CC feature and the
 labels, all on the synthesizer's device.
 
 Scene (the reference's anechoic generator): n_src ~ Uniform{1, 2, 3} (or
 fixed), each source in a distinct 45-degree sector, its HRIR measurement
 drawn uniformly within the sector; a 1 s speech segment convolved with the
-measurement's HRIR pair, a random crop of the convolution, sources summed,
-joint peak-normalisation to +-1; labels per sector [presence, in-sector
-normalised angle, 5-way distance one-hot].
+measurement's HRIR pair, a random crop in [0, L - 1] of the convolution,
+sources summed, joint peak-normalisation to +-1; labels per sector
+[presence, in-sector normalised angle, 5-way distance one-hot].
 
-The HRIR convolution is one block-Toeplitz product per (sample, source):
+The fast path (fs a multiple of 128, HRIRs of at most 257 taps, at most 8
+block offsets per segment) runs the convolution as one block-Toeplitz
+product per (sample, source):
 ``KB[m, jj, e*128 + i] = ir_rev[m, e, jj - i]`` against the halo frames of
 a sample-granular window of the padded pool. Mix policies:
 
@@ -23,9 +23,16 @@ a sample-granular window of the padded pool. Mix policies:
     ``gather_windows``, the halo framing, then one batched f32 product
     (TF32 off), the op JAX leaves to XLA.
 
+Off the fast path (JAX's per-sample ``_one``) the same batched draws feed
+the general mix (``mix_general``): the segments are sliced at 128-sample
+block offsets when fs % 128 == 0 and at sample offsets otherwise, then
+convolved in f32 as one batched rFFT product against the HRIRs' spectra
+(numpy's, rounded to complex64, at the next power of two >= fs + L - 1);
+the crop, the source sum and the peak normalisation follow. The mix
+policy does not apply there.
+
 Random draws come from an explicit ``torch.Generator`` on the
-synthesizer's device. Geometries where the JAX package takes its
-per-sample path raise NotImplementedError (see ROADMAP.md).
+synthesizer's device.
 """
 
 from __future__ import annotations
@@ -56,6 +63,76 @@ def add_diffuse_noise(gen: torch.Generator, y: torch.Tensor, snr_range):
     y = y + noise * sig_rms * 10.0 ** (-snr_db / 20.0)
     peak = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-8)
     return y / peak
+
+
+def next_pow2(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def segment_offsets(segments, fs: int):
+    """(segments padded to whole 128-sample blocks when fs % 128 == 0,
+    their original length, the offset step (128, or 1 sample otherwise),
+    the number of offsets that keep a 1 s slice inside the original
+    length)."""
+    segments = np.asarray(segments, np.float32)
+    seg_len = segments.shape[1]
+    if seg_len < fs:
+        raise ValueError("segments must be at least 1 s long")
+    step = 128 if fs % 128 == 0 else 1
+    if step == 128 and seg_len % 128:
+        segments = np.pad(segments, ((0, 0), (0, 128 - seg_len % 128)))
+    return segments, seg_len, step, (seg_len - fs) // step + 1
+
+
+def slice_segments(segments: torch.Tensor, seg_idx: torch.Tensor,
+                   start: torch.Tensor, fs: int) -> torch.Tensor:
+    """segments[seg_idx, start : start + fs] for every index: (..., fs)."""
+    t = torch.arange(fs, device=segments.device)
+    return segments[seg_idx[..., None], start[..., None] + t]
+
+
+def normalise_peak(src: torch.Tensor, active: torch.Tensor,
+                   level: float) -> torch.Tensor:
+    """Sources (B, MS, 2, fs) -> their active sum scaled to a joint peak of
+    `level` (B, 2, fs)."""
+    y = (src * active.to(src.dtype)[:, :, None, None]).sum(dim=1)
+    peak = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-8)
+    return level * y / peak
+
+
+def sector_labels(active, sectors, angle_norm, dist_idx,
+                  n_sectors: int = N_SECTORS) -> torch.Tensor:
+    """Scatter-free labels (B, S * (2 + C)) from each slot's distinct
+    sector, in-sector normalised angle and distance one-hot index (class
+    + 1; 0 is 'no source'); inactive slots leave their sector empty."""
+    S, C = n_sectors, N_DIST_CLASSES
+    maskf = active.float()
+    sec1 = F.one_hot(sectors, S).float()                   # (B, MS, S)
+    sound = torch.einsum("bms,bm->bs", sec1, maskf)
+    angle = torch.einsum("bms,bm->bs", sec1, angle_norm * maskf)
+    base = torch.zeros((S, C), device=maskf.device)
+    base[:, 0] = 1.0
+    rows = F.one_hot(torch.where(active, dist_idx, 0), C).float()
+    covered = sec1.sum(dim=1)                              # (B, S)
+    onehot = (base[None] * (1.0 - covered)[:, :, None]
+              + torch.einsum("bms,bmc->bsc", sec1, rows))
+    B = active.shape[0]
+    return torch.cat([sound[..., None], angle[..., None], onehot],
+                     dim=2).reshape(B, -1)
+
+
+def finish_batch(gen: torch.Generator, y_lr: torch.Tensor, noise_snr_db,
+                 fs: int, num_lags: int, y: torch.Tensor):
+    """Mixed ears (B, 2, fs) and labels -> (wavL, wavR, x3, y): the
+    optional diffuse noise, then the CC feature."""
+    if noise_snr_db is not None:
+        y_lr = add_diffuse_noise(gen, y_lr, noise_snr_db)
+    wavL, wavR = y_lr[:, 0], y_lr[:, 1]
+    x3 = cross_correlation_feature(wavL, wavR, fs, num_lags=num_lags)
+    return wavL, wavR, x3, y
 
 
 class AnechoicSynthesizer:
@@ -107,23 +184,29 @@ class AnechoicSynthesizer:
         norm = np.minimum((in_sector + 1e-3) / width, 1.0)
         dcls = np.argmin(np.abs(DIST_CLASSES[None, :] - dist[:, None]), axis=1)
 
-        segments = np.asarray(segments, np.float32)
-        self.seg_len = segments.shape[1]
-        if self.seg_len < self.fs:
-            raise ValueError("segments must be at least 1 s long")
-        aligned = self.fs % 128 == 0
-        if aligned and segments.shape[1] % 128:
-            segments = np.pad(segments,
-                              ((0, 0), (0, 128 - segments.shape[1] % 128)))
-        self.n_q = (self.seg_len - self.fs) // 128 + 1 if aligned else 0
+        segments, self.seg_len, self.off_step, self.n_q = segment_offsets(
+            segments, self.fs)
         kb_bytes = M * (128 + L - 1) * 256 * 4
-        fast = (aligned and L <= 257 and 1 <= self.n_q <= 8
-                and self.fs + L - 1 <= WIN and kb_bytes <= 768 * 2**20)
-        if not fast:
-            raise NotImplementedError(
-                "this geometry takes the JAX package's per-sample synthesis "
-                "path (fs % 128, long HRIRs or long segments), which is not "
-                "ported yet: see ROADMAP.md")
+        self.fast = (self.off_step == 128 and L <= 257 and self.n_q <= 8
+                     and self.fs + L - 1 <= WIN and kb_bytes <= 768 * 2**20)
+        dev = self.device
+        self.bank = {
+            "segments": torch.as_tensor(segments, device=dev),
+            "meas_norm": torch.as_tensor(norm.astype(np.float32), device=dev),
+            "meas_dcls": torch.as_tensor(dcls.astype(np.float32), device=dev),
+        }
+        self.sector_table = torch.as_tensor(sector_table, dtype=torch.long,
+                                            device=dev)
+        self.sector_counts = torch.as_tensor([len(g) for g in groups],
+                                             device=dev)
+        if not self.fast:
+            # the general path: the HRIRs' spectra for the FFT product,
+            # numpy's rounded to complex64 as JAX's bank
+            self.fft_len = next_pow2(self.fs + L - 1)
+            self.bank["H"] = torch.as_tensor(
+                np.fft.rfft(ir, n=self.fft_len).astype(np.complex64),
+                device=dev)
+            return
 
         # pool rows: segment x 128-block offset, zero-guarded for the crop
         NPn = segments.shape[0]
@@ -136,31 +219,22 @@ class AnechoicSynthesizer:
         d = np.arange(ncol)[:, None] - np.arange(128)[None, :]
         KB = ir_rev[:, :, d.clip(0, L - 1)] * ((d >= 0) & (d < L))
         KB = KB.transpose(0, 2, 1, 3).reshape(M, ncol, 256).astype(np.float32)
-        dev = self.device
         kb = torch.as_tensor(KB, device=dev)
-        self.bank = {
-            "segments": torch.as_tensor(segments, device=dev),
-            "meas_norm": torch.as_tensor(norm.astype(np.float32), device=dev),
-            "meas_dcls": torch.as_tensor(dcls.astype(np.float32), device=dev),
-            "pool3": torch.as_tensor(pad_pool_for_windows(rows, L - 1, L - 1),
-                                     device=dev),
-            # torch's bf16 cast rounds to nearest even, as JAX's astype
-            "KB": kb.to(torch.bfloat16) if self.mix_dtype == "bfloat16"
-            else kb,
-        }
-        self.sector_table = torch.as_tensor(sector_table, dtype=torch.long,
-                                            device=dev)
-        self.sector_counts = torch.as_tensor([len(g) for g in groups],
-                                             device=dev)
+        self.bank["pool3"] = torch.as_tensor(
+            pad_pool_for_windows(rows, L - 1, L - 1), device=dev)
+        # torch's bf16 cast rounds to nearest even, as JAX's astype
+        self.bank["KB"] = (kb.to(torch.bfloat16)
+                           if self.mix_dtype == "bfloat16" else kb)
 
-    # ---------------- the batched fast path ----------------
+    # ---------------- batched draws, mixes and labels ----------------
 
     def scene_batched(self, gen: torch.Generator, batch_size: int,
                       n_src_fixed: int = 0):
         """All per-sample draws, one call per variable -> (active (B, MS)
         bool, sectors, meas, seg_idx, qoff, crop (B, MS) int64). Distinct
         sectors come from an argsort of iid uniforms (a uniformly random
-        permutation)."""
+        permutation). qoff counts segment offsets in units of off_step
+        samples (128, or 1 when fs % 128 != 0)."""
         B, MS, S = batch_size, self.max_sources, self.n_sectors
         dev = self.device
         if n_src_fixed > 0:
@@ -208,24 +282,26 @@ class AnechoicSynthesizer:
         peak = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-8)
         return y / peak
 
+    def mix_general(self, active, meas, seg_idx, qoff, crop) -> torch.Tensor:
+        """Segment slices -> full HRIR convolution -> crop -> masked source
+        sum -> joint peak normalisation: (B, 2, fs), as JAX's per-sample
+        path computes it for every sample at once."""
+        B, MS = active.shape
+        fs = self.fs
+        segs = slice_segments(self.bank["segments"], seg_idx,
+                              qoff * self.off_step, fs).reshape(B * MS, fs)
+        X = torch.fft.rfft(segs, n=self.fft_len)
+        full = torch.fft.irfft(X[:, None] * self.bank["H"][meas.reshape(-1)],
+                               n=self.fft_len)
+        t = crop.reshape(-1, 1, 1) + torch.arange(fs, device=crop.device)
+        out = torch.gather(full, 2, t.expand(-1, 2, -1))
+        return normalise_peak(out.reshape(B, MS, 2, fs), active, 1.0)
+
     def labels_batched(self, active, sectors, meas) -> torch.Tensor:
         """Scatter-free label build -> (B, S * (2 + C))."""
-        S, C = self.n_sectors, N_DIST_CLASSES
-        maskf = active.float()
-        sec1 = F.one_hot(sectors, S).float()                   # (B, MS, S)
-        sound = torch.einsum("bms,bm->bs", sec1, maskf)
-        angle = torch.einsum("bms,bm->bs", sec1,
-                             self.bank["meas_norm"][meas] * maskf)
-        base = torch.zeros((S, C), device=maskf.device)
-        base[:, 0] = 1.0
-        dcls = self.bank["meas_dcls"][meas].long()
-        rows = F.one_hot(torch.where(active, dcls + 1, 0), C).float()
-        covered = sec1.sum(dim=1)                              # (B, S)
-        onehot = (base[None] * (1.0 - covered)[:, :, None]
-                  + torch.einsum("bms,bmc->bsc", sec1, rows))
-        B = active.shape[0]
-        return torch.cat([sound[..., None], angle[..., None], onehot],
-                         dim=2).reshape(B, -1)
+        return sector_labels(active, sectors, self.bank["meas_norm"][meas],
+                             self.bank["meas_dcls"][meas].long() + 1,
+                             self.n_sectors)
 
     def assemble(self, gen: torch.Generator, batch_size: int,
                  n_src_fixed: int = 0):
@@ -233,14 +309,11 @@ class AnechoicSynthesizer:
         CC feature -> labels."""
         active, sectors, meas, seg_idx, qoff, crop = self.scene_batched(
             gen, batch_size, n_src_fixed)
-        y_lr = self.mix_fast(active, meas, seg_idx, qoff, crop)
-        if self.noise_snr_db is not None:
-            y_lr = add_diffuse_noise(gen, y_lr, self.noise_snr_db)
-        wavL, wavR = y_lr[:, 0], y_lr[:, 1]
-        x3 = cross_correlation_feature(wavL, wavR, self.fs,
-                                       num_lags=self.num_lags)
-        y = self.labels_batched(active, sectors, meas)
-        return wavL, wavR, x3, y
+        mix = self.mix_fast if self.fast else self.mix_general
+        y_lr = mix(active, meas, seg_idx, qoff, crop)
+        return finish_batch(gen, y_lr, self.noise_snr_db, self.fs,
+                            self.num_lags,
+                            self.labels_batched(active, sectors, meas))
 
     def sample_batch(self, gen: torch.Generator, batch_size: int,
                      n_src: int | None = None):
@@ -328,16 +401,28 @@ def build_synthesizer(scene: str, sofa: str | None, segments, fs: int,
     """Scene -> synthesizer on `device`, as
     ``tools/generate_binaural_data.py::build_synthesizer`` builds it for
     ``train_biear.py`` (no noise, the f32 mix): the anechoic scene over a
-    SOFA HRIR bank, or the built-in test bank without one. num_lags is the
-    CC feature's width (the model's n_bands). The reverberant scenes are
-    not ported."""
-    if scene != "anechoic":
-        raise NotImplementedError(
-            f"scene {scene!r}: the reverberant synthesizer (auditorium, "
-            "spirit) is not ported yet (ROADMAP.md, Queue 2 item 5)")
+    SOFA HRIR bank, or auditorium ('room') and spirit over a SOFA BRIR bank
+    with the scene's loudspeaker geometry and the head yaw read from the
+    file; the scene's built-in test bank without a SOFA file. num_lags is
+    the CC feature's width (the model's n_bands)."""
+    from .synth_reverb import (ReverbSynthesizer, extract_head_yaw,
+                               load_sofa_brir, make_test_brir_bank,
+                               scene_speaker_xy)
+
+    if scene == "anechoic":
+        if sofa:
+            ir, az, dist = load_sofa_hrir(sofa, fs)
+        else:
+            ir, az, dist = make_test_hrir_bank()
+        return AnechoicSynthesizer(ir, az, dist, segments, fs=fs,
+                                   num_lags=num_lags, device=device)
     if sofa:
-        ir, az, dist = load_sofa_hrir(sofa, fs)
+        ir, view, pos = load_sofa_brir(sofa, fs)
+        yaw, tag = extract_head_yaw(view, pos, ir.shape[0])
+        print(f"[SOFA] head yaw axis source: {tag}")
+        sxy = scene_speaker_xy(scene, ir.shape[2])
     else:
-        ir, az, dist = make_test_hrir_bank()
-    return AnechoicSynthesizer(ir, az, dist, segments, fs=fs,
-                               num_lags=num_lags, device=device)
+        sxy = scene_speaker_xy(scene, 3 if scene == "spirit" else 6)
+        ir, yaw, sxy = make_test_brir_bank(speaker_xy=sxy)
+    return ReverbSynthesizer(ir, yaw, sxy, segments, fs=fs,
+                             num_lags=num_lags, device=device)

@@ -1,6 +1,7 @@
 """Models of the port."""
 
-from .biear import ActiveBiEAR, build_active
+from .biear import ActiveBiEAR, PassiveBiEAR, build_active, build_passive
 from .config import BiEARConfig
 
-__all__ = ["ActiveBiEAR", "BiEARConfig", "build_active"]
+__all__ = ["ActiveBiEAR", "BiEARConfig", "PassiveBiEAR", "build_active",
+           "build_passive"]

@@ -6,7 +6,9 @@ state dict. The names are those of the reference checkpoints, the same
 that ``biear_tpu/train/state.py::to_torch_state_dict`` writes; the
 ear-stacked ``bifb.fb`` leaves (axis 0: fb_L, fb_R) and the head-stacked
 ``subheads`` leaves (axis 0: sector) are split here; the single
-controller's ``bifb.ctrl`` leaves sit directly under ``bifb.``.
+controller's ``bifb.ctrl`` leaves sit directly under ``bifb.``. A passive
+tree (and a fixed-Q one) has no ``bifb`` and gives the backend's names
+only, as ``utils/torch_import.py::import_passive`` reads them.
 """
 
 from __future__ import annotations
@@ -57,7 +59,8 @@ def _controller(sd: dict, prefix: str, p: dict) -> None:
 
 
 def state_dict_from_jax(params_np: dict, cfg: BiEARConfig) -> dict:
-    """JAX active-model params (numpy leaves) -> this package's state dict."""
+    """JAX active- or passive-model params (numpy leaves) -> this
+    package's state dict."""
     sd: dict = {}
     for enc in ("encoder_ild", "encoder_ipd"):
         _ln(sd, f"{enc}.in_norm", params_np[enc]["in_norm"])

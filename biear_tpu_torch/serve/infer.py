@@ -28,7 +28,7 @@ import torch
 from ..config import (config_from_settings,  # noqa: F401 (re-exported)
                       load_settings_near_checkpoint)
 from ..device import resolve_device
-from ..models.biear import ActiveBiEAR
+from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.config import BiEARConfig
 from ..ops.xcorr import cross_correlation_feature
 from ..train.losses import sanitize_wav, sanitize_x3
@@ -65,13 +65,15 @@ def load_state_dict(path: str) -> dict:
     return obj
 
 
-def load_model(pth: str, cfg: BiEARConfig, device=None) -> ActiveBiEAR:
-    """ActiveBiEAR with the .pth weights on `device` (the card by default).
+def load_model(pth: str, cfg: BiEARConfig, device=None,
+               passive: bool = False) -> ActiveBiEAR | PassiveBiEAR:
+    """ActiveBiEAR (PassiveBiEAR with `passive`) with the .pth weights on
+    `device` (the card by default).
 
     Every parameter of the model must be in the file; entries the model
     does not have (the reference model's constant buffers) are ignored."""
     device = resolve_device(device)
-    model = ActiveBiEAR(cfg)
+    model = (PassiveBiEAR if passive else ActiveBiEAR)(cfg)
     sd = load_state_dict(pth)
     own = model.state_dict()
     model.load_state_dict({k: v for k, v in sd.items() if k in own},

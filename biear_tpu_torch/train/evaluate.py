@@ -2,12 +2,14 @@
 """Evaluation: overall and per-source-count metrics of a checkpoint.
 
 Counterpart of ``biear_tpu/train/evaluate.py`` (``evaluate_biear.py``)
-for the active family (dual, single and fixed-Q frontends): the model
-config from the run's settings, predictions over a test split in fixed
-batches (sanitize, then the eval forward; the last batch padded to full
-with repeated rows, which are dropped), and the train-identical metric
-definitions over all N x 8 sectors, overall and for 1, 2 and 3 sources.
-The passive and AuralNet models are not ported (ROADMAP.md, Queue 2).
+for the active family (dual, single and fixed-Q frontends) and the
+passive family: the model config from the run's settings, predictions
+over a test split in fixed batches (active: sanitize, then the eval
+forward on (wavL, wavR, x3); passive: the eval forward on the five
+feature planes; the last batch padded to full with repeated rows, which
+are dropped), and the train-identical metric definitions over all N x 8
+sectors, overall and for 1, 2 and 3 sources. AuralNet is not ported
+(ROADMAP.md, Queue 2 item 6).
 
 The checkpoint is a reference-format ``.pth`` or a checkpoint directory of
 the port's runner (``<run>/checkpoints/best``, read as its
@@ -19,7 +21,9 @@ finds them, walking up to ``meta/settings.json``, or in a
         --test-shard test.shard [--settings S.json] [--device cpu]
 
 It runs on the card unless ``--device cpu`` is given. The test split is a
-``.shard`` file (``data/shard.py``; the card's machine has no ``h5py``).
+``.shard`` file (``data/shard.py``; the card's machine has no ``h5py``):
+4 fields (wavL, wavR, x3, y) for the active family, 6 (x1, x2, x3, x4,
+x5, y) for the passive one.
 """
 
 from __future__ import annotations
@@ -31,10 +35,12 @@ import os
 import numpy as np
 import torch
 
-from ..config import config_from_settings, load_settings_near_checkpoint
+from ..config import (config_from_settings, is_passive,
+                      load_settings_near_checkpoint, model_kind)
 from ..data.pipeline import batch_iterator
-from ..data.shard import ShardDataset
+from ..data.shard import ShardDataset, shard_shapes
 from ..serve.infer import load_model
+from ..models.biear import PassiveBiEAR
 from .losses import sanitize_wav, sanitize_x3
 
 N_SECTORS = 8
@@ -59,12 +65,17 @@ def collect_predictions(model, ds, batch_size: int):
     """(sound_logits, aoa, dist_logits, y) over the whole split, as numpy,
     from the eval forward on the model's device."""
     device = next(model.parameters()).device
+    passive = isinstance(model, PassiveBiEAR)
     model.eval()
     outs = []
-    for wavL, wavR, x3, y, w in batch_iterator(ds, batch_size, shuffle=False):
-        t = lambda a: torch.as_tensor(a, device=device)
-        wl, wr = sanitize_wav(t(wavL), t(wavR))
-        s, a, d, _ = model(wl, wr, sanitize_x3(t(x3)))
+    for batch in batch_iterator(ds, batch_size, shuffle=False):
+        *x, y, w = batch
+        x = [torch.as_tensor(a, device=device) for a in x]
+        if passive:
+            s, a, d, _ = model(*(f.float() for f in x))
+        else:
+            wl, wr = sanitize_wav(x[0], x[1])
+            s, a, d, _ = model(wl, wr, sanitize_x3(x[2]))
         valid = w > 0.5
         outs.append([s.cpu().numpy()[valid], a.cpu().numpy()[valid],
                      d.cpu().numpy()[valid], y[valid]])
@@ -145,9 +156,10 @@ def metrics_from_predictions(s_all, a_all, d_all, y_all) -> dict:
 def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
              test_shard: str | None = None, batch_size: int = 64,
              out_path: str | None = None, device=None) -> dict:
-    """Evaluate a checkpoint of the active family (a reference-format
-    ``.pth`` or a runner checkpoint directory) on a test split (`dataset`
-    with ``rows()`` / ``len()``, or a ``.shard`` path); returns {overall,
+    """Evaluate a checkpoint of the active or passive family (a
+    reference-format ``.pth`` or a runner checkpoint directory) on a test
+    split (`dataset` with ``rows()`` / ``len()``, or a ``.shard`` path of
+    the family's fields); returns {overall,
     1spk, 2spk, 3spk} and writes it as JSON to out_path (default:
     evaluate_biear_metrics.json in the checkpoint's parent directory).
     Runs on the card unless device='cpu'."""
@@ -158,19 +170,18 @@ def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
     if settings is None:
         raise ValueError("no meta/settings.json or settings.json near the "
                          "checkpoint; pass settings= explicitly")
-    kind = str(settings.get("MODEL_KIND", "active"))
-    if not bool(settings.get("Active", True)) or kind != "active":
+    if model_kind(settings) == "auralnet":
         raise NotImplementedError(
-            f"MODEL_KIND={kind!r}: only the active family (dual, single, "
-            "fixed-Q) is ported; the passive and AuralNet models are queued "
-            "in ROADMAP.md (Queue 2)")
+            "MODEL_KIND='auralnet': the active (dual, single, fixed-Q) and "
+            "passive families are ported; AuralNet is queued in ROADMAP.md "
+            "(Queue 2 item 6)")
+    passive = is_passive(settings)
     if dataset is None and test_shard is None:
         raise ValueError("pass dataset= or a .shard test split")
     cfg = config_from_settings(settings)
     if dataset is None:
-        dataset = ShardDataset(test_shard, shapes=[
-            (cfg.fs,), (cfg.fs,), (cfg.n_bands,), (56,)])
-    model = load_model(pth, cfg, device)
+        dataset = ShardDataset(test_shard, shapes=shard_shapes(cfg, passive))
+    model = load_model(pth, cfg, device, passive=passive)
     out = metrics_from_predictions(*collect_predictions(model, dataset,
                                                         batch_size))
     if out_path is None:

@@ -1,7 +1,9 @@
 """Train and eval steps with a masked nonfinite skip, and the fused
 synthesize -> train chunk.
 
-Counterpart of ``biear_tpu/train/loop.py`` for the active model. A train
+Counterpart of ``biear_tpu/train/loop.py`` for the active and passive
+models (the step dispatches on the model's class, as JAX on ``model``;
+``PassiveBiEAR`` batches are (x1, x2, x3, x4, x5, y[, w])). A train
 step always runs the update; one device-side predicate ``ok`` (the loss
 and every gradient finite) decides whether it lands, so a nonfinite batch
 leaves the parameters and the whole Adam state untouched and counts as
@@ -20,10 +22,12 @@ import numpy as np
 import torch
 
 from ..device import no_tf32
-from ..models.biear import ActiveBiEAR
+from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.frontend import device_constants
 from .losses import q_regularizers, sanitize_wav, sanitize_x3, task_loss
 from .optim import Adam, TrainHyper, is_frontend
+
+_Model = ActiveBiEAR | PassiveBiEAR
 
 # Magnitude-decade histogram edges shared by every gradient leaf: 16 bins
 # over |g| in [1e-12, 1e4), plus underflow (zeros) and overflow buckets.
@@ -113,7 +117,24 @@ def active_loss(model: ActiveBiEAR, hp: TrainHyper, batch,
     return loss, metrics
 
 
-def train_step(model: ActiveBiEAR, hp: TrainHyper, optimizer: Adam, batch,
+def passive_loss(model: PassiveBiEAR, hp: TrainHyper, batch,
+                 gen: torch.Generator | None):
+    """(loss, metrics) of the passive model on (x1, x2, x3, x4, x5, y[,
+    w]): the features cast to f32, no sanitising, no Q regulariser."""
+    w = batch[6].float() if len(batch) == 7 else None
+    x1, x2, x3, x4, x5, y = (b.float() for b in batch[:6])
+    s, a, d, _ = model(x1, x2, x3, x4, x5, gen=gen)
+    return task_loss(s, a, d, y, hp.loss_w_sound, hp.loss_w_aoa,
+                     hp.loss_w_dist, model.cfg.n_dist_class, w=w)
+
+
+def model_loss(model, hp: TrainHyper, batch, gen: torch.Generator | None):
+    """The loss of the model's family (JAX ``_loss_fn``)."""
+    fn = passive_loss if isinstance(model, PassiveBiEAR) else active_loss
+    return fn(model, hp, batch, gen)
+
+
+def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
                gen: torch.Generator, lr_scale=1.0,
                max_param_log: int = 200) -> dict:
     """One training step on `batch`, in place on the model's parameters
@@ -123,7 +144,7 @@ def train_step(model: ActiveBiEAR, hp: TrainHyper, optimizer: Adam, batch,
     model.train()
     names, params = zip(*model.named_parameters())
     with no_tf32():
-        loss, metrics = active_loss(model, hp, batch, gen)
+        loss, metrics = model_loss(model, hp, batch, gen)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
@@ -136,7 +157,7 @@ def train_step(model: ActiveBiEAR, hp: TrainHyper, optimizer: Adam, batch,
     return metrics
 
 
-def make_train_step(model: ActiveBiEAR, hp: TrainHyper, optimizer: Adam,
+def make_train_step(model: _Model, hp: TrainHyper, optimizer: Adam,
                     max_param_log: int = 200):
     """(batch, gen, lr_scale) -> metrics, training `model` in place."""
     def step(batch, gen: torch.Generator, lr_scale=1.0) -> dict:
@@ -145,22 +166,23 @@ def make_train_step(model: ActiveBiEAR, hp: TrainHyper, optimizer: Adam,
     return step
 
 
-def make_eval_step(model: ActiveBiEAR, hp: TrainHyper):
+def make_eval_step(model: _Model, hp: TrainHyper):
     """batch -> metrics, in eval mode without gradients."""
     @torch.no_grad()
     def step(batch) -> dict:
         model.eval()
         with no_tf32():
-            return active_loss(model, hp, batch, None)[1]
+            return model_loss(model, hp, batch, None)[1]
     return step
 
 
-def make_train_chunk(model: ActiveBiEAR, hp: TrainHyper, optimizer: Adam,
+def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
                      synth_batch_fn, chunk_steps: int,
                      max_param_log: int = 200):
     """Fused dispatch: (gen, lr_scale) -> metrics stacked over
     `chunk_steps` (synthesize -> train step) iterations. synth_batch_fn is
-    gen -> batch (``AnechoicSynthesizer.batch_fn``); per step the
+    gen -> batch (``AnechoicSynthesizer.batch_fn``, ``ReverbSynthesizer``'s
+    or ``PassiveFeatureSynth``'s for the passive model); per step the
     generator draws the synthesis first, then the dropout. (fb_vjp "auto"
     is "custom" at every batch, which the JAX chunk forces.)"""
     def run_chunk(gen: torch.Generator, lr_scale=1.0) -> dict:

@@ -4,8 +4,9 @@ pipeline of the flagship model, the bare train step, per-stage times and a
 kernel breakdown.
 
     python -m biear_tpu_torch.train.profile_train [--batch 512]
-        [--policy bf16|f32] [--controller-mode dual|single] [--chunk 16]
-        [--windows 3] [--out f.json]
+        [--policy bf16|f32] [--controller-mode dual|single]
+        [--model active|passive] [--scene anechoic|spirit|auditorium]
+        [--chunk 16] [--windows 3] [--out f.json]
 
 Counterpart of ``bench.py::measure_ours``: the flagship config
 (``bench.py:100-102``), or with ``--controller-mode single`` that of
@@ -14,7 +15,11 @@ full width, seeded random weights, and the
 synthesizer fixture of ``bench.py`` (``make_test_hrir_bank()``,
 ``make_test_segments(256)``, 100 lags). Policies: bf16 = bf16 filterbank
 operands and the bf16 HRIR mix (the CUDA mix kernel); f32 = both in f32
-(the CUDA window gather, then an f32 product).
+(the CUDA window gather, then an f32 product). ``--model passive`` trains
+``PassiveBiEAR`` on the features of the synthesised waveforms
+(``PassiveFeatureSynth``; its bare step runs on one synthesised batch);
+``--scene spirit`` or ``auditorium`` synthesises with the scene's built-in
+BRIR bank (``ReverbSynthesizer``, where the mix policy does not apply).
 
 Reported:
   * fused pipeline utterances/s: host clock around ``--windows`` chunks of
@@ -22,7 +27,9 @@ Reported:
     synchronize; median, min and max over the windows;
   * bare step utterances/s: the same on one fixed batch in device memory;
   * CUDA-event stage times (median of 5): synthesis (whole batch, the mix
-    kernel, the CC kernel), forward (loss included), backward, optimizer;
+    (the kernel alone on the anechoic fast path), the CC kernel, the
+    passive features of both ears), forward (loss included), backward,
+    optimizer;
   * torch.profiler over two train steps: device-busy time, idle share of
     the wall time and the top kernels;
   * peak device memory of a train step.
@@ -40,14 +47,16 @@ import time
 import numpy as np
 import torch
 
-from ..data.synth import (AnechoicSynthesizer, make_test_hrir_bank,
-                          make_test_segments)
+from ..data.passive_synth import PassiveFeatureSynth
+from ..data.synth import (AnechoicSynthesizer, build_synthesizer,
+                          make_test_hrir_bank, make_test_segments)
+from ..data.synth_reverb import ReverbSynthesizer
 from ..device import no_tf32
-from ..models import BiEARConfig, build_active
+from ..models import BiEARConfig, build_active, build_passive
 from ..ops.window_gather import cc_kept_lags, gather_mix_kb, gather_windows
 from ..ops.xcorr import lag_plan
 from ..serve.profile_serve import GEOMETRY, device_profile
-from .loop import active_loss, make_train_chunk, train_step
+from .loop import make_train_chunk, model_loss, train_step
 from .optim import TrainHyper, make_optimizer
 
 POLICIES = {"bf16": "bfloat16", "f32": "float32"}
@@ -100,22 +109,34 @@ def fixed_batch(B: int, n_bands: int, seed: int, device) -> tuple:
                  for a in (wavL, wavR, x3, y.reshape(B, 56)))
 
 
-def stage_times(model, hp, opt, synth, batch, gen) -> dict:
-    B = batch[0].shape[0]
-    cfg = model.cfg
-    scene = synth.scene_batched(gen, B)
-    active, sectors, meas, seg_idx, qoff, crop = scene
+def mix_stage(synth, B: int, gen):
+    """(name, one-argument timing closure) of the synthesizer's mix: the
+    kernel alone on the anechoic fast path, the whole mix otherwise."""
+    if isinstance(synth, ReverbSynthesizer):
+        head, active, _, speakers, seg_idx, qoff = synth.scene_batched(gen, B)
+        return "mix_ms", lambda _: synth.mix(head, active, speakers, seg_idx,
+                                             qoff)
+    active, _, meas, seg_idx, qoff, crop = synth.scene_batched(gen, B)
+    if not synth.fast:
+        return "mix_ms", lambda _: synth.mix_general(active, meas, seg_idx,
+                                                     qoff, crop)
     X = active.numel()
     rows = (seg_idx * synth.n_q + qoff).reshape(X)
     bank = synth.bank
     if synth.mix_dtype == "bfloat16":
-        mix = lambda _: gather_mix_kb(bank["pool3"], rows, crop.reshape(X),
-                                      meas.reshape(X), bank["KB"],
-                                      cfg.fs // 128)
-    else:
-        mix = lambda _: gather_windows(bank["pool3"], rows, crop.reshape(X))
-    wl, wr = batch[0], batch[1]
-    kept = lag_plan(wl.shape[1], cfg.fs, cfg.n_bands, 3.0)[0]
+        return "mix_kernel_ms", lambda _: gather_mix_kb(
+            bank["pool3"], rows, crop.reshape(X), meas.reshape(X), bank["KB"],
+            synth.fs // 128)
+    return "mix_kernel_ms", lambda _: gather_windows(bank["pool3"], rows,
+                                                     crop.reshape(X))
+
+
+def stage_times(model, hp, opt, synth, batch, gen) -> dict:
+    B = batch[0].shape[0]
+    inner = getattr(synth, "inner", synth)
+    mix_name, mix = mix_stage(inner, B, gen)
+    wl, wr = inner.sample_batch(gen, B)[:2]
+    kept = lag_plan(wl.shape[1], inner.fs, inner.num_lags, 3.0)[0]
     lf = wl - wl.mean(-1, keepdim=True)
     rf = wr - wr.mean(-1, keepdim=True)
     params = [p for _, p in model.named_parameters()]
@@ -123,7 +144,7 @@ def stage_times(model, hp, opt, synth, batch, gen) -> dict:
 
     def forward(_):
         with no_tf32():
-            return active_loss(model, hp, batch, gen)[0]
+            return model_loss(model, hp, batch, gen)[0]
 
     def backward(loss):
         with no_tf32():
@@ -133,11 +154,11 @@ def stage_times(model, hp, opt, synth, batch, gen) -> dict:
         grads = dict(zip([n for n, _ in model.named_parameters()],
                          torch.autograd.grad(forward(None), params)))
     ok = torch.ones((), dtype=torch.bool, device=wl.device)
-    return {
+    out = {
         "synthesis_batch_ms": events_ms(
             lambda _: synth.sample_batch(gen, B)),
-        "mix_kernel_ms": events_ms(mix),
-        "mix_policy": synth.mix_dtype,
+        mix_name: events_ms(mix),
+        "mix_policy": getattr(inner, "mix_dtype", "float32"),
         "cc_kernel_ms": events_ms(
             lambda _: cc_kept_lags(lf, rf, int(np.abs(kept).max()))),
         "forward_ms": events_ms(forward),
@@ -146,6 +167,10 @@ def stage_times(model, hp, opt, synth, batch, gen) -> dict:
         "train_step_ms": events_ms(
             lambda _: train_step(model, hp, opt, batch, gen)),
     }
+    if synth is not inner:
+        out["passive_features_ms"] = events_ms(
+            lambda _: synth.to_passive((wl, wr, None, None)))
+    return out
 
 
 def main(argv=None):
@@ -154,6 +179,10 @@ def main(argv=None):
     ap.add_argument("--policy", default="bf16", choices=tuple(POLICIES))
     ap.add_argument("--controller-mode", default="dual",
                     choices=tuple(GEOMETRY))
+    ap.add_argument("--model", default="active",
+                    choices=("active", "passive"))
+    ap.add_argument("--scene", default="anechoic",
+                    choices=("anechoic", "spirit", "auditorium"))
     ap.add_argument("--chunk", type=int, default=16)
     ap.add_argument("--windows", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
@@ -169,20 +198,30 @@ def main(argv=None):
     cfg = BiEARConfig(**GEOMETRY[args.controller_mode], fb_w_dtype=dtype)
     B = args.batch
     hp = TrainHyper()
-    ir, az, dist = make_test_hrir_bank()
-    synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(256),
-                                fs=cfg.fs, num_lags=cfg.n_bands,
-                                mix_dtype=dtype)
+    if args.scene == "anechoic":
+        ir, az, dist = make_test_hrir_bank()
+        synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(256),
+                                    fs=cfg.fs, num_lags=cfg.n_bands,
+                                    mix_dtype=dtype)
+    else:
+        synth = build_synthesizer(args.scene, None, make_test_segments(256),
+                                  cfg.fs, num_lags=cfg.n_bands)
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
 
-    model = build_active(cfg, seed=args.seed)
+    if args.model == "passive":
+        synth = PassiveFeatureSynth(synth, data_dim=cfg.n_bands,
+                                    timesteps=cfg.timesteps)
+        model = build_passive(cfg, seed=args.seed)
+    else:
+        model = build_active(cfg, seed=args.seed)
     opt = make_optimizer(model, hp)
     chunk = make_train_chunk(model, hp, opt, synth.batch_fn(B), args.chunk)
     one_step = make_train_chunk(model, hp, opt, synth.batch_fn(B), 1)
     chunk(gen)                                       # warm-up
     fused = rate_windows(lambda: chunk(gen), B * args.chunk, args.windows)
 
-    batch = fixed_batch(B, cfg.n_bands, args.seed, "cuda")
+    batch = (synth.sample_batch(gen, B) if args.model == "passive"
+             else fixed_batch(B, cfg.n_bands, args.seed, "cuda"))
     steps = lambda: [train_step(model, hp, opt, batch, gen)
                      for _ in range(args.chunk)]
     steps()
@@ -194,7 +233,8 @@ def main(argv=None):
     peak = torch.cuda.max_memory_allocated()
     result = {
         "card": smi, "batch": B, "policy": args.policy, "chunk": args.chunk,
-        "controller_mode": args.controller_mode,
+        "controller_mode": args.controller_mode, "model": args.model,
+        "scene": args.scene,
         "fused_train_pipeline_utterances_per_sec": fused,
         "model_step_utt_s": bare,
         "stages": stage_times(model, hp, opt, synth, batch, gen),

@@ -1,11 +1,12 @@
 """The training runner: the library form of ``train_biear.py``.
 
-Counterpart of ``biear_tpu/train/runner.py`` for the active family on one
-device: the run tree and ``meta/settings.json``, a sanity batch, epochs of
-training and validation, the plateau LR scale on the validation loss, the
-lexicographic best tuple, best / last / epochNNN checkpoints with the
-optimizer state, ``history.json``, ``scalars.jsonl``, the test pass on the
-best parameters (``test_metrics.json``) and crash-resume from ``last``.
+Counterpart of ``biear_tpu/train/runner.py`` for the active and passive
+families on one device: the run tree and ``meta/settings.json``, a sanity
+batch, epochs of training and validation, the plateau LR scale on the
+validation loss, the lexicographic best tuple, best / last / epochNNN
+checkpoints with the optimizer state, ``history.json``, ``scalars.jsonl``,
+the test pass on the best parameters (``test_metrics.json``) and
+crash-resume from ``last``.
 
 Training data comes from a dataset (H5 or ``.shard`` splits, or injected
 objects with ``rows()`` / ``len()``) through
@@ -36,10 +37,11 @@ import numpy as np
 import torch
 
 from ..config import (RunConfig, check_matmul_precision, data_paths,
-                      make_exp_name, make_run_dirs, settings_dict)
+                      is_passive, make_exp_name, make_run_dirs,
+                      settings_dict)
 from ..data.pipeline import Prefetcher, batch_iterator
 from ..device import resolve_device
-from ..models.biear import build_active
+from ..models.biear import build_active, build_passive
 from ..utils.logging import MetricLogger
 from . import state as ckpt
 from .loop import (GRAD_HIST_EDGES, grad_hist_names, is_better_tuple,
@@ -59,15 +61,14 @@ def keyed_generator(device, *key: int) -> torch.Generator:
 
 def check_supported(rc: RunConfig) -> None:
     """Refuse what this slice of the port does not run."""
-    if not rc.active or rc.model_kind != "active":
-        item = "item 6" if rc.model_kind == "auralnet" else "item 4"
+    if rc.model_kind == "auralnet":
         raise NotImplementedError(
-            f"MODEL_KIND={rc.model_kind!r} (Active={rc.active}): only the "
-            f"active family is ported; this one is ROADMAP.md Queue 2 {item}")
+            "MODEL_KIND='auralnet': the active and passive families are "
+            "ported; AuralNet is ROADMAP.md Queue 2 item 6")
     if rc.mesh_model != 1 or rc.mesh_data not in (-1, 1):
         raise NotImplementedError(
             f"MESH_DATA={rc.mesh_data}, MESH_MODEL={rc.mesh_model}: the port "
-            "trains on one device; multi-GPU is ROADMAP.md Queue 2 item 7")
+            "trains on one device; multi-GPU is ROADMAP.md Queue 2 item 10")
     check_matmul_precision(rc.matmul_precision)
 
 
@@ -75,13 +76,12 @@ def open_datasets(rc: RunConfig) -> dict:
     """The train / val / test splits of DATA_FORMAT (h5 or shard)."""
     paths = data_paths(rc)
     if rc.data_format == "shard":
-        from ..data.shard import ShardDataset
-        m = rc.model_cfg
-        shapes = [(m.fs,), (m.fs,), (m.n_bands,), (56,)]
+        from ..data.shard import ShardDataset, shard_shapes
+        shapes = shard_shapes(rc.model_cfg, is_passive(rc))
         return {k: ShardDataset(v, shapes=shapes) for k, v in paths.items()}
-    from ..data.h5io import ActiveH5Dataset
-    return {k: ActiveH5Dataset(v, preload=rc.preload_h5)
-            for k, v in paths.items()}
+    from ..data.h5io import ActiveH5Dataset, PassiveH5Dataset
+    DS = PassiveH5Dataset if is_passive(rc) else ActiveH5Dataset
+    return {k: DS(v, preload=rc.preload_h5) for k, v in paths.items()}
 
 
 class SynthEvalDataset:
@@ -101,7 +101,11 @@ class SynthEvalDataset:
         self.budget_mb = int(os.environ.get("SYNTH_EVAL_HBM_BUDGET_MB", 2048))
         self.device = synth.device
         if keep_on_device is None:
-            est_mb = n * (2 * synth.fs + synth.num_lags + 56) * 4 / 2**20
+            # synthesizers of features (PassiveFeatureSynth) declare their
+            # own per-row element count
+            row = getattr(synth, "row_elems", 2 * synth.fs + synth.num_lags
+                          + 56)
+            est_mb = n * row * 4 / 2**20
             keep_on_device = est_mb <= self.budget_mb
             if not keep_on_device:
                 print(f"[SynthEvalDataset] split of {n} rows ~{est_mb:.0f} "
@@ -225,10 +229,13 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
     say(f"[Run dir] {dirs['run']}")
     say(f"[Device] {device}")
 
-    model = build_active(rc.model_cfg, seed=seed, device=device)
+    passive = is_passive(rc)
+    build = build_passive if passive else build_active
+    model = build(rc.model_cfg, seed=seed, device=device)
     optimizer = make_optimizer(
-        model, rc.hyper, freeze_controller=(rc.freeze_q_controller_only
-                                            and not rc.fixed_frontend_q))
+        model, rc.hyper, freeze_controller=(
+            not passive and rc.freeze_q_controller_only
+            and not rc.fixed_frontend_q))
     train_step = make_train_step(model, rc.hyper, optimizer,
                                  rc.max_param_log)
     eval_step = make_eval_step(model, rc.hyper)
@@ -485,8 +492,9 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
                   "w") as f:
             json.dump(te, f, indent=2)
         say(f"Test metrics: {te}")
-    say("[Q-vis] skipped: the Q plots are not ported yet (ROADMAP.md, "
-        "Queue 2 item 7)")
+    if not passive:
+        say("[Q-vis] skipped: the Q plots are not ported yet (ROADMAP.md, "
+            "Queue 2 item 7)")
 
     logger.close()
     return {"run_dir": dirs["run"], "exp_name": exp_name,

@@ -9,8 +9,9 @@ Counterpart of ``train_biear.py``: it reads the run config, trains under
 RUNS_ROOT with the same run tree, settings.json, history.json and
 checkpoint names (``train.runner.train``), and with SYNTH_ON_DEVICE: true
 synthesises the training data on the device (SOFA_FILE, SEGMENT_POOL,
-SCENE; the anechoic scene only). It runs on the card unless ``--device
-cpu`` is given.
+SCENE: anechoic, auditorium or spirit; the passive family's features are
+computed from the synthesised waveforms). It runs on the card unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,16 +21,18 @@ import os
 
 import numpy as np
 
-from .config import RunConfig, load_run_config
+from .config import RunConfig, is_passive, load_run_config
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def make_synth(rc: RunConfig, device=None):
-    """The run config's on-device synthesizer: SCENE (anechoic; 'room' is
-    auditorium), SOFA_FILE (the built-in test bank when unset or missing)
-    and SEGMENT_POOL (.npy; 64 test segments when unset), under the f32
-    mix, as ``train_biear.py`` builds it."""
+    """The run config's on-device synthesizer: SCENE (anechoic, auditorium
+    or spirit; 'room' is auditorium), SOFA_FILE (the scene's built-in test
+    bank when unset or missing) and SEGMENT_POOL (.npy; 64 test segments
+    when unset), under the f32 mix, as ``train_biear.py`` builds it; for
+    the passive family wrapped in ``PassiveFeatureSynth``."""
+    from .data.passive_synth import PassiveFeatureSynth
     from .data.synth import build_synthesizer, make_test_segments
 
     sofa = rc.raw.get("SOFA_FILE")
@@ -41,8 +44,12 @@ def make_synth(rc: RunConfig, device=None):
         print(f"[Scene] SOFA_FILE {sofa!r} not found; "
               f"using the built-in {scene} test bank")
         sofa = None
-    return build_synthesizer(scene, sofa, segments, rc.model_cfg.fs,
-                             num_lags=rc.model_cfg.n_bands, device=device)
+    synth = build_synthesizer(scene, sofa, segments, rc.model_cfg.fs,
+                              num_lags=rc.model_cfg.n_bands, device=device)
+    if is_passive(rc):
+        synth = PassiveFeatureSynth(synth, data_dim=rc.model_cfg.n_bands,
+                                    timesteps=rc.model_cfg.timesteps)
+    return synth
 
 
 def main(argv=None):

@@ -80,6 +80,32 @@ Phases, each of which raises on failure (the exit code is then not 0):
      runner's training rate against ``make_train_chunk``'s bare rate at
      the same batch and policy, checkpoint write and eval-split
      materialisation ms, peak memory.
+ 11. passive: (a) ``ops.features.passive_features`` of FEATURE_BATCH
+     synthesised waveforms on the card against the CPU port (above -60
+     dB: wrapped phase FEATURE_RAD_TOL, magnitude FEATURE_DB_TOL; the
+     padded frame -80); (b) a fused chunk of ``PassiveBiEAR`` at full
+     width through ``PassiveFeatureSynth`` over the bf16 synthesizer,
+     TRAIN_BATCH, TRAIN_STEPS steps (one mix and one CC launch per step,
+     finite losses, nothing skipped), fused and bare rates; (c) the runner
+     on conf/config_passive.yaml made synthesised as phase 10 does, 2
+     epochs (one CC and one window-gather launch per training step and
+     per synthesised eval or sanity batch, no bf16 mix; the run tree),
+     seconds per epoch and utt/s; (d) ``evaluate`` of
+     docs/protocol_r3/passive/best.pth on an EVAL_ROWS-row passive shard
+     synthesised on the card, card against CPU by phase 9's rules with
+     each row's tolerance widened to the CPU's own change under 1e-6
+     relative input noise (the trained checkpoints are ill-conditioned at
+     the rounding level).
+ 12. reverberant and general paths: (a) ``ReverbSynthesizer`` batches of
+     the built-in spirit and auditorium banks at REVERB_BATCH, card
+     against CPU on the same draws (waveforms WAVE_ATOL, labels bit for
+     bit; one CC launch per batch, no window or mix launch); (b) the
+     runner on conf/config_spirit.yaml as written (flagship, batch 64,
+     f32, the built-in spirit bank), one epoch; (c) a flagship fused chunk
+     at REVERB_BATCH on the general anechoic path, a pool of 19,200-sample
+     segments (CC each step, no window or mix launch); (d) ``evaluate`` of
+     docs/protocol_r3/spirit/best.pth on an EVAL_ROWS-row spirit shard
+     synthesised on the card, card against CPU as in 11 (d).
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -131,6 +157,15 @@ RUNNER_ROWS = ((64, 0), (21, 1), (21, 2), (22, 3))
 STEP_LOSS_ATOL = 1e-5
 BACKEND_RTOL = 1e-4
 WITNESS_DRAWS, WITNESS_FACTOR = 3, 3.0
+# phase 11: passive features card vs CPU above -60 dB, the CPU test's
+# limits (tests/test_torch_port_passive.py): wrapped phase 1e-3 rad and the
+# magnitude to the same 1e-3 of the band value, 20 log10(1 + 1e-3) dB
+FEATURE_BATCH = 64
+FEATURE_RAD_TOL = 1e-3
+FEATURE_DB_TOL = 20.0 * np.log10(1.0 + FEATURE_RAD_TOL)
+# phase 12: reverberant batches, card vs CPU on the same draws
+REVERB_BATCH = 64
+WAVE_ATOL = 2e-5
 
 
 def log(msg: str) -> None:
@@ -839,27 +874,122 @@ def phase_stream(torch, rng):
     return total
 
 
+class Jittered:
+    """A dataset whose input fields (all but the label) carry relative
+    noise of `rel` rms: the rounding-level witness of a trained
+    checkpoint's own spread (tests/test_torch_port_evaluate.py)."""
+
+    def __init__(self, ds, rel: float, seed: int):
+        self.ds, self.rel = ds, rel
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.ds)
+
+    def rows(self, idx):
+        r = list(self.ds.rows(idx))
+        for i in range(len(r) - 1):
+            noise = 1 + self.rel * self.rng.standard_normal(r[i].shape)
+            r[i] = (r[i] * noise).astype(np.float32)
+        return tuple(r)
+
+
+def compare_evaluations(torch, label, ckpt, settings, shard, tmp, tol,
+                        witness: bool):
+    """``evaluate`` of a checkpoint on a shard, on the card, against the
+    CPU port's predictions on the same shard: rows equal except where a
+    presence logit lies within the row's tolerance of 0 or a distance
+    top-2 margin within twice it; over all rows the card's accuracies
+    differ from the CPU's by no more than the flipped presence / distance
+    decisions; MAE to 1e-4. The row's tolerance is `tol`, or with
+    `witness` the larger of `tol` and the CPU's own change of the row's
+    logits under 1e-6 relative input noise (a trained checkpoint's
+    forward is ill-conditioned at the rounding level). Returns the
+    evaluation's launch counts."""
+    from biear_tpu_torch.data.shard import ShardDataset
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.train import evaluate as ev
+    from biear_tpu_torch.config import is_passive
+    from biear_tpu_torch.data.shard import shard_shapes
+
+    cfg = ev.config_from_settings(settings)
+    passive = is_passive(settings)
+    LAUNCHES.clear()
+    m_card = ev.evaluate(ckpt, settings=settings, test_shard=shard,
+                         out_path=os.path.join(tmp, f"{label}-card.json"))
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    ds = ShardDataset(shard, shard_shapes(cfg, passive))
+    card = ev.collect_predictions(ev.load_model(ckpt, cfg, passive=passive),
+                                  ds, 64)
+    cpu_model = ev.load_model(ckpt, cfg, "cpu", passive=passive)
+    cpu = ev.collect_predictions(cpu_model, ds, 64)
+    m_cpu = ev.metrics_from_predictions(*cpu)
+    if m_card != ev.metrics_from_predictions(*card):
+        raise RuntimeError(f"{label}: evaluate's metrics differ from those "
+                           "of its own predictions")
+    spread = np.zeros(cpu[0].shape[0])
+    if witness:
+        wit = ev.collect_predictions(cpu_model, Jittered(ds, 1e-6, 5), 64)
+        spread = np.maximum(np.abs(wit[0] - cpu[0]).max(1),
+                            np.abs(wit[2] - cpu[2]).max((1, 2)))
+    row_tol = np.maximum(tol, spread)[:, None]
+    diff = max(float(np.abs(a - b).max()) for a, b in zip(card[:3], cpu[:3]))
+    # per (row, sector): presence flips only where the CPU's logit is
+    # within the row's tolerance of 0, distance flips only where its top-2
+    # margin is within twice it (each logit may move by the tolerance)
+    top2 = np.sort(cpu[2], axis=-1)[..., -2:]
+    flip_el = np.concatenate([(card[0] > 0) != (cpu[0] > 0),
+                              card[2].argmax(-1) != cpu[2].argmax(-1)], 1)
+    near_el = np.concatenate([np.abs(cpu[0]) <= row_tol,
+                              top2[..., 1] - top2[..., 0] <= 2 * row_tol], 1)
+    flipped = flip_el.any(1)
+    near = near_el.any(1)
+    # all rows: each flipped decision moves its accuracy by 1 / (rows x 8)
+    n_el = cpu[0].size
+    d_acc = {k: abs(m_card["overall"][k] - m_cpu["overall"][k]) * n_el
+             for k in ("sound_acc", "dist_acc")}
+    n_flip = {"sound_acc": int(flip_el[:, :8].sum()),
+              "dist_acc": int(flip_el[:, 8:].sum())}
+    d_mae = abs(m_card["overall"]["aoa_mae"] - m_cpu["overall"]["aoa_mae"])
+    log(f"{label} card vs CPU: max |logit or aoa difference| {diff!r}; "
+        f"CPU's own spread under 1e-6 input noise max {float(spread.max())!r}"
+        f" (witness {witness}); rows with a different prediction "
+        f"{int(flipped.sum())} (each within its row's tolerance, at least "
+        f"{tol}, of its boundary: {not (flip_el & ~near_el).any()}; rows "
+        f"near a boundary {int(near.sum())}); accuracies (sound, dist) "
+        f"{m_card['overall']['sound_acc']!r} / "
+        f"{m_card['overall']['dist_acc']!r} (card) and "
+        f"{m_cpu['overall']['sound_acc']!r} / "
+        f"{m_cpu['overall']['dist_acc']!r} (CPU), decisions apart "
+        f"{d_acc!r} against flipped {n_flip}; |d MAE| {d_mae!r}")
+    log(f"{label} card metrics: {json.dumps(m_card['overall'])}")
+    if ((flip_el & ~near_el).any()
+            or any(round(d_acc[k]) > n_flip[k] for k in d_acc)
+            or not d_mae <= 1e-4 or set(m_card) != set(m_cpu)):
+        raise RuntimeError(f"{label}: card and CPU disagree")
+    return launches
+
+
 def phase_evaluate(torch, synth):
     """A synthesised shard evaluated on the card and on the CPU."""
     import tempfile
-    from biear_tpu_torch.data.shard import ShardDataset, write_shard
+    from biear_tpu_torch.data.shard import write_shard
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.serve.profile_serve import GEOMETRY
-    from biear_tpu_torch.train import evaluate as ev
 
     settings = {"Active": True, "MODEL_KIND": "active", "USE_CC": True,
                 "Controller_Mode": "single", "DELTAQ_MODE": "absolute",
                 "DELTAQ_BASE": 2.0, "DELTAQ_LOW_FACTOR": 0.5,
                 "DELTAQ_HIGH_FACTOR": 5.0,
                 "GEOMETRY": {"FB_W_DTYPE": "bfloat16"}}
-    cfg = ev.config_from_settings(settings)
-    tol = SERVE_TOL[cfg.fb_w_dtype]
-    shapes = [(cfg.fs,), (cfg.fs,), (cfg.n_bands,), (56,)]
     with tempfile.TemporaryDirectory() as tmp:
         LAUNCHES.clear()
         batch = synth.sample_batch(torch.Generator(device="cuda")
                                    .manual_seed(3), EVAL_ROWS)
+        torch.cuda.synchronize()
+        launches = dict(LAUNCHES)
         shard = os.path.join(tmp, "test.shard")
         write_shard(shard, [a.cpu().numpy() for a in batch],
                     ["i16", "i16", "f32", "f32"])
@@ -871,51 +1001,13 @@ def phase_evaluate(torch, synth):
         torch.save(model.state_dict(), ckpt)
         with open(os.path.join(tmp, "run", "settings.json"), "w") as f:
             json.dump(settings, f)
-        m_card = ev.evaluate(ckpt, test_shard=shard,
-                             out_path=os.path.join(tmp, "card.json"))
-        torch.cuda.synchronize()
-        launches = dict(LAUNCHES)
-        ds = ShardDataset(shard, shapes)
-        card = ev.collect_predictions(ev.load_model(ckpt, cfg), ds, 64)
-        cpu = ev.collect_predictions(ev.load_model(ckpt, cfg, "cpu"), ds, 64)
-    m_cpu = ev.metrics_from_predictions(*cpu)
-    if m_card != ev.metrics_from_predictions(*card):
-        raise RuntimeError("evaluate: its metrics differ from those of its "
-                           "own predictions")
+        ev_launches = compare_evaluations(
+            torch, "evaluate", ckpt, settings, shard, tmp,
+            SERVE_TOL["bfloat16"], witness=False)
+    for k, v in ev_launches.items():
+        launches[k] = launches.get(k, 0) + v
     log(f"evaluate: {EVAL_ROWS}-row shard synthesised on the card; launches "
         f"(synthesis and the card's evaluation): {launches}")
-    diff = max(float(np.abs(a - b).max()) for a, b in zip(card[:3], cpu[:3]))
-    # per (row, sector): presence flips only where the CPU's logit is
-    # within tol of 0, distance flips only where its top-2 margin is within
-    # 2 tol (each logit may move by tol)
-    top2 = np.sort(cpu[2], axis=-1)[..., -2:]
-    flip_el = np.concatenate([(card[0] > 0) != (cpu[0] > 0),
-                              card[2].argmax(-1) != cpu[2].argmax(-1)], 1)
-    near_el = np.concatenate([np.abs(cpu[0]) <= tol,
-                              top2[..., 1] - top2[..., 0] <= 2 * tol], 1)
-    flipped = flip_el.any(1)
-    near = near_el.any(1)
-    # all rows: each flipped decision moves its accuracy by 1 / (rows x 8)
-    n_el = cpu[0].size
-    d_acc = {k: abs(m_card["overall"][k] - m_cpu["overall"][k]) * n_el
-             for k in ("sound_acc", "dist_acc")}
-    n_flip = {"sound_acc": int(flip_el[:, :8].sum()),
-              "dist_acc": int(flip_el[:, 8:].sum())}
-    d_mae = abs(m_card["overall"]["aoa_mae"] - m_cpu["overall"]["aoa_mae"])
-    log(f"evaluate card vs CPU: max |logit or aoa difference| {diff!r}; "
-        f"rows with a different prediction {int(flipped.sum())} (each "
-        f"within {tol} of its boundary: {not (flip_el & ~near_el).any()}; "
-        f"rows near a boundary {int(near.sum())}); accuracies (sound, dist) "
-        f"{m_card['overall']['sound_acc']!r} / "
-        f"{m_card['overall']['dist_acc']!r} (card) and "
-        f"{m_cpu['overall']['sound_acc']!r} / "
-        f"{m_cpu['overall']['dist_acc']!r} (CPU), decisions apart "
-        f"{d_acc!r} against flipped {n_flip}; |d MAE| {d_mae!r}")
-    log(f"evaluate card metrics: {json.dumps(m_card['overall'])}")
-    if ((flip_el & ~near_el).any()
-            or any(round(d_acc[k]) > n_flip[k] for k in d_acc)
-            or not d_mae <= 1e-4 or set(m_card) != set(m_cpu)):
-        raise RuntimeError("evaluate: card and CPU disagree")
     return launches
 
 
@@ -935,7 +1027,6 @@ def phase_runner(torch):
     """The training runner on the card: 2 epochs, a resume, evaluate."""
     import tempfile
     from biear_tpu_torch import train_biear
-    from biear_tpu_torch.config import load_run_config
     from biear_tpu_torch.data.shard import write_shard
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import ActiveBiEAR
@@ -946,14 +1037,8 @@ def phase_runner(torch):
     from biear_tpu_torch.train.profile_train import rate_windows
     from biear_tpu_torch.train.runner import train
 
-    here = os.path.dirname(os.path.abspath(__file__))
-    rc = load_run_config(os.path.join(here, "conf", "config.yaml"))
+    rc = synthesised_run_config("config.yaml", 2)
     B = rc.batch_size
-    rc.synth_on_device, rc.epochs = True, 2
-    rc.raw = dict(rc.raw, SYNTH_ON_DEVICE=True,
-                  SYNTH_STEPS_PER_EPOCH=RUNNER_STEPS,
-                  SYNTH_CHUNK_STEPS=RUNNER_CHUNK,
-                  SYNTH_EVAL_SAMPLES=RUNNER_EVAL)
     m = rc.model_cfg
     log(f"runner: conf/config.yaml, {m.controller_mode} controllers, "
         f"{m.deltaQ_mode} deltaQ, {m.n_bands} bands, {m.timesteps} frames, "
@@ -983,16 +1068,7 @@ def phase_runner(torch):
         if launches.get("gather_mix_kb", 0):
             raise RuntimeError("runner: the bf16 mix ran under the f32 policy")
 
-        for rel in ("meta/settings.json", "logs_json/history.json",
-                    "logs_json/scalars.jsonl", "logs_json/test_metrics.json",
-                    "checkpoints/best/params.pth",
-                    "checkpoints/best/opt_state.pt",
-                    "checkpoints/last/params.pth",
-                    "checkpoints/last/opt_state.pt"):
-            if not os.path.isfile(os.path.join(run, rel)):
-                raise RuntimeError(f"runner: {rel} missing from the run tree")
-        with open(os.path.join(run, "logs_json", "history.json")) as f:
-            hist = json.load(f)
+        hist = check_run_tree(run, "runner")
         losses = [e["loss"] for split in ("train", "val")
                   for e in hist[split]]
         if (len(hist["train"]) != 3 or len(hist["val"]) != 3
@@ -1061,6 +1137,302 @@ def phase_runner(torch):
     return launches
 
 
+def check_run_tree(run: str, label: str) -> dict:
+    """The run tree's files exist; returns history.json."""
+    for rel in ("meta/settings.json", "logs_json/history.json",
+                "logs_json/scalars.jsonl", "logs_json/test_metrics.json",
+                "checkpoints/best/params.pth",
+                "checkpoints/best/opt_state.pt",
+                "checkpoints/last/params.pth",
+                "checkpoints/last/opt_state.pt"):
+        if not os.path.isfile(os.path.join(run, rel)):
+            raise RuntimeError(f"{label}: {rel} missing from the run tree")
+    with open(os.path.join(run, "logs_json", "history.json")) as f:
+        return json.load(f)
+
+
+def synthesised_run_config(name: str, epochs: int):
+    """conf/<name> as written, synthesised on the card with RUNNER_STEPS
+    steps per epoch in chunks of RUNNER_CHUNK and eval splits of
+    RUNNER_EVAL rows."""
+    from biear_tpu_torch.config import load_run_config
+    here = os.path.dirname(os.path.abspath(__file__))
+    rc = load_run_config(os.path.join(here, "conf", name))
+    rc.synth_on_device, rc.epochs = True, epochs
+    rc.raw = dict(rc.raw, SYNTH_ON_DEVICE=True,
+                  SYNTH_STEPS_PER_EPOCH=RUNNER_STEPS,
+                  SYNTH_CHUNK_STEPS=RUNNER_CHUNK,
+                  SYNTH_EVAL_SAMPLES=RUNNER_EVAL)
+    return rc
+
+
+def runner_phase(torch, name: str, epochs: int, label: str):
+    """``train.runner.train`` of a synthesised run config on the card:
+    launch counts (one CC and, on the anechoic fast path, one window
+    gather per training step and per synthesised eval or sanity batch, no
+    bf16 mix), the run tree, finite losses, nothing skipped; seconds per
+    epoch and utt/s logged. Returns (launches, the run config, its
+    synthesizer)."""
+    import tempfile
+    from biear_tpu_torch import train_biear
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.config import is_passive
+    from biear_tpu_torch.train.runner import train
+
+    rc = synthesised_run_config(name, epochs)
+    B = rc.batch_size
+    m = rc.model_cfg
+    synth = train_biear.make_synth(rc)
+    inner = getattr(synth, "inner", synth)
+    fast = bool(getattr(inner, "fast", False))
+    kind = "passive" if is_passive(rc) else m.controller_mode
+    scene = rc.raw.get("SCENE", "anechoic")
+    log(f"{label}: conf/{name}, {kind} model, scene {scene}, {m.n_bands} "
+        f"bands, {m.timesteps} frames, batch {B}, FB_W_DTYPE {m.fb_w_dtype}, "
+        f"synthesizer {type(synth).__name__}({type(inner).__name__})")
+    with tempfile.TemporaryDirectory() as tmp:
+        rc.runs_root = tmp
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = train(rc, synth=synth, run_id="smoke", quiet=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(LAUNCHES)
+        hist = check_run_tree(out["run_dir"], label)
+    val_b, test_b = synth_eval_batches(RUNNER_EVAL, B)
+    want = epochs * RUNNER_STEPS + 1 + val_b + test_b
+    log(f"{label} launches ({epochs} epochs): {launches}; expected {want} "
+        f"of cc_lags{' and gather_windows' if fast else ''}")
+    if (launches.get("cc_lags", 0) != want
+            or launches.get("gather_windows", 0) != (want if fast else 0)
+            or launches.get("gather_mix_kb", 0)):
+        raise RuntimeError(f"{label}: wrong kernel launches {launches}")
+    losses = [e["loss"] for split in ("train", "val") for e in hist[split]]
+    if (len(hist["train"]) != epochs or not all(np.isfinite(losses))
+            or any(e["skipped"] for e in hist["train"])
+            or out["global_step"] != epochs * RUNNER_STEPS
+            or not np.isfinite(out["test"]["loss"])):
+        raise RuntimeError(f"{label}: history {hist}")
+    metrics = {"epoch_s": [t["sec"] + v["sec"] for t, v in
+                           zip(hist["train"], hist["val"])],
+               "runner_train_utt_s": [RUNNER_STEPS * B / t["sec"]
+                                      for t in hist["train"]],
+               "train_losses": [e["loss"] for e in hist["train"]],
+               "val_losses": [e["loss"] for e in hist["val"]],
+               "eval_splits_ms": 1e3 * out["timings"]["eval_splits_s"],
+               "checkpoint_write_ms": [1e3 * t for t in
+                                       out["timings"]["checkpoint_s"]],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "wall_s": wall}
+    log(f"{label} metrics (B={B}): {json.dumps(metrics)}")
+    return launches, rc, synth
+
+
+def protocol_shard_evaluation(torch, synth, kind: str, tmp: str):
+    """docs/protocol_r3/<kind>/best.pth evaluated on an EVAL_ROWS-row shard
+    that `synth` makes on the card (waveforms as int16, features as f32),
+    card against CPU with the witness (compare_evaluations). Returns the
+    evaluation's launch counts."""
+    from biear_tpu_torch.data.shard import write_shard
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(here, "docs", "protocol_r3", kind, "best.pth")
+    with open(os.path.join(os.path.dirname(ckpt), "settings.json")) as f:
+        settings = json.load(f)
+    batch = synth.sample_batch(torch.Generator(device="cuda").manual_seed(9),
+                               EVAL_ROWS)
+    shard = os.path.join(tmp, f"{kind}.shard")
+    arrays = [a.cpu().numpy() for a in batch]
+    write_shard(shard, arrays, (["i16", "i16", "f32", "f32"]
+                                if len(arrays) == 4 else None))
+    tol = SERVE_TOL[settings.get("GEOMETRY", {}).get("FB_W_DTYPE",
+                                                     "float32")]
+    return compare_evaluations(torch, f"evaluate {kind}", ckpt, settings,
+                               shard, tmp, tol, witness=True)
+
+
+def phase_passive(torch, synth_bf16):
+    """Phase 11: the passive family at full width: features card vs CPU,
+    a fused chunk at TRAIN_BATCH (bf16 mix), the runner on
+    conf/config_passive.yaml, docs/protocol_r3/passive/best.pth
+    evaluated card vs CPU."""
+    import tempfile
+    from biear_tpu_torch.data.passive_synth import PassiveFeatureSynth
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_passive
+    from biear_tpu_torch.ops.features import passive_features
+    from biear_tpu_torch.train.loop import make_train_chunk, train_step
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import rate_windows
+
+    launches = {}
+    # (a) features on the card against the CPU port
+    wav = synth_bf16.sample_batch(torch.Generator(device="cuda")
+                                  .manual_seed(8), FEATURE_BATCH)[0]
+    mag, ph = (a.cpu() for a in passive_features(wav))
+    cmag, cph = passive_features(wav.cpu())
+    strong = cmag > -60.0
+    e_mag = float((mag - cmag)[strong].abs().max())
+    d = torch.remainder(ph.double() - cph.double() + np.pi, 2 * np.pi) - np.pi
+    e_ph = float(d[strong].abs().max())
+    pad = bool((mag[:, 18:] == -80.0).all())
+    feat_ms = cuda_ms(lambda: passive_features(wav))
+    log(f"passive features B={FEATURE_BATCH} card vs CPU above -60 dB "
+        f"({float(strong.float().mean())!r} of the values): magnitude "
+        f"{e_mag!r} dB (limit {FEATURE_DB_TOL!r}), wrapped phase {e_ph!r} rad"
+        f" (limit {FEATURE_RAD_TOL}); padded frame -80: {pad}; "
+        f"{feat_ms!r} ms per ear on the card")
+    if not (e_mag <= FEATURE_DB_TOL and e_ph <= FEATURE_RAD_TOL and pad):
+        raise RuntimeError("passive features: card and CPU disagree")
+
+    # (b) the fused passive chunk at TRAIN_BATCH, bf16 mix
+    psynth = PassiveFeatureSynth(synth_bf16)
+    hp = TrainHyper()
+    model = build_passive(BiEARConfig(), seed=0)
+    opt = make_optimizer(model, hp)
+    chunk = make_train_chunk(model, hp, opt, psynth.batch_fn(TRAIN_BATCH),
+                             TRAIN_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = snapshot(model)
+    LAUNCHES.clear()
+    ms = chunk(gen)
+    torch.cuda.synchronize()
+    launches["passive_train_bf16"] = dict(LAUNCHES)
+    losses = ms["loss"].tolist()
+    log(f"passive train chunk ({TRAIN_STEPS} steps, B={TRAIN_BATCH}, bf16 "
+        f"mix) launches: {launches['passive_train_bf16']}; losses "
+        f"{losses!r}, skipped {ms['skipped'].tolist()}")
+    if (LAUNCHES.get("gather_mix_kb", 0) != TRAIN_STEPS
+            or LAUNCHES.get("cc_lags", 0) != TRAIN_STEPS
+            or LAUNCHES.get("gather_windows", 0)
+            or not all(np.isfinite(losses))
+            or float(ms["skipped"].sum()) != 0):
+        raise RuntimeError("passive train chunk: wrong kernels, nonfinite "
+                           "loss or skipped step")
+    moved = max(float((p - before[n]).abs().max())
+                for n, p in snapshot(model).items())
+    if not moved > 0:
+        raise RuntimeError("passive train chunk: the parameters did not move")
+    fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * TRAIN_STEPS, 3)
+    fb = psynth.sample_batch(gen, TRAIN_BATCH)
+    bare = rate_windows(
+        lambda: [train_step(model, hp, opt, fb, gen)
+                 for _ in range(TRAIN_STEPS)], TRAIN_BATCH * TRAIN_STEPS, 3)
+    log(f"passive train B={TRAIN_BATCH}: fused pipeline {fused['median']!r} "
+        f"utterances/s [{fused['min']!r}-{fused['max']!r}], bare step "
+        f"{bare['median']!r} utterances/s [{bare['min']!r}-{bare['max']!r}] "
+        f"(windows of {TRAIN_STEPS} steps)")
+
+    # (c) the runner on conf/config_passive.yaml, synthesised (f32 mix)
+    launches["passive_runner"], _, rsynth = runner_phase(
+        torch, "config_passive.yaml", 2, "passive runner")
+    # (d) the protocol's passive checkpoint on a shard made on the card
+    with tempfile.TemporaryDirectory() as tmp:
+        LAUNCHES.clear()
+        launches["passive_evaluate"] = protocol_shard_evaluation(
+            torch, rsynth, "passive", tmp)
+    return launches
+
+
+def phase_reverb(torch):
+    """Phase 12: the reverberant scenes and the general anechoic path at
+    full width: spirit and auditorium batches card vs CPU, the runner on
+    conf/config_spirit.yaml, a flagship chunk on a 1.2 s pool,
+    docs/protocol_r3/spirit/best.pth evaluated card vs CPU."""
+    import tempfile
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            build_synthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import rate_windows
+
+    launches = {}
+    segs = make_test_segments(64)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    # (a) reverberant batches on the card against the CPU port
+    for scene in ("spirit", "auditorium"):
+        card = build_synthesizer(scene, None, segs, 16000)
+        cpu = build_synthesizer(scene, None, segs, 16000, device="cpu")
+        draws = card.scene_batched(gen, REVERB_BATCH)
+        head, active, sectors, speakers, seg_idx, qoff = draws
+        got = card.mix(head, active, speakers, seg_idx, qoff).cpu()
+        cd = [d.cpu() for d in draws]
+        want = cpu.mix(cd[0], cd[1], cd[3], cd[4], cd[5])
+        same = torch.equal(card.labels_batched(head, active, sectors,
+                                               speakers).cpu(),
+                           cpu.labels_batched(cd[0], cd[1], cd[2], cd[3]))
+        err = float((got - want).abs().max())
+        LAUNCHES.clear()
+        batch = card.sample_batch(gen, REVERB_BATCH)
+        torch.cuda.synchronize()
+        launches[f"{scene}_batch"] = dict(LAUNCHES)
+        ms = cuda_ms(lambda: card.sample_batch(gen, REVERB_BATCH), reps=3,
+                     inner=3)
+        H = card.bank["H"]
+        log(f"{scene} B={REVERB_BATCH}: {card.n_speakers} speakers, "
+            f"{card.n_measurements} heads, BRIR spectra {tuple(H.shape)} "
+            f"{H.dtype} {H.numel() * H.element_size() / 1e6!r} MB; max "
+            f"|card - CPU| waveform {err!r} (atol {WAVE_ATOL}), labels equal: "
+            f"{same}; launches per batch {launches[f'{scene}_batch']}; "
+            f"{ms!r} ms per batch")
+        got_l = launches[f"{scene}_batch"]
+        if not (err <= WAVE_ATOL and same and got_l.get("cc_lags", 0) == 1
+                and not got_l.get("gather_windows", 0)
+                and not got_l.get("gather_mix_kb", 0)
+                and all(bool(torch.isfinite(b).all()) for b in batch)):
+            raise RuntimeError(f"{scene} batch: card and CPU disagree or "
+                               "wrong kernels")
+        if scene == "spirit":
+            spirit = card
+
+    # (b) the runner on conf/config_spirit.yaml as written
+    launches["spirit_runner"], _, _ = runner_phase(
+        torch, "config_spirit.yaml", 1, "spirit runner")
+
+    # (c) a flagship chunk on the general anechoic path: a 1.2 s pool
+    ir, az, dist = make_test_hrir_bank()
+    general = AnechoicSynthesizer(ir, az, dist,
+                                  make_test_segments(64, seg_len=19200))
+    if general.fast or general.n_q != 26:
+        raise RuntimeError("the 1.2 s pool did not take the general path")
+    hp = TrainHyper()
+    model = build_active(BiEARConfig(**GEOMETRY["dual"],
+                                     fb_w_dtype="bfloat16"), seed=0)
+    chunk = make_train_chunk(model, hp, make_optimizer(model, hp),
+                             general.batch_fn(REVERB_BATCH), RUNNER_CHUNK)
+    LAUNCHES.clear()
+    ms = chunk(gen)
+    torch.cuda.synchronize()
+    launches["general_train"] = got_l = dict(LAUNCHES)
+    losses = ms["loss"].tolist()
+    rate = rate_windows(lambda: chunk(gen), REVERB_BATCH * RUNNER_CHUNK, 2)
+    log(f"general path flagship chunk ({RUNNER_CHUNK} steps, B="
+        f"{REVERB_BATCH}, bf16 filterbank, pool of 19,200-sample segments, "
+        f"26 offsets): launches {launches['general_train']}; losses "
+        f"{losses!r}, skipped {ms['skipped'].tolist()}; "
+        f"{rate['median']!r} utterances/s [{rate['min']!r}-{rate['max']!r}]")
+    if (got_l.get("cc_lags", 0) != RUNNER_CHUNK
+            or got_l.get("gather_mix_kb", 0)
+            or got_l.get("gather_windows", 0)
+            or not all(np.isfinite(losses))
+            or float(ms["skipped"].sum()) != 0):
+        raise RuntimeError("general path chunk: wrong kernels, nonfinite "
+                           "loss or skipped step")
+
+    # (d) the protocol's spirit checkpoint on a spirit shard
+    with tempfile.TemporaryDirectory() as tmp:
+        LAUNCHES.clear()
+        launches["spirit_evaluate"] = protocol_shard_evaluation(
+            torch, spirit, "spirit", tmp)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1102,6 +1474,8 @@ def main() -> int:
     launches["stream"] = phase_stream(torch, rng)
     launches["evaluate"] = phase_evaluate(torch, synth)
     launches["runner"] = phase_runner(torch)
+    launches.update(phase_passive(torch, synth))
+    launches.update(phase_reverb(torch))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())

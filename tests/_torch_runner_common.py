@@ -1,8 +1,9 @@
-"""Shared pieces of the runner parity tests (tests/test_torch_port_runner.py
-and tests/test_torch_port_config.py): the seeded in-memory dataset, the
-small run configs of both packages, one JAX ``train`` run per optimizer
-shape with its initial state and epoch-1 checkpoint captured, and the
-port runs resumed from a JAX state.
+"""Shared pieces of the runner parity tests (tests/test_torch_port_runner.py,
+tests/test_torch_port_config.py and tests/test_torch_port_passive.py): the
+seeded in-memory dataset, the passive ``.shard`` splits, the small run
+configs of both packages, one JAX ``train`` run per optimizer shape (the
+passive model's single group is one) with its initial state and epoch-1
+checkpoint captured, and the port runs resumed from a JAX state.
 
 One JAX run compiles a train and an eval step (~20 s on the CPU), so each
 optimizer shape runs once per module and the shapes are split between the
@@ -29,7 +30,8 @@ from biear_tpu.train import state as jstate
 from biear_tpu.utils import qvis as jqvis
 
 from biear_tpu_torch import config as tcfg
-from biear_tpu_torch.models import ActiveBiEAR, BiEARConfig
+from biear_tpu_torch.data.shard import write_shard
+from biear_tpu_torch.models import ActiveBiEAR, BiEARConfig, PassiveBiEAR
 from biear_tpu_torch.models.weights import state_dict_from_jax
 from biear_tpu_torch.train import optim as topt
 from biear_tpu_torch.train import runner as trun
@@ -37,6 +39,7 @@ from biear_tpu_torch.train import state as tstate
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(REPO, "conf", "config.yaml")
+CONF_PASSIVE = os.path.join(REPO, "conf", "config_passive.yaml")
 SMALL = dict(fs=1600, timesteps=3, n_fft=256, n_bands=16, fmin=50.0,
              fmax=700.0, latent_dim=16, ctrl_hidden=16, deltaQ_mode="relative",
              ctrl_dropout=0.0, backend_dropout=0.0)
@@ -44,7 +47,7 @@ SMALL = dict(fs=1600, timesteps=3, n_fft=256, n_bands=16, fmin=50.0,
 LOSS_TOL, PARAM_TOL = 5e-5, 3e-3
 ROWS, BATCH, SEED = 12, 4, 0
 SHAPES = {"two-group": {}, "fixed-q": {"fixed_frontend_q": True},
-          "frozen": {"freeze_q_controller_only": True}}
+          "frozen": {"freeze_q_controller_only": True}, "passive": {}}
 
 
 class Mem:
@@ -82,12 +85,39 @@ def splits():
     return {"train": ds, "val": ds, "test": ds}
 
 
-def run_config(jax_side: bool, runs_root, shape: str):
-    """conf/config.yaml at SMALL's geometry, 2 epochs of batch BATCH, in
-    one optimizer shape, for either package."""
+def passive_dataset(seed=12):
+    """ROWS rows of the passive fields at SMALL's geometry: magnitude
+    planes in dB, phase planes in (-pi, pi), the CC feature, labels."""
+    rng = np.random.default_rng(seed)
+    tb = (ROWS, SMALL["timesteps"], SMALL["n_bands"])
+    y = dataset(seed).arrays[3]
+    return Mem([rng.uniform(-80, 0, tb).astype(np.float32),
+                rng.uniform(-80, 0, tb).astype(np.float32),
+                rng.uniform(-1, 1, tb[::2]).astype(np.float32),
+                rng.uniform(-np.pi, np.pi, tb).astype(np.float32),
+                rng.uniform(-np.pi, np.pi, tb).astype(np.float32), y])
+
+
+def write_passive_shards(root):
+    """passive_dataset() as the train, val and test ``.shard`` splits under
+    the names ``data_paths`` gives a passive run."""
+    os.makedirs(root, exist_ok=True)
+    arrays = passive_dataset().arrays
+    for split in ("train", "val", "test2"):
+        write_shard(os.path.join(root, f"anechoic_{split}_gt_group_phase"
+                                       ".shard"), arrays)
+    return str(root)
+
+
+def run_config(jax_side: bool, runs_root, shape: str, shard_root=None):
+    """conf/config.yaml (conf/config_passive.yaml for the passive shape,
+    on the .shard splits under shard_root) at SMALL's geometry, 2 epochs
+    of batch BATCH, in one optimizer shape, for either package."""
     load, cfg_cls = ((jax_run_config, JaxConfig) if jax_side
                      else (tcfg.load_run_config, BiEARConfig))
-    rc = load(CONF)
+    rc = load(CONF_PASSIVE if shape == "passive" else CONF)
+    if shape == "passive":
+        rc.data_format, rc.shard_root = "shard", str(shard_root)
     rc.runs_root, rc.epochs, rc.batch_size = str(runs_root), 2, BATCH
     rc.print_every = 1000
     over = SHAPES[shape]
@@ -121,9 +151,12 @@ def to_np(tree):
 def jax_run(shape: str, root) -> dict:
     """JAX train for 2 epochs in `shape`: its initial (params, opt_state)
     as numpy, a copy of its 'last' checkpoint after epoch 1, its run
-    directory, history and run config."""
-    rc = run_config(True, root / shape, shape)
-    seen = {"rc": rc}
+    directory, history and run config (the passive shape on its .shard
+    splits, whose directory it records)."""
+    shard_root = (write_passive_shards(root / "passive-shards")
+                  if shape == "passive" else None)
+    rc = run_config(True, root / shape, shape, shard_root)
+    seen = {"rc": rc, "shard_root": shard_root}
     shard_opt, save = jrun.shard_opt_state, jstate.save_checkpoint
 
     def capture_init(opt_state, params, mesh):
@@ -141,8 +174,8 @@ def jax_run(shape: str, root) -> dict:
     mp.setattr(jstate, "save_checkpoint", keep_epoch1)
     try:
         with jax.default_matmul_precision("highest"):
-            res = jrun.train(rc, datasets=splits(), quiet=True, run_id="J",
-                             seed=SEED)
+            res = jrun.train(rc, datasets=None if shard_root else splits(),
+                             quiet=True, run_id="J", seed=SEED)
     finally:
         mp.undo()
     seen.update(run_dir=res["run_dir"], history=res["history"])
@@ -173,8 +206,12 @@ def port_run_from(tmp_path, params_np, opt_np, meta, cfg, history=None):
 
 
 def port_train(rc, resume_from):
-    return trun.train(rc, datasets=splits(), quiet=True, seed=SEED,
-                      resume_from=resume_from, device="cpu")
+    """The port's train from resume_from, on the in-memory splits or on
+    the run config's .shard splits."""
+    return trun.train(rc, datasets=(None if rc.data_format == "shard"
+                                    else splits()),
+                      quiet=True, seed=SEED, resume_from=resume_from,
+                      device="cpu")
 
 
 def assert_losses(got, want, epochs):
@@ -196,9 +233,10 @@ def assert_params(model, params_np):
 def check_adam_conversion(shape, run):
     """JAX's initial optax state, converted: the port optimizer's group
     labels, names, shapes and int32 zero counts, and it loads."""
-    rc = run_config(False, "unused", shape)
+    rc = run_config(False, "unused", shape, run["shard_root"])
     conv = tstate.adam_state_from_optax(run["init"][1], rc.model_cfg)
-    model = ActiveBiEAR(rc.model_cfg)
+    model = (PassiveBiEAR if shape == "passive" else ActiveBiEAR)(
+        rc.model_cfg)
     opt = topt.make_optimizer(model, rc.hyper, freeze_controller=(
         rc.freeze_q_controller_only and not rc.fixed_frontend_q))
     own = opt.state_dict()
@@ -216,7 +254,7 @@ def check_adam_conversion(shape, run):
 def check_port_resume(shape, run, tmp_path):
     """JAX's epoch-1 'last' (non-zero moments, counts 3), turned into a
     port checkpoint, trains epoch 2 as JAX does."""
-    rc = run_config(False, tmp_path, shape)
+    rc = run_config(False, tmp_path, shape, run["shard_root"])
     p1, o1, meta1 = restore_jax(run, run["last1"])
     assert meta1["epoch"] == 1 and meta1["global_step"] == 3
     conv = tstate.adam_state_from_optax(o1, rc.model_cfg)

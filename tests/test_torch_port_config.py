@@ -266,22 +266,33 @@ def test_metric_logger_writes_jaxs_records(tmp_path):
 
 def test_refused_configs_name_their_roadmap_items():
     base = tcfg.load_run_config(CONFS[0])
-    for kw, item in (({"model_kind": "passive", "active": False}, "item 4"),
-                     ({"model_kind": "auralnet"}, "item 6"),
-                     ({"mesh_data": 4}, "item 7"),
-                     ({"mesh_model": 2}, "item 7")):
+    for kw, item in (({"model_kind": "auralnet"}, "item 6"),
+                     ({"mesh_data": 4}, "item 10"),
+                     ({"mesh_model": 2}, "item 10")):
         rc = dataclasses.replace(base, **kw)
         with pytest.raises(NotImplementedError, match=item):
             trun.check_supported(rc)
     with pytest.raises(NotImplementedError, match="f32"):
         trun.check_supported(dataclasses.replace(
             base, matmul_precision="bfloat16"))
+    passive = dataclasses.replace(base, model_kind="passive", active=False)
+    trun.check_supported(passive)
+    assert tcfg.is_passive(passive) and not tcfg.is_passive(base)
+    for settings, want in (({}, False), ({"Active": False}, True),
+                           ({"MODEL_KIND": "passive"}, True),
+                           ({"MODEL_KIND": "auralnet"}, False)):
+        assert tcfg.is_passive(settings) == want, settings
 
 
 # ---------------- the synthesizer of the run config ----------------
 
 def test_build_synthesizer_anechoic_and_refusals():
+    """The anechoic scene over the built-in bank; the reverberant scenes,
+    once refused, now build over their built-in banks with their speaker
+    geometry (their banks against JAX's: tests/test_torch_port_reverb.py);
+    an unknown scene is refused."""
     from biear_tpu.data import synth as jsynth
+    from biear_tpu_torch.data.synth_reverb import ReverbSynthesizer
     segs = tsynth.make_test_segments(4)
     sy = tsynth.build_synthesizer("anechoic", None, segs, 16000,
                                   num_lags=24, device="cpu")
@@ -291,9 +302,13 @@ def test_build_synthesizer_anechoic_and_refusals():
     assert sy.mix_dtype == "float32" and sy.num_lags == 24
     for k in ref.bank:
         torch.testing.assert_close(sy.bank[k], ref.bank[k], rtol=0, atol=0)
-    for scene in ("auditorium", "spirit"):
-        with pytest.raises(NotImplementedError, match="Queue 2 item 5"):
-            tsynth.build_synthesizer(scene, None, segs, 16000)
+    for scene, n_speakers in (("auditorium", 6), ("spirit", 3)):
+        rs = tsynth.build_synthesizer(scene, None, segs, 16000, num_lags=24,
+                                      device="cpu")
+        assert isinstance(rs, ReverbSynthesizer)
+        assert (rs.n_speakers, rs.num_lags, rs.fs) == (n_speakers, 24, 16000)
+    with pytest.raises(ValueError, match="unknown room scene"):
+        tsynth.build_synthesizer("garden", None, segs, 16000, device="cpu")
 
 
 def test_sofa_loader_matches_the_tool(tmp_path):
@@ -325,8 +340,14 @@ def test_make_synth_reads_the_run_config(tmp_path, capsys):
         capsys.readouterr().out
     assert sy.num_lags == 16 and sy.bank["segments"].shape[0] == 3
     rc.raw = dict(rc.raw, SCENE="room")
-    with pytest.raises(NotImplementedError, match="auditorium"):
-        train_biear.make_synth(rc, "cpu")
+    sy = train_biear.make_synth(rc, "cpu")
+    assert "using the built-in auditorium test bank" in \
+        capsys.readouterr().out
+    assert type(sy).__name__ == "ReverbSynthesizer" and sy.n_speakers == 6
+    rc.active, rc.model_kind = False, "passive"
+    sy = train_biear.make_synth(rc, "cpu")
+    assert type(sy).__name__ == "PassiveFeatureSynth"
+    assert sy.inner.n_speakers == 6 and sy.timesteps == rc.model_cfg.timesteps
 
 
 def test_synth_eval_split_thirds_and_spill():

@@ -53,7 +53,8 @@ def test_port_never_imports_jax_or_the_jax_package(banned):
     scanned = {os.path.relpath(p, PORT) for p in sources}
     assert scanned >= {"config.py", "utils/logging.py", "data/pipeline.py",
                        "data/h5io.py", "train/state.py", "train/runner.py",
-                       "train_biear.py"}
+                       "train_biear.py", "ops/features.py",
+                       "data/passive_synth.py", "data/synth_reverb.py"}
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p)
            if m == banned or m.startswith(banned + ".")]
@@ -165,6 +166,45 @@ def test_runner_entry_points_without_device_raise_when_no_cuda(
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_biear.main(["--config", conf, "--epochs", "1"])
     assert os.listdir(tmp_path) == []
+
+
+def test_passive_and_reverb_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch, tmp_path):
+    """build_passive, the passive runner and train_biear CLI, the
+    reverberant build_synthesizer and ReverbSynthesizer refuse to run
+    without a card unless given the CPU."""
+    from biear_tpu_torch import train_biear
+    from biear_tpu_torch.config import load_run_config
+    from biear_tpu_torch.data.synth import (build_synthesizer,
+                                            make_test_segments)
+    from biear_tpu_torch.data.synth_reverb import (ReverbSynthesizer,
+                                                   make_test_brir_bank)
+    from biear_tpu_torch.models import BiEARConfig, build_passive
+    from biear_tpu_torch.train.runner import train
+
+    _no_cuda(monkeypatch)
+    cfg = BiEARConfig(n_bands=16, timesteps=3, latent_dim=16)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_passive(cfg)
+    assert next(build_passive(cfg, device="cpu").parameters()
+                ).device.type == "cpu"
+    conf = os.path.join(REPO, "conf", "config_passive.yaml")
+    rc = load_run_config(conf)
+    rc.runs_root = str(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(rc, datasets={})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_biear.main(["--config", conf, "--epochs", "1"])
+    assert os.listdir(tmp_path) == []
+    segs = make_test_segments(2)
+    for scene in ("spirit", "auditorium", "room"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_synthesizer(scene, None, segs, 16000)
+    ir, yaw, sxy = make_test_brir_bank(n_yaw=2, ir_len=200)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ReverbSynthesizer(ir, yaw, sxy, segs)
+    synth = ReverbSynthesizer(ir, yaw, sxy, segs, device="cpu")
+    assert synth.bank["H"].device.type == "cpu"
 
 
 def test_streaming_state_lives_on_the_model_device():
@@ -493,6 +533,98 @@ def test_train_chunk_on_card_launches_the_kernels():
     assert LAUNCHES["gather_mix_kb"] == 2 and LAUNCHES["cc_lags"] == 2
     assert bool(torch.isfinite(ms["loss"]).all())
     assert float(ms["skipped"].sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_passive_chunk_on_card_launches_the_kernels():
+    """Two fused synthesize -> passive-features -> train steps on the card:
+    one mix and one CC launch per step, finite losses, nothing skipped,
+    and the features on the card against the CPU port (wrapped phase 1e-3
+    rad and magnitude 8.7e-3 dB above -60 dB, tests/test_torch_port_
+    passive.py)."""
+    _need_card()
+    from biear_tpu_torch.data.passive_synth import PassiveFeatureSynth
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_passive
+    from biear_tpu_torch.ops.features import passive_features
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+
+    ir, az, dist = make_test_hrir_bank()
+    synth = PassiveFeatureSynth(AnechoicSynthesizer(
+        ir, az, dist, make_test_segments(16), mix_dtype="bfloat16"))
+    model = build_passive(BiEARConfig(), seed=2)
+    hp = TrainHyper()
+    chunk = make_train_chunk(model, hp, make_optimizer(model, hp),
+                             synth.batch_fn(8), 2)
+    LAUNCHES.clear()
+    ms = chunk(torch.Generator(device="cuda").manual_seed(0))
+    assert LAUNCHES["gather_mix_kb"] == 2 and LAUNCHES["cc_lags"] == 2
+    assert bool(torch.isfinite(ms["loss"]).all())
+    assert float(ms["skipped"].sum()) == 0.0
+    wav = synth.inner.sample_batch(torch.Generator(device="cuda")
+                                   .manual_seed(1), 8)[0]
+    mag, ph = (a.cpu() for a in passive_features(wav))
+    cmag, cph = passive_features(wav.cpu())
+    strong = cmag > -60.0
+    assert float((mag - cmag)[strong].abs().max()) <= 8.7e-3
+    d = torch.remainder(ph - cph + np.pi, 2 * np.pi) - np.pi
+    assert float(d[strong].abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene", ["spirit", "anechoic-long-pool"])
+def test_reverb_and_general_paths_on_card(scene):
+    """A batch of the spirit scene and of the anechoic general path (a
+    1.2 s pool) on the card against the CPU port on the same draws
+    (waveforms 2e-5, labels bit for bit); one CC launch per batch and no
+    window or mix launch."""
+    _need_card()
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            build_synthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.kernels import LAUNCHES
+
+    if scene == "spirit":
+        segs = make_test_segments(4)
+        card = build_synthesizer("spirit", None, segs, 16000)
+        cpu = build_synthesizer("spirit", None, segs, 16000, device="cpu")
+    else:
+        ir, az, dist = make_test_hrir_bank()
+        segs = make_test_segments(4, seg_len=19200)
+        card = AnechoicSynthesizer(ir, az, dist, segs)
+        cpu = AnechoicSynthesizer(ir, az, dist, segs, device="cpu")
+        assert not card.fast and card.n_q == 26
+    draws = card.scene_batched(torch.Generator(device="cuda").manual_seed(3),
+                               16)
+    if scene == "spirit":
+        head, active, sectors, speakers, seg_idx, qoff = draws
+        got = card.mix(head, active, speakers, seg_idx, qoff)
+        want = cpu.mix(*(d.cpu() for d in (head, active, speakers, seg_idx,
+                                           qoff)))
+        labels = (card.labels_batched(head, active, sectors, speakers),
+                  cpu.labels_batched(*(d.cpu() for d in (head, active,
+                                                         sectors, speakers))))
+    else:
+        active, sectors, meas, seg_idx, qoff, crop = draws
+        got = card.mix_general(active, meas, seg_idx, qoff, crop)
+        want = cpu.mix_general(*(d.cpu() for d in (active, meas, seg_idx,
+                                                   qoff, crop)))
+        labels = (card.labels_batched(active, sectors, meas),
+                  cpu.labels_batched(*(d.cpu() for d in (active, sectors,
+                                                         meas))))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=2e-5)
+    assert torch.equal(labels[0].cpu(), labels[1])
+    LAUNCHES.clear()
+    batch = card.sample_batch(torch.Generator(device="cuda").manual_seed(4),
+                              16)
+    assert LAUNCHES["cc_lags"] == 1 and LAUNCHES["gather_windows"] == 0
+    assert LAUNCHES["gather_mix_kb"] == 0
+    assert all(bool(torch.isfinite(b).all()) for b in batch)
 
 
 @pytest.mark.cuda

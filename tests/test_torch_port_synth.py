@@ -190,15 +190,56 @@ def test_long_segments_take_several_block_offsets(fixture_bank):
                                   np.asarray(js._bank["pool3"]))
 
 
-def test_per_sample_geometries_are_not_ported(fixture_bank):
+# the geometries off the fast path: (segment length, HRIR taps, fs)
+GENERAL = {"long-segments": (19200, 256, 16000),
+           "2048-taps": (16000, 2048, 16000),
+           "sample-offsets": (1700, 256, 1600)}
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL))
+def test_per_sample_geometries_are_not_ported(fixture_bank, case):
+    """Formerly refused, these geometries now take the general mix, the
+    batched rFFT product: a 1.2 s pool (26 block offsets), a 2,048-tap
+    bank and fs = 1600 (sample offsets). With injected draws the waveforms
+    match the numpy convolution oracle to 2e-5 and the labels JAX's bit
+    for bit; no kernel launches."""
+    seg_len, L, fs = GENERAL[case]
     ir, az, dist, _ = fixture_bank
-    segs = tsy.make_test_segments(3, seg_len=1600)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsy.AnechoicSynthesizer(ir, az, dist, segs, fs=1600, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsy.AnechoicSynthesizer(np.zeros((32, 2, 2048), np.float32), az,
-                                dist, tsy.make_test_segments(3),
-                                device="cpu")
+    if L > ir.shape[2]:
+        rng = np.random.default_rng(2)
+        ir = np.concatenate([ir, 0.01 * rng.standard_normal(
+            (ir.shape[0], 2, L - ir.shape[2])).astype(np.float32)], axis=2)
+    segs = tsy.make_test_segments(3, seg_len=seg_len)
+    ts = tsy.AnechoicSynthesizer(ir, az, dist, segs, fs=fs, device="cpu")
+    js = jsy.AnechoicSynthesizer(ir, az, dist, segs, fs=fs)
+    assert not ts.fast and not js._fast
+    step = 128 if fs % 128 == 0 else 1
+    assert ts.off_step == step
+    assert ts.n_q == (seg_len - fs) // step + 1
+    if case == "long-segments":
+        assert ts.n_q == 26
+    rng = np.random.default_rng(5)
+    B = 4
+    active, meas, seg_idx, _, crop = _scene(rng, B, ir.shape[0], len(segs),
+                                            L)
+    qoff = rng.integers(0, ts.n_q, (B, 3))
+    qoff[0, 0] = ts.n_q - 1                       # the last offset
+    sectors = np.stack([rng.permutation(8)[:3] for _ in range(B)])
+    LAUNCHES.clear()
+    got = ts.mix_general(*(_t(a) for a in (active, meas, seg_idx, qoff,
+                                           crop))).numpy()
+    assert sum(LAUNCHES.values()) == 0 and got.shape == (B, 2, fs)
+    np.testing.assert_allclose(
+        got, _conv_oracle(segs, ir, active, meas, seg_idx, crop, fs,
+                          qoff * step), rtol=0, atol=2e-5)
+    yj = np.asarray(js._labels_batched(
+        js._bank, *(jnp.asarray(a) for a in (active, sectors, meas))))
+    yt = ts.labels_batched(*(_t(a) for a in (active, sectors, meas))).numpy()
+    np.testing.assert_array_equal(yt, yj)
+    wl, wr, x3, y = ts.sample_batch(torch.Generator().manual_seed(1), 3)
+    assert wl.shape == (3, fs) and x3.shape == (3, 100) and y.shape == (3, 56)
+    peak = torch.maximum(wl.abs().amax(1), wr.abs().amax(1))
+    torch.testing.assert_close(peak, torch.ones(3), rtol=0, atol=1e-6)
 
 
 # ---------------- mix and labels with injected scene draws ----------------
@@ -214,15 +255,21 @@ def _scene(rng, B, M, n_segs, L):
     return active, meas, seg_idx, qoff, crop
 
 
-def _conv_oracle(segs, ir, active, meas, seg_idx, crop, fs=16000):
+def _conv_oracle(segs, ir, active, meas, seg_idx, crop, fs=16000,
+                 start=None):
+    """Per sample and source: the segment's fs samples from `start`
+    (0 by default), full convolution with the HRIR pair, the crop, the
+    source sum and the joint peak normalisation, in float64."""
     B = active.shape[0]
+    start = np.zeros(active.shape, np.int64) if start is None else start
     want = np.zeros((B, 2, fs))
     for b in range(B):
         mix = np.zeros((2, fs))
         for s in range(3):
             if not active[b, s]:
                 continue
-            seg = segs[seg_idx[b, s], :fs].astype(np.float64)
+            o = start[b, s]
+            seg = segs[seg_idx[b, s], o:o + fs].astype(np.float64)
             for e in range(2):
                 full = np.convolve(seg, ir[meas[b, s], e].astype(np.float64))
                 mix[e] += full[crop[b, s]:crop[b, s] + fs]
