@@ -154,6 +154,13 @@ def model_kind(settings: dict) -> str:
                             "active" if active else "passive")).lower()
 
 
+def family(settings: dict) -> str:
+    """The model a YAML config or settings.json trains or serves:
+    "passive" for the passive family (``is_passive``), else MODEL_KIND
+    ("active" or "auralnet")."""
+    return "passive" if is_passive(settings) else model_kind(settings)
+
+
 def is_passive(src) -> bool:
     """The passive family, for a RunConfig or a settings / YAML dict:
     Active false or MODEL_KIND passive (the JAX runner's ``model_kind``)."""

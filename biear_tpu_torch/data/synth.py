@@ -397,14 +397,18 @@ def load_sofa_hrir(path: str, fs_target: int = 16000):
 
 
 def build_synthesizer(scene: str, sofa: str | None, segments, fs: int,
-                      num_lags: int = 100, device=None):
+                      num_lags: int = 100, noise_snr_db=None,
+                      mix_dtype: str = "float32", device=None):
     """Scene -> synthesizer on `device`, as
-    ``tools/generate_binaural_data.py::build_synthesizer`` builds it for
-    ``train_biear.py`` (no noise, the f32 mix): the anechoic scene over a
-    SOFA HRIR bank, or auditorium ('room') and spirit over a SOFA BRIR bank
-    with the scene's loudspeaker geometry and the head yaw read from the
-    file; the scene's built-in test bank without a SOFA file. num_lags is
-    the CC feature's width (the model's n_bands)."""
+    ``tools/generate_binaural_data.py::build_synthesizer`` builds it: the
+    anechoic scene over a SOFA HRIR bank, or auditorium ('room') and
+    spirit over a SOFA BRIR bank with the scene's loudspeaker geometry and
+    the head yaw read from the file; the scene's built-in test bank
+    without a SOFA file. num_lags is the CC feature's width (the model's
+    n_bands); noise_snr_db (lo, hi) mixes diffuse noise at an SNR drawn
+    from U[lo, hi] dB; mix_dtype is the anechoic fast path's HRIR-mix
+    operand dtype (the reverberant scenes mix by rFFT, where it does not
+    apply)."""
     from .synth_reverb import (ReverbSynthesizer, extract_head_yaw,
                                load_sofa_brir, make_test_brir_bank,
                                scene_speaker_xy)
@@ -415,7 +419,9 @@ def build_synthesizer(scene: str, sofa: str | None, segments, fs: int,
         else:
             ir, az, dist = make_test_hrir_bank()
         return AnechoicSynthesizer(ir, az, dist, segments, fs=fs,
-                                   num_lags=num_lags, device=device)
+                                   num_lags=num_lags,
+                                   noise_snr_db=noise_snr_db,
+                                   mix_dtype=mix_dtype, device=device)
     if sofa:
         ir, view, pos = load_sofa_brir(sofa, fs)
         yaw, tag = extract_head_yaw(view, pos, ir.shape[0])
@@ -425,4 +431,5 @@ def build_synthesizer(scene: str, sofa: str | None, segments, fs: int,
         sxy = scene_speaker_xy(scene, 3 if scene == "spirit" else 6)
         ir, yaw, sxy = make_test_brir_bank(speaker_xy=sxy)
     return ReverbSynthesizer(ir, yaw, sxy, segments, fs=fs,
-                             num_lags=num_lags, device=device)
+                             num_lags=num_lags, noise_snr_db=noise_snr_db,
+                             device=device)

@@ -54,12 +54,15 @@ class _Heads(nn.Module):
         body = self.body(torch.cat(feats, -1), gen, train)
         return self.subheads(body, gen, train)
 
-    def _check_gen(self, gen) -> bool:
-        if self.training and gen is None:
-            raise ValueError(f"{type(self).__name__} in training mode "
-                             "requires a torch.Generator for dropout: pass "
-                             "gen= or call .eval()")
-        return self.training
+
+def check_gen(model: nn.Module, gen) -> bool:
+    """The model's training flag; training mode needs a generator for the
+    dropout masks."""
+    if model.training and gen is None:
+        raise ValueError(f"{type(model).__name__} in training mode "
+                         "requires a torch.Generator for dropout: pass "
+                         "gen= or call .eval()")
+    return model.training
 
 
 class ActiveBiEAR(_Heads):
@@ -92,7 +95,7 @@ class ActiveBiEAR(_Heads):
                 gen: torch.Generator | None = None):
         """In .train() mode `gen` (on the model's device) draws the dropout
         masks, frontend first, then body and heads."""
-        train = self._check_gen(gen)
+        train = check_gen(self, gen)
         with no_tf32():
             wavL, wavR = wavL.float(), wavR.float()
             YL, YR, QL, QR, phL, phR = self.bifb(wavL, wavR, gen, train)
@@ -129,7 +132,7 @@ class PassiveBiEAR(_Heads):
 
     def forward(self, x1, x2, x3, x4, x5,
                 gen: torch.Generator | None = None):
-        train = self._check_gen(gen)
+        train = check_gen(self, gen)
         with no_tf32():
             sound, aoa, dist = self.heads(
                 self.encoder_ild(ild_features(x1, x2)),

@@ -359,6 +359,16 @@ class SingleFrontend(_Frontend):
         return (Qn, h, memL, memR), out
 
 
+def auralnet_fb(cfg: BiEARConfig, wav: torch.Tensor, c: dict) -> torch.Tensor:
+    """AuralNet's fixed filterbank: wav (B, Nsamp) -> band energies Y (B,
+    T, N), the magnitude spectra times the clamped-Q0 matrix ``W_fixed``
+    in f32 under either policy (TF32 off on the card), then nan_to_num.
+    No phase (JAX ``auralnet_fb``)."""
+    Xmag = spectra(cfg, wav, c)[0]
+    return torch.nan_to_num(Xmag @ c["W_fixed"].T, nan=0.0, posinf=0.0,
+                            neginf=0.0)
+
+
 def make_frontend(cfg: BiEARConfig) -> _Frontend:
     """``SingleFrontend`` for controller_mode "single", else
     ``DualFrontend`` (the JAX package's dispatch)."""

@@ -8,7 +8,11 @@ ear-stacked ``bifb.fb`` leaves (axis 0: fb_L, fb_R) and the head-stacked
 ``subheads`` leaves (axis 0: sector) are split here; the single
 controller's ``bifb.ctrl`` leaves sit directly under ``bifb.``. A passive
 tree (and a fixed-Q one) has no ``bifb`` and gives the backend's names
-only, as ``utils/torch_import.py::import_passive`` reads them.
+only, as ``utils/torch_import.py::import_passive`` reads them. An AuralNet
+tree (``attn_L``, ``attn_R``, ``attn_diff`` in place of the encoders)
+gives the names that ``import_auralnet`` reads: its encoder layers'
+``in_proj_w`` / ``in_proj_b`` become ``self_attn.in_proj_weight`` /
+``in_proj_bias``.
 """
 
 from __future__ import annotations
@@ -58,14 +62,32 @@ def _controller(sd: dict, prefix: str, p: dict) -> None:
     _lin(sd, f"{prefix}.q_out.8", q["l3"])
 
 
+def _attn_block(sd: dict, prefix: str, p: dict) -> None:
+    _lin(sd, f"{prefix}.proj", p["proj"])
+    for i, lp in enumerate(p["layers"]):
+        pre = f"{prefix}.encoder.layers.{i}"
+        sa = lp["self_attn"]
+        sd[f"{pre}.self_attn.in_proj_weight"] = _t(sa["in_proj_w"])
+        sd[f"{pre}.self_attn.in_proj_bias"] = _t(sa["in_proj_b"])
+        _lin(sd, f"{pre}.self_attn.out_proj", sa["out_proj"])
+        _ln(sd, f"{pre}.norm1", lp["norm1"])
+        _ln(sd, f"{pre}.norm2", lp["norm2"])
+        _lin(sd, f"{pre}.linear1", lp["linear1"])
+        _lin(sd, f"{pre}.linear2", lp["linear2"])
+
+
 def state_dict_from_jax(params_np: dict, cfg: BiEARConfig) -> dict:
-    """JAX active- or passive-model params (numpy leaves) -> this
-    package's state dict."""
+    """JAX active-, passive- or AuralNet-model params (numpy leaves) ->
+    this package's state dict."""
     sd: dict = {}
-    for enc in ("encoder_ild", "encoder_ipd"):
-        _ln(sd, f"{enc}.in_norm", params_np[enc]["in_norm"])
-        _gru(sd, f"{enc}.gru1", params_np[enc]["gru1"])
-        _gru(sd, f"{enc}.gru2", params_np[enc]["gru2"])
+    if "attn_L" in params_np:
+        for block in ("attn_L", "attn_R", "attn_diff"):
+            _attn_block(sd, block, params_np[block])
+    else:
+        for enc in ("encoder_ild", "encoder_ipd"):
+            _ln(sd, f"{enc}.in_norm", params_np[enc]["in_norm"])
+            _gru(sd, f"{enc}.gru1", params_np[enc]["gru1"])
+            _gru(sd, f"{enc}.gru2", params_np[enc]["gru2"])
     if cfg.use_cc:
         _lin(sd, "cc_proj", params_np["cc_proj"])
     for i, k in zip((0, 3, 6), ("l1", "l2", "l3")):

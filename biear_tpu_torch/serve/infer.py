@@ -3,8 +3,9 @@
 
 Counterpart of ``tools/infer.py``. ``predict`` is its composition:
 sanitize the waveforms, compute the CC feature (the CUDA lag kernel on the
-card), sanitize it, run the model's eval forward, then a sigmoid on the
-presence logits and a softmax on the distance logits.
+card), sanitize it, run the model's eval forward (the active model or
+AuralNet, by the settings' MODEL_KIND), then a sigmoid on the presence
+logits and a softmax on the distance logits.
 
 Command line (a reference-format ``.pth`` with its ``meta/settings.json``
 in the same directory or up to two levels above):
@@ -26,18 +27,21 @@ import numpy as np
 import torch
 
 from ..config import (config_from_settings,  # noqa: F401 (re-exported)
-                      load_settings_near_checkpoint)
+                      family, load_settings_near_checkpoint)
 from ..device import resolve_device
+from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.config import BiEARConfig
 from ..ops.xcorr import cross_correlation_feature
 from ..train.losses import sanitize_wav, sanitize_x3
 
 DIST_NAMES = ["none", "0.5m", "1m", "2m", "3m"]
+MODELS = {"active": ActiveBiEAR, "auralnet": AuralNet,
+          "passive": PassiveBiEAR}
 
 
 @torch.inference_mode()
-def predict(model: ActiveBiEAR, wavL, wavR):
+def predict(model: ActiveBiEAR | AuralNet, wavL, wavR):
     """(B, Nsamp) x2 (numpy or tensors) -> (presence probabilities (B, S),
     AoA in [0, 1] (B, S), distance probabilities (B, S, C)), on the
     model's device."""
@@ -66,14 +70,16 @@ def load_state_dict(path: str) -> dict:
 
 
 def load_model(pth: str, cfg: BiEARConfig, device=None,
-               passive: bool = False) -> ActiveBiEAR | PassiveBiEAR:
-    """ActiveBiEAR (PassiveBiEAR with `passive`) with the .pth weights on
-    `device` (the card by default).
+               kind: str = "active"):
+    """The model of `kind` (active, auralnet or passive: ``config.family``
+    of the settings) with the .pth weights on `device` (the card by
+    default).
 
-    Every parameter of the model must be in the file; entries the model
-    does not have (the reference model's constant buffers) are ignored."""
+    Every parameter of the model must be in the file, or the load raises
+    and names the missing keys; entries the model does not have (the
+    reference model's constant buffers) are ignored."""
     device = resolve_device(device)
-    model = (PassiveBiEAR if passive else ActiveBiEAR)(cfg)
+    model = MODELS[kind](cfg)
     sd = load_state_dict(pth)
     own = model.state_dict()
     model.load_state_dict({k: v for k, v in sd.items() if k in own},
@@ -135,11 +141,12 @@ def main(argv=None):
     settings = load_settings_near_checkpoint(args.checkpoint)
     if settings is None:
         raise SystemExit("no meta/settings.json found near the checkpoint")
-    if not bool(settings.get("Active", True)) or str(
-            settings.get("MODEL_KIND", "active")) != "active":
-        raise SystemExit("only the active waveform model is served")
+    kind = family(settings)
+    if kind == "passive":
+        raise SystemExit("the waveform models (active, auralnet) are served; "
+                         "the passive model needs precomputed features")
     cfg = config_from_settings(settings)
-    model = load_model(args.checkpoint, cfg, args.device)
+    model = load_model(args.checkpoint, cfg, args.device, kind=kind)
 
     pairs = [read_stereo_wav(p, cfg.fs) for p in args.wavs]
     wavL = np.stack([p[0] for p in pairs])

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
 """Where the serving time goes on the card: per-stage times and a kernel
-breakdown of ``serve.infer.predict`` for the flagship model, or for the
-single-controller one.
+breakdown of ``serve.infer.predict`` for the flagship model, the
+single-controller one or AuralNet.
 
     python -m biear_tpu_torch.serve.profile_serve [--batch 512]
-        [--controller-mode dual|single] [--out f.json]
+        [--controller-mode dual|single] [--model active|auralnet]
+        [--out f.json]
 
-``--controller-mode`` picks the geometry (``GEOMETRY``): "dual" the
-flagship of ``bench.py:100-102``, "single" that of
+``--controller-mode`` picks the active model's geometry (``GEOMETRY``):
+"dual" the flagship of ``bench.py:100-102``, "single" that of
 ``conf/config_single_ctrl.yaml`` (one shared controller, absolute deltaQ,
-base 2.0, low 0.5, high 5). Stages are timed with CUDA events (median of
-repeated runs): the CC feature (sanitize + correlation + resample), the
-frame spectra of both ears, the whole frontend (spectra included, 19
-frames of filterbank and controllers), the backend (encoders, body,
-heads) and the whole ``predict``. Then ``torch.profiler`` traces a few ``predict`` calls: the
-device time summed by kernel name, and the device's idle share of the
-traced wall time. Seeded random weights; needs a CUDA card.
+base 2.0, low 0.5, high 5); ``--model auralnet`` serves AuralNet at
+``conf/config_auralnet_deepear.yaml``'s width (``AURALNET``). Stages are
+timed with CUDA events (median of repeated runs): the CC feature
+(sanitize + correlation + resample), the frame spectra of both ears, the
+whole frontend (spectra included; the active model's 19 frames of
+filterbank and controllers, AuralNet's fixed filterbank and log), the
+backend (the active model's encoders, or AuralNet's three attention
+blocks; then body and heads) and the whole ``predict``. Then
+``torch.profiler`` traces a few ``predict`` calls: the device time summed
+by kernel name, and the device's idle share of the traced wall time.
+Seeded random weights; needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,9 +35,9 @@ import numpy as np
 import torch
 
 from ..device import no_tf32
-from ..models import BiEARConfig, build_active
+from ..models import AuralNet, BiEARConfig, build_active, build_auralnet
 from ..models.backend import ild_features, ipd_features
-from ..models.frontend import device_constants, spectra
+from ..models.frontend import auralnet_fb, device_constants, spectra
 from ..ops.xcorr import cross_correlation_feature
 from ..train.losses import sanitize_wav, sanitize_x3
 from .infer import predict
@@ -43,6 +48,10 @@ SINGLE_CTRL = dict(controller_mode="single", deltaQ_mode="absolute",
                    deltaQ_base=2.0, deltaQ_low_factor=0.5,
                    deltaQ_high_factor=5.0)
 GEOMETRY = {"dual": FLAGSHIP, "single": SINGLE_CTRL}
+# conf/config_auralnet_deepear.yaml: the fixed-Q filterbank at Q0
+AURALNET = dict(fixed_frontend_q=True, controller_mode="dual",
+                deltaQ_mode="absolute", deltaQ_base=2.0,
+                deltaQ_low_factor=0.5, deltaQ_high_factor=1.0)
 
 
 def cuda_ms(fn, reps: int = 5) -> float:
@@ -73,21 +82,43 @@ def host_ms(fn, reps: int = 10) -> list:
     return times
 
 
+def _stages(model, wl, wr, x3, c):
+    """(frontend, backend) closures of the model's forward on sanitised
+    waveforms and x3."""
+    cfg = model.cfg
+    if isinstance(model, AuralNet):
+        def frontend():
+            return [torch.clamp(torch.log(auralnet_fb(cfg, w, c) + 1e-8),
+                                -12.0, 12.0) for w in (wl, wr)]
+        xL, xR = frontend()
+
+        def backend():
+            z = [blk(x).mean(dim=1) for blk, x in (
+                (model.attn_L, xL), (model.attn_R, xR),
+                (model.attn_diff, xL - xR))]
+            z.append(model.cc_proj(x3))
+            return model.subheads(model.body(torch.cat(z, -1)))
+        return frontend, backend
+
+    fe = model.bifb(wl, wr)
+
+    def backend():
+        YL, YR, _, _, phL, phR = fe
+        x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
+        x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
+        return model.heads(model.encoder_ild(ild_features(x1, x2)),
+                           model.encoder_ipd(ipd_features(phL, phR)), x3)
+    return (lambda: model.bifb(wl, wr)), backend
+
+
 def stage_times(model, wavL, wavR) -> dict:
     cfg = model.cfg
     c = device_constants(cfg, wavL.device)
     with torch.inference_mode(), no_tf32():
         wl, wr = sanitize_wav(wavL, wavR)
-        fe = model.bifb(wl, wr)
         x3 = sanitize_x3(cross_correlation_feature(wl, wr, cfg.fs,
                                                    num_lags=cfg.n_bands))
-
-        def backend():
-            YL, YR, _, _, phL, phR = fe
-            x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
-            x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
-            return model.heads(model.encoder_ild(ild_features(x1, x2)),
-                               model.encoder_ipd(ipd_features(phL, phR)), x3)
+        frontend, backend = _stages(model, wl, wr, x3, c)
 
         return {
             "cc_feature_ms": cuda_ms(lambda: sanitize_x3(
@@ -95,7 +126,7 @@ def stage_times(model, wavL, wavR) -> dict:
                                           num_lags=cfg.n_bands))),
             "spectra_both_ears_ms": cuda_ms(
                 lambda: (spectra(cfg, wl, c), spectra(cfg, wr, c))),
-            "frontend_ms": cuda_ms(lambda: model.bifb(wl, wr)),
+            "frontend_ms": cuda_ms(frontend),
             "backend_ms": cuda_ms(backend),
             "predict_ms": cuda_ms(lambda: predict(model, wavL, wavR)),
             "predict_host_ms_runs": host_ms(
@@ -145,6 +176,8 @@ def main(argv=None):
                     choices=("bfloat16", "float32"))
     ap.add_argument("--controller-mode", default="dual",
                     choices=tuple(GEOMETRY))
+    ap.add_argument("--model", default="active",
+                    choices=("active", "auralnet"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
@@ -154,14 +187,20 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    model = build_active(BiEARConfig(**GEOMETRY[args.controller_mode],
-                                     fb_w_dtype=args.policy), seed=args.seed)
+    if args.model == "auralnet":
+        model = build_auralnet(BiEARConfig(**AURALNET,
+                                           fb_w_dtype=args.policy),
+                               seed=args.seed)
+    else:
+        model = build_active(BiEARConfig(**GEOMETRY[args.controller_mode],
+                                         fb_w_dtype=args.policy),
+                             seed=args.seed)
     rng = np.random.default_rng(args.seed)
     wavL, wavR = (torch.tensor(rng.uniform(-1, 1, (args.batch, 16000)),
                                dtype=torch.float32, device="cuda")
                   for _ in range(2))
     result = {"card": smi, "batch": args.batch, "policy": args.policy,
-              "controller_mode": args.controller_mode,
+              "model": args.model, "controller_mode": args.controller_mode,
               "stages": stage_times(model, wavL, wavR),
               "profile": kernel_breakdown(model, wavL, wavR)}
     runs = sorted(result["stages"]["predict_host_ms_runs"])

@@ -32,7 +32,8 @@ So the outputs agree to rounding (2e-4 with the CC feature, 2e-6 without,
 the tolerances of the JAX package's tests). Continuous operation past T
 frames is defined: the readout is a running mean over all frames seen
 (per-stream counters), though equality with the forward holds at T.
-Only hop_ratio == 1 configurations stream (win == hop).
+Only hop_ratio == 1 configurations stream (win == hop). AuralNet does
+not stream: its self-attention needs all T frames at once.
 """
 
 from __future__ import annotations
@@ -88,7 +89,14 @@ def stream_init(model: ActiveBiEAR, batch: int) -> dict:
 
     ``fe`` is the frontend's carry: () for fixed Q, (Q, h, memL, memR) for
     the single controller, the ear-stacked (Q, h) of shape (2, B, ...) for
-    the dual one. ``t`` and ``cc.n`` count frames and samples per stream."""
+    the dual one. ``t`` and ``cc.n`` count frames and samples per stream.
+    AuralNet is refused: it is not streamable."""
+    if not isinstance(model, ActiveBiEAR):
+        raise NotImplementedError(
+            f"{type(model).__name__} is not streamable: only the active "
+            "models stream (AuralNet's self-attention needs all T frames, "
+            "the encoder attends globally; the passive model's inputs are "
+            "whole-utterance features)")
     cfg, dev = model.cfg, _device(model)
     z = lambda *s: torch.zeros(s, device=dev)
     fe = ()

@@ -2,14 +2,16 @@
 """Evaluation: overall and per-source-count metrics of a checkpoint.
 
 Counterpart of ``biear_tpu/train/evaluate.py`` (``evaluate_biear.py``)
-for the active family (dual, single and fixed-Q frontends) and the
-passive family: the model config from the run's settings, predictions
-over a test split in fixed batches (active: sanitize, then the eval
-forward on (wavL, wavR, x3); passive: the eval forward on the five
-feature planes; the last batch padded to full with repeated rows, which
-are dropped), and the train-identical metric definitions over all N x 8
-sectors, overall and for 1, 2 and 3 sources. AuralNet is not ported
-(ROADMAP.md, Queue 2 item 6).
+for every model family (the active model with dual, single and fixed-Q
+frontends, AuralNet, the passive model): the model config and MODEL_KIND
+from the run's settings, predictions over a test split in fixed batches
+(active and AuralNet: sanitize, then the eval forward on (wavL, wavR,
+x3); passive: the eval forward on the five feature planes; the last
+batch padded to full with repeated rows, which are dropped), and the
+train-identical metric definitions over all N x 8 sectors, overall and
+for 1, 2 and 3 sources. A ``.pth`` that lacks a parameter of the model
+(the archived AuralNet checkpoints hold no attention weights) raises,
+naming the missing keys.
 
 The checkpoint is a reference-format ``.pth`` or a checkpoint directory of
 the port's runner (``<run>/checkpoints/best``, read as its
@@ -22,7 +24,7 @@ finds them, walking up to ``meta/settings.json``, or in a
 
 It runs on the card unless ``--device cpu`` is given. The test split is a
 ``.shard`` file (``data/shard.py``; the card's machine has no ``h5py``):
-4 fields (wavL, wavR, x3, y) for the active family, 6 (x1, x2, x3, x4,
+4 fields (wavL, wavR, x3, y) for the waveform models, 6 (x1, x2, x3, x4,
 x5, y) for the passive one.
 """
 
@@ -35,8 +37,8 @@ import os
 import numpy as np
 import torch
 
-from ..config import (config_from_settings, is_passive,
-                      load_settings_near_checkpoint, model_kind)
+from ..config import (config_from_settings, family, is_passive,
+                      load_settings_near_checkpoint)
 from ..data.pipeline import batch_iterator
 from ..data.shard import ShardDataset, shard_shapes
 from ..serve.infer import load_model
@@ -60,22 +62,27 @@ def find_settings(checkpoint_path: str) -> dict | None:
     return None
 
 
+def eval_forward(model, x):
+    """(sound_logits, aoa, dist_logits) of the eval forward on the input
+    fields `x` of one batch (tensors on the model's device): the five
+    feature planes of the passive model, or (wavL, wavR, x3), sanitised."""
+    if isinstance(model, PassiveBiEAR):
+        return model(*(f.float() for f in x))[:3]
+    wl, wr = sanitize_wav(x[0], x[1])
+    return model(wl, wr, sanitize_x3(x[2]))[:3]
+
+
 @torch.inference_mode()
 def collect_predictions(model, ds, batch_size: int):
     """(sound_logits, aoa, dist_logits, y) over the whole split, as numpy,
     from the eval forward on the model's device."""
     device = next(model.parameters()).device
-    passive = isinstance(model, PassiveBiEAR)
     model.eval()
     outs = []
     for batch in batch_iterator(ds, batch_size, shuffle=False):
         *x, y, w = batch
-        x = [torch.as_tensor(a, device=device) for a in x]
-        if passive:
-            s, a, d, _ = model(*(f.float() for f in x))
-        else:
-            wl, wr = sanitize_wav(x[0], x[1])
-            s, a, d, _ = model(wl, wr, sanitize_x3(x[2]))
+        s, a, d = eval_forward(model, [torch.as_tensor(f, device=device)
+                                       for f in x])
         valid = w > 0.5
         outs.append([s.cpu().numpy()[valid], a.cpu().numpy()[valid],
                      d.cpu().numpy()[valid], y[valid]])
@@ -156,13 +163,12 @@ def metrics_from_predictions(s_all, a_all, d_all, y_all) -> dict:
 def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
              test_shard: str | None = None, batch_size: int = 64,
              out_path: str | None = None, device=None) -> dict:
-    """Evaluate a checkpoint of the active or passive family (a
-    reference-format ``.pth`` or a runner checkpoint directory) on a test
-    split (`dataset` with ``rows()`` / ``len()``, or a ``.shard`` path of
-    the family's fields); returns {overall,
-    1spk, 2spk, 3spk} and writes it as JSON to out_path (default:
-    evaluate_biear_metrics.json in the checkpoint's parent directory).
-    Runs on the card unless device='cpu'."""
+    """Evaluate a checkpoint of any model family (a reference-format
+    ``.pth`` or a runner checkpoint directory) on a test split (`dataset`
+    with ``rows()`` / ``len()``, or a ``.shard`` path of the family's
+    fields); returns {overall, 1spk, 2spk, 3spk} and writes it as JSON to
+    out_path (default: evaluate_biear_metrics.json in the checkpoint's
+    parent directory). Runs on the card unless device='cpu'."""
     pth = (os.path.join(checkpoint, "params.pth")
            if os.path.isdir(checkpoint) else checkpoint)
     if settings is None:
@@ -170,18 +176,13 @@ def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
     if settings is None:
         raise ValueError("no meta/settings.json or settings.json near the "
                          "checkpoint; pass settings= explicitly")
-    if model_kind(settings) == "auralnet":
-        raise NotImplementedError(
-            "MODEL_KIND='auralnet': the active (dual, single, fixed-Q) and "
-            "passive families are ported; AuralNet is queued in ROADMAP.md "
-            "(Queue 2 item 6)")
     passive = is_passive(settings)
     if dataset is None and test_shard is None:
         raise ValueError("pass dataset= or a .shard test split")
     cfg = config_from_settings(settings)
+    model = load_model(pth, cfg, device, kind=family(settings))
     if dataset is None:
         dataset = ShardDataset(test_shard, shapes=shard_shapes(cfg, passive))
-    model = load_model(pth, cfg, device, passive=passive)
     out = metrics_from_predictions(*collect_predictions(model, dataset,
                                                         batch_size))
     if out_path is None:

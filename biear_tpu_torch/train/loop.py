@@ -1,9 +1,9 @@
 """Train and eval steps with a masked nonfinite skip, and the fused
 synthesize -> train chunk.
 
-Counterpart of ``biear_tpu/train/loop.py`` for the active and passive
-models (the step dispatches on the model's class, as JAX on ``model``;
-``PassiveBiEAR`` batches are (x1, x2, x3, x4, x5, y[, w])). A train
+Counterpart of ``biear_tpu/train/loop.py`` for the active, AuralNet and
+passive models (the step dispatches on the model's class, as JAX on
+``model``; ``PassiveBiEAR`` batches are (x1, x2, x3, x4, x5, y[, w])). A train
 step always runs the update; one device-side predicate ``ok`` (the loss
 and every gradient finite) decides whether it lands, so a nonfinite batch
 leaves the parameters and the whole Adam state untouched and counts as
@@ -22,12 +22,13 @@ import numpy as np
 import torch
 
 from ..device import no_tf32
+from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.frontend import device_constants
 from .losses import q_regularizers, sanitize_wav, sanitize_x3, task_loss
 from .optim import Adam, TrainHyper, is_frontend
 
-_Model = ActiveBiEAR | PassiveBiEAR
+_Model = ActiveBiEAR | AuralNet | PassiveBiEAR
 
 # Magnitude-decade histogram edges shared by every gradient leaf: 16 bins
 # over |g| in [1e-12, 1e4), plus underflow (zeros) and overflow buckets.
@@ -97,10 +98,11 @@ def grad_histograms(grads: list, max_leaves: int) -> torch.Tensor:
     return torch.stack(rows)
 
 
-def active_loss(model: ActiveBiEAR, hp: TrainHyper, batch,
+def active_loss(model: ActiveBiEAR | AuralNet, hp: TrainHyper, batch,
                 gen: torch.Generator | None):
-    """(loss, metrics) of the active model on (wavL, wavR, x3, y[, w]),
-    in whichever mode the model is in (training needs `gen`)."""
+    """(loss, metrics) of a waveform model on (wavL, wavR, x3, y[, w]),
+    in whichever mode the model is in (training needs `gen`); the Q
+    regularisers where the model reports a Q (AuralNet has none)."""
     w = batch[4] if len(batch) == 5 else None
     wavL, wavR, x3, y = batch[:4]
     wavL, wavR = sanitize_wav(wavL, wavR)
@@ -110,10 +112,11 @@ def active_loss(model: ActiveBiEAR, hp: TrainHyper, batch,
     loss, metrics = task_loss(s, a, d, y.float(), hp.loss_w_sound,
                               hp.loss_w_aoa, hp.loss_w_dist,
                               cfg.n_dist_class, w=w)
-    Q0 = device_constants(cfg, wavL.device)["Q0"]
-    loss = loss + q_regularizers(aux["Q"], Q0, hp.reg_q_w, hp.reg_smooth_w,
-                                 w=w)
-    metrics["loss"] = loss.detach()
+    if aux["Q"] is not None:
+        Q0 = device_constants(cfg, wavL.device)["Q0"]
+        loss = loss + q_regularizers(aux["Q"], Q0, hp.reg_q_w,
+                                     hp.reg_smooth_w, w=w)
+        metrics["loss"] = loss.detach()
     return loss, metrics
 
 

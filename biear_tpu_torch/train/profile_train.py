@@ -5,7 +5,8 @@ kernel breakdown.
 
     python -m biear_tpu_torch.train.profile_train [--batch 512]
         [--policy bf16|f32] [--controller-mode dual|single]
-        [--model active|passive] [--scene anechoic|spirit|auditorium]
+        [--model active|passive|auralnet]
+        [--scene anechoic|spirit|auditorium]
         [--chunk 16] [--windows 3] [--out f.json]
 
 Counterpart of ``bench.py::measure_ours``: the flagship config
@@ -18,6 +19,8 @@ operands and the bf16 HRIR mix (the CUDA mix kernel); f32 = both in f32
 (the CUDA window gather, then an f32 product). ``--model passive`` trains
 ``PassiveBiEAR`` on the features of the synthesised waveforms
 (``PassiveFeatureSynth``; its bare step runs on one synthesised batch);
+``--model auralnet`` trains AuralNet at ``conf/config_auralnet_deepear.
+yaml``'s width (``serve.profile_serve.AURALNET``);
 ``--scene spirit`` or ``auditorium`` synthesises with the scene's built-in
 BRIR bank (``ReverbSynthesizer``, where the mix policy does not apply).
 
@@ -52,10 +55,10 @@ from ..data.synth import (AnechoicSynthesizer, build_synthesizer,
                           make_test_hrir_bank, make_test_segments)
 from ..data.synth_reverb import ReverbSynthesizer
 from ..device import no_tf32
-from ..models import BiEARConfig, build_active, build_passive
+from ..models import BiEARConfig, build_active, build_auralnet, build_passive
 from ..ops.window_gather import cc_kept_lags, gather_mix_kb, gather_windows
 from ..ops.xcorr import lag_plan
-from ..serve.profile_serve import GEOMETRY, device_profile
+from ..serve.profile_serve import AURALNET, GEOMETRY, device_profile
 from .loop import make_train_chunk, model_loss, train_step
 from .optim import TrainHyper, make_optimizer
 
@@ -180,7 +183,7 @@ def main(argv=None):
     ap.add_argument("--controller-mode", default="dual",
                     choices=tuple(GEOMETRY))
     ap.add_argument("--model", default="active",
-                    choices=("active", "passive"))
+                    choices=("active", "passive", "auralnet"))
     ap.add_argument("--scene", default="anechoic",
                     choices=("anechoic", "spirit", "auditorium"))
     ap.add_argument("--chunk", type=int, default=16)
@@ -195,7 +198,9 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     dtype = POLICIES[args.policy]
-    cfg = BiEARConfig(**GEOMETRY[args.controller_mode], fb_w_dtype=dtype)
+    geometry = (AURALNET if args.model == "auralnet"
+                else GEOMETRY[args.controller_mode])
+    cfg = BiEARConfig(**geometry, fb_w_dtype=dtype)
     B = args.batch
     hp = TrainHyper()
     if args.scene == "anechoic":
@@ -212,6 +217,8 @@ def main(argv=None):
         synth = PassiveFeatureSynth(synth, data_dim=cfg.n_bands,
                                     timesteps=cfg.timesteps)
         model = build_passive(cfg, seed=args.seed)
+    elif args.model == "auralnet":
+        model = build_auralnet(cfg, seed=args.seed)
     else:
         model = build_active(cfg, seed=args.seed)
     opt = make_optimizer(model, hp)

@@ -1,12 +1,13 @@
 """The training runner: the library form of ``train_biear.py``.
 
-Counterpart of ``biear_tpu/train/runner.py`` for the active and passive
-families on one device: the run tree and ``meta/settings.json``, a sanity
-batch, epochs of training and validation, the plateau LR scale on the
-validation loss, the lexicographic best tuple, best / last / epochNNN
-checkpoints with the optimizer state, ``history.json``, ``scalars.jsonl``,
-the test pass on the best parameters (``test_metrics.json``) and
-crash-resume from ``last``.
+Counterpart of ``biear_tpu/train/runner.py`` for every model family
+(MODEL_KIND active, auralnet or passive) on one device: the run tree and
+``meta/settings.json``, a sanity batch, epochs of training and
+validation, the plateau LR scale on the validation loss, the
+lexicographic best tuple, best / last / epochNNN checkpoints with the
+optimizer state, ``history.json``, ``scalars.jsonl``, the test pass on
+the best parameters (``test_metrics.json``), the Q plots of an active run
+(``q_vis/``) and crash-resume from ``last``.
 
 Training data comes from a dataset (H5 or ``.shard`` splits, or injected
 objects with ``rows()`` / ``len()``) through
@@ -41,8 +42,10 @@ from ..config import (RunConfig, check_matmul_precision, data_paths,
                       settings_dict)
 from ..data.pipeline import Prefetcher, batch_iterator
 from ..device import resolve_device
+from ..models.auralnet import build_auralnet
 from ..models.biear import build_active, build_passive
 from ..utils.logging import MetricLogger
+from ..utils.qvis import visualize_Q_LR
 from . import state as ckpt
 from .loop import (GRAD_HIST_EDGES, grad_hist_names, is_better_tuple,
                    make_eval_step, make_train_chunk, make_train_step)
@@ -60,11 +63,7 @@ def keyed_generator(device, *key: int) -> torch.Generator:
 
 
 def check_supported(rc: RunConfig) -> None:
-    """Refuse what this slice of the port does not run."""
-    if rc.model_kind == "auralnet":
-        raise NotImplementedError(
-            "MODEL_KIND='auralnet': the active and passive families are "
-            "ported; AuralNet is ROADMAP.md Queue 2 item 6")
+    """Refuse what the port does not run."""
     if rc.mesh_model != 1 or rc.mesh_data not in (-1, 1):
         raise NotImplementedError(
             f"MESH_DATA={rc.mesh_data}, MESH_MODEL={rc.mesh_model}: the port "
@@ -185,6 +184,21 @@ def synth_chunk_steps(steps: int, chunk_cfg: int) -> int:
     return max(1, 128 if chunk < 16 and steps > 128 else chunk)
 
 
+def q_plots(model, test, save_dir: str, batch_size: int, say) -> None:
+    """The Q plots of the best parameters on two test batches
+    (``utils.qvis.visualize_Q_LR``). Plotting never fails a run: an error
+    is reported and the run goes on."""
+    try:
+        it = (test.device_batches() if hasattr(test, "device_batches")
+              else batch_iterator(test, min(batch_size, 8), shuffle=False))
+        batches = [b for _, b in zip(range(2), it)]
+        visualize_Q_LR(model, batches, save_dir, max_batches=2,
+                       sample_per_batch=1)
+        say(f"[Q-vis] wrote plots to {save_dir}")
+    except Exception as e:
+        say(f"[Q-vis] skipped: {e}")
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -230,7 +244,8 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
     say(f"[Device] {device}")
 
     passive = is_passive(rc)
-    build = build_passive if passive else build_active
+    build = (build_passive if passive else
+             build_auralnet if rc.model_kind == "auralnet" else build_active)
     model = build(rc.model_cfg, seed=seed, device=device)
     optimizer = make_optimizer(
         model, rc.hyper, freeze_controller=(
@@ -486,15 +501,15 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
         if os.path.isdir(best_dir):
             ckpt.load_checkpoint(best_dir, model)
         te = run_split("test", 0, False)
-        with torch.no_grad():
-            model.load_state_dict(trained)
         with open(os.path.join(dirs["logs_json"], "test_metrics.json"),
                   "w") as f:
             json.dump(te, f, indent=2)
         say(f"Test metrics: {te}")
-    if not passive:
-        say("[Q-vis] skipped: the Q plots are not ported yet (ROADMAP.md, "
-            "Queue 2 item 7)")
+        if rc.active and rc.model_kind == "active":
+            q_plots(model, datasets["test"], dirs["q_vis"], rc.batch_size,
+                    say)
+        with torch.no_grad():
+            model.load_state_dict(trained)
 
     logger.close()
     return {"run_dir": dirs["run"], "exp_name": exp_name,

@@ -106,6 +106,26 @@ Phases, each of which raises on failure (the exit code is then not 0):
      segments (CC each step, no window or mix launch); (d) ``evaluate`` of
      docs/protocol_r3/spirit/best.pth on an EVAL_ROWS-row spirit shard
      synthesised on the card, card against CPU as in 11 (d).
+ 13. AuralNet at conf/config_auralnet_deepear.yaml's width (seeded
+     weights): (a) phase 4's serving checks (cc_lags once per predict,
+     card vs CPU at SERVE_TOL, batch-512 throughput); (b) a fused chunk at
+     TRAIN_BATCH, bf16, TRAIN_STEPS steps (one mix and one CC launch per
+     step, finite losses, nothing skipped, all three attention blocks and
+     the backend moved), fused and bare rates; an f32 step at batch 64
+     (one window gather) and one f32 step card vs CPU on a synthesised
+     batch of 64, dropout 0, stage by stage (the log features to
+     AURALNET_FEAT_ATOL, the loss, the gradients on the card's features);
+     (c) the runner on the config as phase 11 (c) runs its config, 2
+     epochs, no Q plots; (d) ``evaluate`` of that run's checkpoints/best
+     on an EVAL_ROWS-row shard synthesised on the card, card against CPU
+     as in 9; (e) ``stream_init`` refuses the model.
+ 14. protocol: ``run_full_protocol`` at full width, speech corpus, noise
+     at 5-25 dB, pool, train and eval sizes PROTOCOL_SIZES, one epoch, for
+     AuralNet and for conf/config.yaml --fixed-q (one CC and one window
+     gather per batch, no mix; pool seconds, train utt/s, ms per test
+     split); ``protocol_eval`` on the AuralNet run reproduces its test1 /
+     test2 files byte for byte; ``eval_by_snr`` over both runs at 5 dB,
+     25 dB and clean.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -166,6 +186,10 @@ FEATURE_DB_TOL = 20.0 * np.log10(1.0 + FEATURE_RAD_TOL)
 # phase 12: reverberant batches, card vs CPU on the same draws
 REVERB_BATCH = 64
 WAVE_ATOL = 2e-5
+# phase 13: AuralNet's log features card vs CPU (cuFFT against pocketfft)
+AURALNET_FEAT_ATOL = 1e-4
+# phase 14: run_full_protocol's pool, train and eval sizes
+PROTOCOL_SIZES = (64, 512, 192)
 
 
 def log(msg: str) -> None:
@@ -303,21 +327,30 @@ def check_outputs(torch, out, B):
                                rtol=0, atol=1e-5)
 
 
+def serve_model(torch, label: str, dtype: str):
+    """A seeded model of `label` under one policy: an active geometry
+    (``profile_serve.GEOMETRY[label]``, controllers perturbed so Q moves)
+    or AuralNet (``profile_serve.AURALNET``)."""
+    from biear_tpu_torch.models import (BiEARConfig, build_active,
+                                        build_auralnet)
+    from biear_tpu_torch.serve.profile_serve import AURALNET, GEOMETRY
+    if label == "auralnet":
+        return build_auralnet(BiEARConfig(**AURALNET, fb_w_dtype=dtype),
+                              seed=0)
+    m = build_active(BiEARConfig(**GEOMETRY[label], fb_w_dtype=dtype),
+                     seed=0)
+    perturb_controllers(torch, m, seed=1)
+    return m
+
+
 def phase_serve(torch, rng, label="dual"):
-    """predict of one geometry (``profile_serve.GEOMETRY[label]``) at
-    SERVE_BATCHES, checked and timed."""
+    """predict of one model (``serve_model``) at SERVE_BATCHES, checked and
+    timed."""
     from biear_tpu_torch.kernels import LAUNCHES
-    from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.serve.infer import predict
-    from biear_tpu_torch.serve.profile_serve import GEOMETRY
 
-    geometry = GEOMETRY[label]
-
-    models = {}
-    for dt in ("bfloat16", "float32"):
-        m = build_active(BiEARConfig(**geometry, fb_w_dtype=dt), seed=0)
-        perturb_controllers(torch, m, seed=1)
-        models[dt] = m
+    models = {dt: serve_model(torch, label, dt)
+              for dt in ("bfloat16", "float32")}
     wav = {B: [torch.tensor(rng.uniform(-1, 1, (B, 16000)),
                             dtype=torch.float32, device="cuda")
                for _ in range(2)] for B in (1, 64, 512)}
@@ -338,11 +371,12 @@ def phase_serve(torch, rng, label="dual"):
     model = models["bfloat16"]
     with torch.inference_mode():
         _, _, _, aux = model(*wav[64])
-    Q0 = aux["Q"][:, :1]
-    q_move = float((aux["Q"][:, 1:] - Q0).abs().max())
-    log(f"{label}: max |Q(t) - Q(0)| at B=64: {q_move!r}")
-    if not q_move > 1e-4:
-        raise RuntimeError("the controllers do not move Q")
+    if aux["Q"] is not None:
+        Q0 = aux["Q"][:, :1]
+        q_move = float((aux["Q"][:, 1:] - Q0).abs().max())
+        log(f"{label}: max |Q(t) - Q(0)| at B=64: {q_move!r}")
+        if not q_move > 1e-4:
+            raise RuntimeError("the controllers do not move Q")
 
     plain = predict_plain_cc(torch, model, *wav[512])
     err = max(float((a - b).abs().max())
@@ -355,7 +389,7 @@ def phase_serve(torch, rng, label="dual"):
     # the card against the CPU run of the same port (held against the JAX
     # package by the CPU tests), on a small batch
     for dt, tol in SERVE_TOL.items():
-        cpu_model = build_active(models[dt].cfg, seed=0, device="cpu")
+        cpu_model = type(models[dt])(models[dt].cfg)
         cpu_model.load_state_dict(models[dt].state_dict())
         wl, wr = (w[:4] for w in wav[64])
         gpu_out = predict(models[dt], wl, wr)
@@ -909,20 +943,21 @@ def compare_evaluations(torch, label, ckpt, settings, shard, tmp, tol,
     from biear_tpu_torch.data.shard import ShardDataset
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.train import evaluate as ev
-    from biear_tpu_torch.config import is_passive
+    from biear_tpu_torch.config import family
     from biear_tpu_torch.data.shard import shard_shapes
 
     cfg = ev.config_from_settings(settings)
-    passive = is_passive(settings)
+    kind = family(settings)
+    passive = kind == "passive"
     LAUNCHES.clear()
     m_card = ev.evaluate(ckpt, settings=settings, test_shard=shard,
                          out_path=os.path.join(tmp, f"{label}-card.json"))
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     ds = ShardDataset(shard, shard_shapes(cfg, passive))
-    card = ev.collect_predictions(ev.load_model(ckpt, cfg, passive=passive),
-                                  ds, 64)
-    cpu_model = ev.load_model(ckpt, cfg, "cpu", passive=passive)
+    card = ev.collect_predictions(ev.load_model(ckpt, cfg, kind=kind), ds,
+                                  64)
+    cpu_model = ev.load_model(ckpt, cfg, "cpu", kind=kind)
     cpu = ev.collect_predictions(cpu_model, ds, 64)
     m_cpu = ev.metrics_from_predictions(*cpu)
     if m_card != ev.metrics_from_predictions(*card):
@@ -1166,12 +1201,14 @@ def synthesised_run_config(name: str, epochs: int):
     return rc
 
 
-def runner_phase(torch, name: str, epochs: int, label: str):
+def runner_phase(torch, name: str, epochs: int, label: str,
+                 runs_root: str | None = None):
     """``train.runner.train`` of a synthesised run config on the card:
     launch counts (one CC and, on the anechoic fast path, one window
     gather per training step and per synthesised eval or sanity batch, no
     bf16 mix), the run tree, finite losses, nothing skipped; seconds per
-    epoch and utt/s logged. Returns (launches, the run config, its
+    epoch and utt/s logged. The run goes to a temporary directory, or
+    stays under `runs_root`. Returns (launches, the run config, its
     synthesizer)."""
     import tempfile
     from biear_tpu_torch import train_biear
@@ -1191,7 +1228,7 @@ def runner_phase(torch, name: str, epochs: int, label: str):
         f"bands, {m.timesteps} frames, batch {B}, FB_W_DTYPE {m.fb_w_dtype}, "
         f"synthesizer {type(synth).__name__}({type(inner).__name__})")
     with tempfile.TemporaryDirectory() as tmp:
-        rc.runs_root = tmp
+        rc.runs_root = runs_root or tmp
         torch.cuda.reset_peak_memory_stats()
         LAUNCHES.clear()
         t0 = time.perf_counter()
@@ -1433,6 +1470,274 @@ def phase_reverb(torch):
     return launches
 
 
+def auralnet_step_card_vs_cpu(torch, hp, cfg, batch):
+    """One f32 AuralNet step (dropout 0) on the card against the CPU port,
+    stage by stage: the log features entering the three attention blocks,
+    the loss, and every gradient with the CPU's blocks fed the card's
+    features (BACKEND_RTOL in relative L2); the whole gradient is logged.
+    Raises on disagreement."""
+    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.models import build_auralnet
+    from biear_tpu_torch.train.loop import active_loss
+
+    def step(model, b, feats=None):
+        held = []
+        blocks = (model.attn_L, model.attn_R, model.attn_diff)
+
+        def take(i):
+            def hook(m, args):
+                if feats is None:
+                    held.append(args[0].detach())
+                    return None
+                return (feats[i].to(args[0].device),) + args[1:]
+            return hook
+        hooks = [blk.register_forward_pre_hook(take(i))
+                 for i, blk in enumerate(blocks)]
+        model.train()
+        names, params = zip(*model.named_parameters())
+        with no_tf32():
+            loss, _ = active_loss(model, hp, b, torch.Generator(
+                device=b[0].device))
+            grads = torch.autograd.grad(loss, params)
+        for h in hooks:
+            h.remove()
+        return float(loss.detach()), dict(zip(names, grads)), held
+
+    cb = tuple(t.cpu() for t in batch)
+    gpu = build_auralnet(cfg, seed=3)
+    cpu = build_auralnet(cfg, seed=3, device="cpu")
+    lg, gg, fg = step(gpu, batch)
+    lc, gc, fc = step(cpu, cb)
+    d_feat = max(float((a.cpu() - b).abs().max()) for a, b in zip(fg, fc))
+    _, gb, _ = step(cpu, cb, [f.cpu() for f in fg])
+    d_grad = rel_l2(torch, gg, gb)
+    whole = rel_l2(torch, gg, gc)
+    dl = abs(lg - lc)
+    log(f"auralnet B={batch[0].shape[0]} f32 step, card vs CPU: log features"
+        f" max |d| {d_feat!r} (atol {AURALNET_FEAT_ATOL}); loss {lg!r} vs "
+        f"{lc!r} (|d| {dl!r}, atol {STEP_LOSS_ATOL}); gradients with the "
+        f"CPU's blocks on the card's features {d_grad!r} (limit "
+        f"{BACKEND_RTOL}); whole gradients (not compared) {whole!r}")
+    if not (d_feat <= AURALNET_FEAT_ATOL and dl <= STEP_LOSS_ATOL
+            and d_grad <= BACKEND_RTOL):
+        raise RuntimeError("auralnet train step: card and CPU disagree")
+
+
+def phase_auralnet(torch, rng, synth):
+    """Phase 13: AuralNet at conf/config_auralnet_deepear.yaml's width:
+    serving, a fused chunk at TRAIN_BATCH (bf16), an f32 step and the
+    card against the CPU, the runner on the config, the run's best
+    checkpoint evaluated card vs CPU, and the streaming refusal."""
+    import tempfile
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_auralnet
+    from biear_tpu_torch.serve.profile_serve import AURALNET
+    from biear_tpu_torch.serve.streaming import stream_init
+    from biear_tpu_torch.train.loop import make_train_chunk, train_step
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import fixed_batch, rate_windows
+
+    # (a) serving
+    launches = {"auralnet_serve": phase_serve(torch, rng, "auralnet")}
+
+    # (b) the fused chunk at TRAIN_BATCH, bf16
+    hp = TrainHyper()
+    cfg = BiEARConfig(**AURALNET, fb_w_dtype="bfloat16")
+    model = build_auralnet(cfg, seed=0)
+    opt = make_optimizer(model, hp)
+    chunk = make_train_chunk(model, hp, opt, synth.batch_fn(TRAIN_BATCH),
+                             TRAIN_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    before = snapshot(model)
+    LAUNCHES.clear()
+    ms = chunk(gen)
+    torch.cuda.synchronize()
+    launches["auralnet_train_bf16"] = got = dict(LAUNCHES)
+    losses = ms["loss"].tolist()
+    moved = {n: float((p - before[n]).abs().max())
+             for n, p in snapshot(model).items()}
+    parts = {k: max(v for n, v in moved.items() if n.startswith(k + "."))
+             for k in ("attn_L", "attn_R", "attn_diff", "cc_proj", "body",
+                       "subheads")}
+    log(f"auralnet train chunk ({TRAIN_STEPS} steps, B={TRAIN_BATCH}, bf16)"
+        f" launches: {got}; losses {losses!r}, skipped "
+        f"{ms['skipped'].tolist()}; backend grad norms "
+        f"{ms['grad_backend_norm'].tolist()!r}; max parameter change by "
+        f"part {parts!r}")
+    if (got.get("gather_mix_kb", 0) != TRAIN_STEPS
+            or got.get("cc_lags", 0) != TRAIN_STEPS
+            or got.get("gather_windows", 0)
+            or not all(np.isfinite(losses))
+            or float(ms["skipped"].sum()) != 0
+            or not min(parts.values()) > 0):
+        raise RuntimeError("auralnet train chunk: wrong kernels, nonfinite "
+                           "loss, skipped step or a part that did not move")
+    fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * TRAIN_STEPS, 3)
+    fb = fixed_batch(TRAIN_BATCH, cfg.n_bands, 0, "cuda")
+    bare = rate_windows(
+        lambda: [train_step(model, hp, opt, fb, gen)
+                 for _ in range(TRAIN_STEPS)], TRAIN_BATCH * TRAIN_STEPS, 3)
+    log(f"auralnet train B={TRAIN_BATCH} bf16: fused pipeline "
+        f"{fused['median']!r} utterances/s [{fused['min']!r}-"
+        f"{fused['max']!r}], bare step {bare['median']!r} utterances/s "
+        f"[{bare['min']!r}-{bare['max']!r}] (windows of {TRAIN_STEPS} steps)")
+
+    # an f32 step at batch 64 (the window gather), then the card against
+    # the CPU port on a synthesised batch of 64 with dropout 0
+    cfg32 = BiEARConfig(**AURALNET, fb_w_dtype="float32")
+    m32 = build_auralnet(cfg32, seed=0)
+    synth32 = training_synth(torch, "float32")
+    chunk32 = make_train_chunk(m32, hp, make_optimizer(m32, hp),
+                               synth32.batch_fn(64), 1)
+    LAUNCHES.clear()
+    ms32 = chunk32(gen)
+    torch.cuda.synchronize()
+    launches["auralnet_train_f32"] = got = dict(LAUNCHES)
+    log(f"auralnet train step (B=64, f32) launches: {got}, loss "
+        f"{float(ms32['loss'][0])!r}")
+    if (got.get("gather_windows", 0) != 1 or got.get("cc_lags", 0) != 1
+            or got.get("gather_mix_kb", 0)
+            or not bool(torch.isfinite(ms32["loss"]).all())
+            or float(ms32["skipped"].sum()) != 0):
+        raise RuntimeError("auralnet f32 train step: wrong kernels or bad "
+                           "loss")
+    cfg0 = BiEARConfig(**AURALNET, fb_w_dtype="float32", attn_dropout=0.0,
+                       backend_dropout=0.0)
+    auralnet_step_card_vs_cpu(torch, hp, cfg0, synth32.sample_batch(gen, 64))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) the runner on the AuralNet config, synthesised (f32 mix)
+        launches["auralnet_runner"], rc, rsynth = runner_phase(
+            torch, "config_auralnet_deepear.yaml", 2, "auralnet runner",
+            runs_root=tmp)
+        (run,) = os.listdir(tmp)
+        run = os.path.join(tmp, run)
+        if os.listdir(os.path.join(run, "q_vis")):
+            raise RuntimeError("auralnet runner: Q plots written")
+        # (d) its best checkpoint on a shard synthesised on the card
+        from biear_tpu_torch.data.shard import write_shard
+        with open(os.path.join(run, "meta", "settings.json")) as f:
+            settings = json.load(f)
+        LAUNCHES.clear()
+        batch = rsynth.sample_batch(torch.Generator(device="cuda")
+                                    .manual_seed(9), EVAL_ROWS)
+        torch.cuda.synchronize()
+        shard_launches = dict(LAUNCHES)
+        shard = os.path.join(tmp, "test.shard")
+        write_shard(shard, [a.cpu().numpy() for a in batch],
+                    ["i16", "i16", "f32", "f32"])
+        ev = compare_evaluations(
+            torch, "evaluate auralnet",
+            os.path.join(run, "checkpoints", "best", "params.pth"), settings,
+            shard, tmp, SERVE_TOL[rc.model_cfg.fb_w_dtype], witness=False)
+        for k, v in shard_launches.items():
+            ev[k] = ev.get(k, 0) + v
+        launches["auralnet_evaluate"] = ev
+
+    # (e) AuralNet does not stream
+    try:
+        stream_init(model, 2)
+    except NotImplementedError as e:
+        log(f"auralnet stream_init refused: {e}")
+    else:
+        raise RuntimeError("stream_init accepted AuralNet")
+    return launches
+
+
+def phase_protocol(torch):
+    """Phase 14: ``run_full_protocol`` on the card at full width and a
+    small scale (speech corpus, noise at 5-25 dB, PROTOCOL_SIZES) for
+    AuralNet and for conf/config.yaml --fixed-q; ``protocol_eval`` on the
+    AuralNet run reproducing its test1 / test2 files byte for byte;
+    ``eval_by_snr`` over both runs at 5 and 25 dB and clean. One CC and
+    one window-gather launch per batch, no mix."""
+    import tempfile
+    from biear_tpu_torch import eval_by_snr, protocol_eval, run_full_protocol
+    from biear_tpu_torch.kernels import LAUNCHES
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pool, train_size, eval_size = PROTOCOL_SIZES
+    common = ["--corpus", "speech", "--noise-snr", "5,25", "--pool-size",
+              str(pool), "--eval-size", str(eval_size), "--quiet"]
+    launches, runs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, conf, extra in (
+                ("auralnet", "config_auralnet_deepear.yaml", []),
+                ("fixedq", "config.yaml", ["--fixed-q"])):
+            argv = (["--config", os.path.join(here, "conf", conf),
+                     "--train-size", str(train_size), "--epochs", "1",
+                     "--runs-root", tmp, "--comments", f"smoke-{label}"]
+                    + common + extra)
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            res = run_full_protocol.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[f"protocol_{label}"] = got = dict(LAUNCHES)
+            val_b, test_b = synth_eval_batches(eval_size, 64)
+            steps = train_size // 64
+            # training steps, the sanity batch, the runner's val and test
+            # splits, then test1 and test2
+            want = steps + 1 + val_b + 3 * test_b
+            tr = res["history"]["train"][0]
+            log(f"protocol {label}: launches {got} (expected {want} of "
+                f"cc_lags and gather_windows); pools {res['pool_s']!r} s, "
+                f"train {steps * 64 / tr['sec']!r} utt/s, test splits ms "
+                f"{res['test_ms']!r}, wall {wall!r} s; test1 "
+                f"{json.dumps(res['test1']['overall'])}")
+            for name in ("test1", "test2"):
+                path = os.path.join(res["run_dir"],
+                                    f"evaluate_biear_metrics_{name}.json")
+                with open(path) as f:
+                    if set(json.load(f)) != {"overall", "1spk", "2spk",
+                                             "3spk"}:
+                        raise RuntimeError(f"protocol {label}: {name} JSON")
+            if (got.get("cc_lags", 0) != want
+                    or got.get("gather_windows", 0) != want
+                    or got.get("gather_mix_kb", 0)
+                    or not np.isfinite(tr["loss"]) or tr["skipped"]):
+                raise RuntimeError(f"protocol {label}: wrong launches or "
+                                   f"bad training {tr}")
+            runs[label] = res["run_dir"]
+
+        run = runs["auralnet"]
+        files = {n: os.path.join(run, f"evaluate_biear_metrics_{n}.json")
+                 for n in ("test1", "test2")}
+        before = {n: open(p, "rb").read() for n, p in files.items()}
+        for p in files.values():
+            os.remove(p)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        protocol_eval.main([run, "--device", "cuda"] + common)
+        torch.cuda.synchronize()
+        launches["protocol_eval"] = got = dict(LAUNCHES)
+        same = all(open(p, "rb").read() == before[n]
+                   for n, p in files.items())
+        log(f"protocol_eval on the auralnet run: test1 / test2 reproduced "
+            f"byte for byte: {same}; launches {got}; "
+            f"{time.perf_counter() - t0!r} s")
+        if not same or got.get("cc_lags", 0) != 2 * test_b:
+            raise RuntimeError("protocol_eval differs from run_full_protocol")
+
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "snr.json")
+        res = eval_by_snr.main([runs["auralnet"], runs["fixedq"], "--snrs",
+                                "5,25", "--eval-size", str(eval_size),
+                                "--pool-size", str(pool), "--out", out,
+                                "--quiet"])
+        torch.cuda.synchronize()
+        launches["eval_by_snr"] = got = dict(LAUNCHES)
+        log(f"eval_by_snr (2 runs, 5 dB, 25 dB, clean): launches {got}; "
+            f"{time.perf_counter() - t0!r} s; "
+            f"{json.dumps(res['runs'])}")
+        if (not os.path.exists(out) or got.get("cc_lags", 0) != 3 * test_b
+                or any(set(v) != {"5dB", "25dB", "clean"}
+                       for v in res["runs"].values())):
+            raise RuntimeError("eval_by_snr: wrong slices or launches")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1476,6 +1781,8 @@ def main() -> int:
     launches["runner"] = phase_runner(torch)
     launches.update(phase_passive(torch, synth))
     launches.update(phase_reverb(torch))
+    launches.update(phase_auralnet(torch, rng, synth))
+    launches.update(phase_protocol(torch))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())

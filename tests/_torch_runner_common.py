@@ -1,9 +1,11 @@
 """Shared pieces of the runner parity tests (tests/test_torch_port_runner.py,
-tests/test_torch_port_config.py and tests/test_torch_port_passive.py): the
+tests/test_torch_port_config.py, tests/test_torch_port_passive.py and
+tests/test_torch_port_auralnet.py): the
 seeded in-memory dataset, the passive ``.shard`` splits, the small run
 configs of both packages, one JAX ``train`` run per optimizer shape (the
 passive model's single group is one) with its initial state and epoch-1
-checkpoint captured, and the port runs resumed from a JAX state.
+checkpoint captured, and the port runs resumed from a JAX state. The
+AuralNet shape is the global-clip single group of its own model.
 
 One JAX run compiles a train and an eval step (~20 s on the CPU), so each
 optimizer shape runs once per module and the shapes are split between the
@@ -31,7 +33,8 @@ from biear_tpu.utils import qvis as jqvis
 
 from biear_tpu_torch import config as tcfg
 from biear_tpu_torch.data.shard import write_shard
-from biear_tpu_torch.models import ActiveBiEAR, BiEARConfig, PassiveBiEAR
+from biear_tpu_torch.models import (ActiveBiEAR, AuralNet, BiEARConfig,
+                                    PassiveBiEAR)
 from biear_tpu_torch.models.weights import state_dict_from_jax
 from biear_tpu_torch.train import optim as topt
 from biear_tpu_torch.train import runner as trun
@@ -40,6 +43,7 @@ from biear_tpu_torch.train import state as tstate
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONF = os.path.join(REPO, "conf", "config.yaml")
 CONF_PASSIVE = os.path.join(REPO, "conf", "config_passive.yaml")
+CONF_AURALNET = os.path.join(REPO, "conf", "config_auralnet_deepear.yaml")
 SMALL = dict(fs=1600, timesteps=3, n_fft=256, n_bands=16, fmin=50.0,
              fmax=700.0, latent_dim=16, ctrl_hidden=16, deltaQ_mode="relative",
              ctrl_dropout=0.0, backend_dropout=0.0)
@@ -47,7 +51,12 @@ SMALL = dict(fs=1600, timesteps=3, n_fft=256, n_bands=16, fmin=50.0,
 LOSS_TOL, PARAM_TOL = 5e-5, 3e-3
 ROWS, BATCH, SEED = 12, 4, 0
 SHAPES = {"two-group": {}, "fixed-q": {"fixed_frontend_q": True},
-          "frozen": {"freeze_q_controller_only": True}, "passive": {}}
+          "frozen": {"freeze_q_controller_only": True}, "passive": {},
+          "auralnet": {"fixed_frontend_q": True}}
+# AuralNet at SMALL's geometry: 2 layers of width 32, 4 heads, dropout 0
+SMALL_ATTN = dict(d_model=32, attn_heads=4, attn_layers=2, attn_dropout=0.0)
+CONFS = {"passive": CONF_PASSIVE, "auralnet": CONF_AURALNET}
+MODELS = {"passive": PassiveBiEAR, "auralnet": AuralNet}
 
 
 class Mem:
@@ -111,11 +120,12 @@ def write_passive_shards(root):
 
 def run_config(jax_side: bool, runs_root, shape: str, shard_root=None):
     """conf/config.yaml (conf/config_passive.yaml for the passive shape,
-    on the .shard splits under shard_root) at SMALL's geometry, 2 epochs
-    of batch BATCH, in one optimizer shape, for either package."""
+    on the .shard splits under shard_root; conf/config_auralnet_deepear.yaml
+    for AuralNet) at SMALL's geometry, 2 epochs of batch BATCH, in one
+    optimizer shape, for either package."""
     load, cfg_cls = ((jax_run_config, JaxConfig) if jax_side
                      else (tcfg.load_run_config, BiEARConfig))
-    rc = load(CONF_PASSIVE if shape == "passive" else CONF)
+    rc = load(CONFS.get(shape, CONF))
     if shape == "passive":
         rc.data_format, rc.shard_root = "shard", str(shard_root)
     rc.runs_root, rc.epochs, rc.batch_size = str(runs_root), 2, BATCH
@@ -123,7 +133,9 @@ def run_config(jax_side: bool, runs_root, shape: str, shard_root=None):
     over = SHAPES[shape]
     rc.fixed_frontend_q = over.get("fixed_frontend_q", False)
     rc.freeze_q_controller_only = over.get("freeze_q_controller_only", False)
-    rc.model_cfg = cfg_cls(**SMALL, fixed_frontend_q=rc.fixed_frontend_q)
+    attn = SMALL_ATTN if shape == "auralnet" else {}
+    rc.model_cfg = cfg_cls(**SMALL, **attn,
+                           fixed_frontend_q=rc.fixed_frontend_q)
     return rc
 
 
@@ -235,8 +247,7 @@ def check_adam_conversion(shape, run):
     labels, names, shapes and int32 zero counts, and it loads."""
     rc = run_config(False, "unused", shape, run["shard_root"])
     conv = tstate.adam_state_from_optax(run["init"][1], rc.model_cfg)
-    model = (PassiveBiEAR if shape == "passive" else ActiveBiEAR)(
-        rc.model_cfg)
+    model = MODELS.get(shape, ActiveBiEAR)(rc.model_cfg)
     opt = topt.make_optimizer(model, rc.hyper, freeze_controller=(
         rc.freeze_q_controller_only and not rc.fixed_frontend_q))
     own = opt.state_dict()

@@ -266,12 +266,13 @@ def test_metric_logger_writes_jaxs_records(tmp_path):
 
 def test_refused_configs_name_their_roadmap_items():
     base = tcfg.load_run_config(CONFS[0])
-    for kw, item in (({"model_kind": "auralnet"}, "item 6"),
-                     ({"mesh_data": 4}, "item 10"),
+    for kw, item in (({"mesh_data": 4}, "item 10"),
                      ({"mesh_model": 2}, "item 10")):
         rc = dataclasses.replace(base, **kw)
         with pytest.raises(NotImplementedError, match=item):
             trun.check_supported(rc)
+    # AuralNet, once refused, is ported
+    trun.check_supported(dataclasses.replace(base, model_kind="auralnet"))
     with pytest.raises(NotImplementedError, match="f32"):
         trun.check_supported(dataclasses.replace(
             base, matmul_precision="bfloat16"))

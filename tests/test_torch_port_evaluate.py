@@ -337,16 +337,26 @@ def passive_shard(tmp_path_factory):
     {"Active": False}, {"MODEL_KIND": "auralnet"}, {"MODEL_KIND": "passive"}])
 def test_evaluate_refuses_the_unported_families(settings, passive_shard,
                                                  tmp_path):
-    """AuralNet is refused, naming its ROADMAP item. Either passive marker
+    """The archived AuralNet checkpoint, docs/protocol_r3/auralnet/best.pth,
+    holds no attention weights: evaluate refuses it and names the first
+    missing key, as JAX's import_auralnet does. Either passive marker
     (Active false, or MODEL_KIND passive) evaluates
     docs/protocol_r3/passive/best.pth on a 6-field shard as JAX evaluate
     does (its settings: Active false, MODEL_KIND passive): predictions
     equal except at most one row within the forward's 2e-2 of a boundary,
     MAE to 1e-4, as for seeded weights above."""
     if settings.get("MODEL_KIND") == "auralnet":
-        with pytest.raises(NotImplementedError, match="Queue 2 item 6"):
-            tev.evaluate(str(tmp_path / "best.pth"), settings=settings,
-                         test_shard="x.shard", device="cpu")
+        ckpt = os.path.join(REPO, "docs", "protocol_r3", "auralnet",
+                            "best.pth")
+        with open(os.path.join(os.path.dirname(ckpt), "settings.json")) as f:
+            a_settings = json.load(f)
+        key = "attn_L.encoder.layers.0.self_attn.in_proj_weight"
+        with pytest.raises(KeyError, match=key):
+            ti.import_auralnet(ti.load_state_dict(ckpt),
+                               jax_config(a_settings)[0])
+        with pytest.raises(RuntimeError, match=key):
+            tev.evaluate(ckpt, settings=a_settings, test_shard="x.shard",
+                         device="cpu")
         return
     j_settings = {"Active": False, "MODEL_KIND": "passive"}
     cfg_j = jax_config(j_settings)[0]
@@ -363,7 +373,7 @@ def test_evaluate_refuses_the_unported_families(settings, passive_shard,
                                out_path=str(tmp_path / "t.json"),
                                device="cpu")
     model = tev.load_model(PASSIVE_CKPT, tev.config_from_settings(settings),
-                           "cpu", passive=True)
+                           "cpu", kind="passive")
     got = tev.collect_predictions(model, ShardDataset(passive_shard, shapes),
                                   48)
     np.testing.assert_array_equal(got[3], want[3])

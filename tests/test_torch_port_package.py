@@ -54,7 +54,11 @@ def test_port_never_imports_jax_or_the_jax_package(banned):
     assert scanned >= {"config.py", "utils/logging.py", "data/pipeline.py",
                        "data/h5io.py", "train/state.py", "train/runner.py",
                        "train_biear.py", "ops/features.py",
-                       "data/passive_synth.py", "data/synth_reverb.py"}
+                       "data/passive_synth.py", "data/synth_reverb.py",
+                       "models/auralnet.py", "utils/qvis.py",
+                       "visualize_q.py", "data/speech.py",
+                       "run_full_protocol.py", "protocol_eval.py",
+                       "eval_by_snr.py"}
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p)
            if m == banned or m.startswith(banned + ".")]
@@ -205,6 +209,36 @@ def test_passive_and_reverb_entry_points_without_device_raise_when_no_cuda(
         ReverbSynthesizer(ir, yaw, sxy, segs)
     synth = ReverbSynthesizer(ir, yaw, sxy, segs, device="cpu")
     assert synth.bank["H"].device.type == "cpu"
+
+
+def test_auralnet_and_protocol_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch, tmp_path):
+    """build_auralnet, run_full_protocol, protocol_eval, eval_by_snr and
+    both profiles' AuralNet flags refuse to run without a card unless
+    given the CPU, before they write anything."""
+    from biear_tpu_torch import eval_by_snr, protocol_eval, run_full_protocol
+    from biear_tpu_torch.models import BiEARConfig, build_auralnet
+    from biear_tpu_torch.serve import profile_serve
+    from biear_tpu_torch.train import profile_train
+
+    _no_cuda(monkeypatch)
+    cfg = BiEARConfig(n_bands=16, timesteps=3, d_model=32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_auralnet(cfg)
+    assert next(build_auralnet(cfg, device="cpu").parameters()
+                ).device.type == "cpu"
+    conf = os.path.join(REPO, "conf", "config_auralnet_deepear.yaml")
+    for main, argv in (
+            (run_full_protocol.main, ["--config", conf, "--runs-root",
+                                      str(tmp_path)]),
+            (protocol_eval.main, [str(tmp_path)]),
+            (eval_by_snr.main, [str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(argv)
+    assert os.listdir(tmp_path) == []
+    for main in (profile_train.main, profile_serve.main):
+        with pytest.raises(SystemExit, match="CUDA card"):
+            main(["--model", "auralnet", "--batch", "2"])
 
 
 def test_streaming_state_lives_on_the_model_device():
@@ -531,6 +565,46 @@ def test_train_chunk_on_card_launches_the_kernels():
     LAUNCHES.clear()
     ms = chunk(torch.Generator(device="cuda").manual_seed(0))
     assert LAUNCHES["gather_mix_kb"] == 2 and LAUNCHES["cc_lags"] == 2
+    assert bool(torch.isfinite(ms["loss"]).all())
+    assert float(ms["skipped"].sum()) == 0.0
+
+
+@pytest.mark.cuda
+def test_auralnet_on_card_launches_the_kernels():
+    """AuralNet at full width on the card: one predict through cc_lags.cu
+    (against the CPU at the bf16 serving tolerance) and one fused
+    synthesize -> train step through gather_mix_kb.cu and cc_lags.cu."""
+    _need_card()
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_auralnet
+    from biear_tpu_torch.serve.infer import predict
+    from biear_tpu_torch.serve.profile_serve import AURALNET
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+
+    cfg = BiEARConfig(**AURALNET, fb_w_dtype="bfloat16")
+    model = build_auralnet(cfg, seed=3)
+    rng = np.random.default_rng(4)
+    wavL, wavR = (rng.uniform(-1, 1, (3, 16000)).astype(np.float32)
+                  for _ in range(2))
+    LAUNCHES.clear()
+    got = predict(model, wavL, wavR)
+    assert LAUNCHES["cc_lags"] == 1
+    for g, w in zip(got, predict(build_auralnet(cfg, seed=3, device="cpu"),
+                                 wavL, wavR)):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-2, atol=2e-2)
+    ir, az, dist = make_test_hrir_bank()
+    synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(16),
+                                mix_dtype="bfloat16")
+    hp = TrainHyper()
+    chunk = make_train_chunk(model, hp, make_optimizer(model, hp),
+                             synth.batch_fn(8), 1)
+    LAUNCHES.clear()
+    ms = chunk(torch.Generator(device="cuda").manual_seed(0))
+    assert LAUNCHES["gather_mix_kb"] == 1 and LAUNCHES["cc_lags"] == 1
     assert bool(torch.isfinite(ms["loss"]).all())
     assert float(ms["skipped"].sum()) == 0.0
 
