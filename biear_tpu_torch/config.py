@@ -288,7 +288,8 @@ def h5_paths(rc: RunConfig) -> dict:
 def data_paths(rc: RunConfig) -> dict:
     """Split -> file under DATA_FORMAT: the H5 convention, or the same
     basenames as ``.shard`` files under SHARD_ROOT (default ROOT), as
-    ``tools/h5_to_shard.py`` writes them."""
+    ``precompute_h5`` (a ``.shard`` output) and ``h5_to_shard`` write
+    them."""
     paths = h5_paths(rc)
     if rc.data_format == "h5":
         return paths

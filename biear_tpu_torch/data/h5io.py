@@ -1,10 +1,13 @@
-"""Readers of the reference's H5 schemas, the read side of
+"""Writers and readers of the reference's H5 schemas, a copy of
 ``biear_tpu/data/h5io.py``: active (x1, x2 waveforms, x3 CC, y labels) and
-passive (x1, x2 magnitude planes, x3 CC, x4, x5 phase planes, y).
+passive (x1, x2 magnitude planes, x3 CC, x4, x5 phase planes, y), every
+dataset float32, chunked in blocks of 256 rows.
 
 ``h5py`` is imported at first use. Where it is missing (the card's machine
-has none) the reader raises an ImportError that points to the ``.shard``
-format: convert the split with ``tools/h5_to_shard.py`` and set
+has none) the functions raise an ImportError that points to the
+``.shard`` format: write the split with ``python -m
+biear_tpu_torch.precompute_h5 ... --out-active x.shard`` (or convert an H5
+split with ``python -m biear_tpu_torch.h5_to_shard``) and set
 ``DATA_FORMAT: shard``.
 """
 
@@ -18,10 +21,45 @@ def _h5py():
         import h5py
     except ImportError as e:
         raise ImportError(
-            "h5py is not installed, so H5 splits cannot be read here: "
-            "convert them with tools/h5_to_shard.py and set "
-            "'DATA_FORMAT: shard' in the run config") from e
+            "h5py is not installed, so H5 splits cannot be read or written "
+            "here: write .shard splits with 'python -m "
+            "biear_tpu_torch.precompute_h5 --out-active x.shard' (or convert "
+            "H5 splits where h5py is installed with 'python -m "
+            "biear_tpu_torch.h5_to_shard') and set 'DATA_FORMAT: shard' in "
+            "the run config") from e
     return h5py
+
+
+def _save_h5(path, named, compress: bool, chunk_rows: int):
+    h5py = _h5py()
+    kw = dict(compression="gzip", compression_opts=4) if compress else {}
+    with h5py.File(path, "w") as f:
+        for name, arr in named:
+            arr = np.asarray(arr, np.float32)
+            chunks = (min(chunk_rows, len(arr)),) + arr.shape[1:]
+            f.create_dataset(name, data=arr, chunks=chunks, **kw)
+
+
+def save_active_h5(path, x1, x2, x3, y, compress: bool = False,
+                   chunk_rows: int = 256):
+    """Write the active 4-field schema."""
+    _save_h5(path, (("x1", x1), ("x2", x2), ("x3", x3), ("y", y)),
+             compress, chunk_rows)
+
+
+def save_passive_h5(path, x1, x2, x3, x4, x5, y, compress: bool = False,
+                    chunk_rows: int = 256):
+    """Write the passive 6-field schema."""
+    _save_h5(path, (("x1", x1), ("x2", x2), ("x3", x3), ("x4", x4),
+                    ("x5", x5), ("y", y)), compress, chunk_rows)
+
+
+def load_arrays_from_h5(path) -> tuple:
+    """The whole file -> its arrays in schema order (x1, x2, x3[, x4, x5],
+    y)."""
+    with _h5py().File(path, "r") as f:
+        keys = [k for k in ("x1", "x2", "x3", "x4", "x5", "y") if k in f]
+        return tuple(f[k][:] for k in keys)
 
 
 class _H5Dataset:

@@ -12,8 +12,10 @@ i16 fields store round(x * 32767) clipped to int16 and decode with scale
 1 / 32767. The reader maps the file and decodes only the rows asked for.
 
 The card's machine has no ``h5py``, so there the splits are ``.shard``
-files: convert H5 splits with ``tools/h5_to_shard.py`` (``data/h5io.py``
-reads H5 where ``h5py`` is installed).
+files: ``python -m biear_tpu_torch.precompute_h5`` writes them directly
+(an output path ending in ``.shard``), and ``python -m
+biear_tpu_torch.h5_to_shard`` converts H5 splits where ``h5py`` is
+installed (``data/h5io.py`` reads H5 there).
 """
 
 from __future__ import annotations

@@ -124,6 +124,12 @@ def sector_labels(active, sectors, angle_norm, dist_idx,
                      dim=2).reshape(B, -1)
 
 
+def host_meta(**draws) -> dict:
+    """Scene draws (tensors on any device) -> float32 numpy arrays, the
+    dtype of JAX's sampler metadata."""
+    return {k: v.float().cpu().numpy() for k, v in draws.items()}
+
+
 def finish_batch(gen: torch.Generator, y_lr: torch.Tensor, noise_snr_db,
                  fs: int, num_lags: int, y: torch.Tensor):
     """Mixed ears (B, 2, fs) and labels -> (wavL, wavR, x3, y): the
@@ -183,6 +189,12 @@ class AnechoicSynthesizer:
         in_sector = az - sec_of * width
         norm = np.minimum((in_sector + 1e-3) / width, 1.0)
         dcls = np.argmin(np.abs(DIST_CLASSES[None, :] - dist[:, None]), axis=1)
+        # host tables of sample_batch_meta's readers (the offline writer's
+        # continuous azimuths and real distances)
+        self._az_np = az                                          # (M,)
+        self._dist_np = dist                                      # (M,)
+        self._dcls_np = dcls.astype(np.int64)                     # (M,)
+        self._sec_np = sec_of.astype(np.int64)                    # (M,)
 
         segments, self.seg_len, self.off_step, self.n_q = segment_offsets(
             segments, self.fs)
@@ -304,16 +316,21 @@ class AnechoicSynthesizer:
                              self.n_sectors)
 
     def assemble(self, gen: torch.Generator, batch_size: int,
-                 n_src_fixed: int = 0):
+                 n_src_fixed: int = 0, with_meta: bool = False):
         """One batch (wavL, wavR, x3, y): scene -> mix -> optional noise ->
-        CC feature -> labels."""
+        CC feature -> labels; with_meta appends the scene's meta dict
+        (``sample_batch_meta``)."""
         active, sectors, meas, seg_idx, qoff, crop = self.scene_batched(
             gen, batch_size, n_src_fixed)
         mix = self.mix_fast if self.fast else self.mix_general
         y_lr = mix(active, meas, seg_idx, qoff, crop)
-        return finish_batch(gen, y_lr, self.noise_snr_db, self.fs,
-                            self.num_lags,
-                            self.labels_batched(active, sectors, meas))
+        out = finish_batch(gen, y_lr, self.noise_snr_db, self.fs,
+                           self.num_lags,
+                           self.labels_batched(active, sectors, meas))
+        if not with_meta:
+            return out
+        return (*out, host_meta(meas=meas, sector_id=sectors,
+                                active=active))
 
     def sample_batch(self, gen: torch.Generator, batch_size: int,
                      n_src: int | None = None):
@@ -323,6 +340,17 @@ class AnechoicSynthesizer:
         with torch.no_grad():
             return self.assemble(gen, batch_size,
                                  0 if n_src is None else int(n_src))
+
+    def sample_batch_meta(self, gen: torch.Generator, batch_size: int,
+                          n_src: int | None = None):
+        """sample_batch's (wavL, wavR, x3, y), from the same draws, plus
+        the scene of each sample for the offline writer: {"meas" (the
+        HRIR measurement per slot), "sector_id", "active"}, each (B, MS)
+        float32 numpy on the host, as JAX's meta."""
+        with torch.no_grad():
+            return self.assemble(gen, batch_size,
+                                 0 if n_src is None else int(n_src),
+                                 with_meta=True)
 
     def batch_fn(self, batch_size: int, n_src: int | None = None):
         """gen -> batch closure for the fused train chunk: the same draws

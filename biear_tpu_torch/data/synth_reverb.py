@@ -34,14 +34,18 @@ import torch.nn.functional as F
 
 from ..device import no_tf32, resolve_device
 from .labels import DIST_CLASSES, N_DIST_CLASSES, N_SECTORS
-from .synth import (finish_batch, next_pow2, normalise_peak, sector_labels,
-                    segment_offsets, slice_segments)
+from .synth import (finish_batch, host_meta, next_pow2, normalise_peak,
+                    sector_labels, segment_offsets, slice_segments)
+
+# the room scenes' distance labelling: beyond 3 m a source is "other"
+OTHER_THRESH_M = 3.0
+OTHER_CLASS_ID = 4
 
 
-def dist_class_5(dist_m: float, other_thresh: float = 3.0) -> int:
+def dist_class_5(dist_m: float, other_thresh: float = OTHER_THRESH_M) -> int:
     """0..3 nearest prototype if <= thresh, else 4 ('other')."""
     if dist_m > other_thresh:
-        return 4
+        return OTHER_CLASS_ID
     return int(np.argmin(np.abs(DIST_CLASSES - dist_m)))
 
 
@@ -119,6 +123,14 @@ class ReverbSynthesizer:
         norm = np.minimum((rel - sec * width + 1e-3) / width, 1.0)
         dcls = np.array([dist_class_5(d) for d in sp_dist], np.int64)
         onehot_idx = np.minimum(dcls + 1, N_DIST_CLASSES - 1)
+        # host tables of sample_batch_meta's readers: head yaw, speaker
+        # distance and world azimuth, the relative azimuth per (head,
+        # speaker), the true 5-class id ("other" included)
+        self._yaw_np = yaw                                        # (M,)
+        self._sp_dist_np = sp_dist                                # (E,)
+        self._sp_az_world_np = sp_az_world                        # (E,)
+        self._rel_np = rel                                        # (M, E)
+        self._dcls_np = dcls                                      # (E,)
         self.sector_table = torch.as_tensor(sec, device=dev)      # (M, E)
         self.norm_table = torch.as_tensor(norm.astype(np.float32),
                                           device=dev)             # (M, E)
@@ -190,14 +202,18 @@ class ReverbSynthesizer:
                              self.onehot_idx[speakers])
 
     def assemble(self, gen: torch.Generator, batch_size: int,
-                 n_src_fixed: int = 0):
+                 n_src_fixed: int = 0, with_meta: bool = False):
         head, active, sectors, speakers, seg_idx, qoff = self.scene_batched(
             gen, batch_size, n_src_fixed)
         y_lr = self.mix(head, active, speakers, seg_idx, qoff)
-        return finish_batch(gen, y_lr, self.noise_snr_db, self.fs,
-                            self.num_lags,
-                            self.labels_batched(head, active, sectors,
-                                                speakers))
+        out = finish_batch(gen, y_lr, self.noise_snr_db, self.fs,
+                           self.num_lags,
+                           self.labels_batched(head, active, sectors,
+                                               speakers))
+        if not with_meta:
+            return out
+        return (*out, host_meta(head_index=head, speaker_id=speakers,
+                                sector_id=sectors, active=active))
 
     def sample_batch(self, gen: torch.Generator, batch_size: int,
                      n_src: int | None = None):
@@ -207,6 +223,16 @@ class ReverbSynthesizer:
         with torch.no_grad():
             return self.assemble(gen, batch_size,
                                  0 if n_src is None else int(n_src))
+
+    def sample_batch_meta(self, gen: torch.Generator, batch_size: int,
+                          n_src: int | None = None):
+        """sample_batch's batch plus the scene of each sample:
+        {"head_index" (B,), "speaker_id", "sector_id", "active" (B, MS)},
+        float32 numpy on the host, as JAX's meta."""
+        with torch.no_grad():
+            return self.assemble(gen, batch_size,
+                                 0 if n_src is None else int(n_src),
+                                 with_meta=True)
 
     def batch_fn(self, batch_size: int, n_src: int | None = None):
         """gen -> batch closure for the fused train chunk."""

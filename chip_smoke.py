@@ -126,6 +126,28 @@ Phases, each of which raises on failure (the exit code is then not 0):
      split); ``protocol_eval`` on the AuralNet run reproduces its test1 /
      test2 files byte for byte; ``eval_by_snr`` over both runs at 5 dB,
      25 dB and clean.
+ 15. dataset, at full width in a temporary directory: (a)
+     ``generate_binaural_data`` writes an anechoic test-thirds split of
+     DATASET_ROWS rows on the card (wav + npz pairs; one window-gather and
+     one CC launch per 256-row batch; source counts 1/2/3 per third; every
+     npz rebuilds its batch's label bit for bit) and a SPIRIT_ROWS-row
+     spirit split (rFFT mix: one CC launch); (b) ``precompute_h5
+     --from-dir`` turns (a) into the active and passive val / test
+     ``.shard`` files, the card against the CPU port on COMPARE_ROWS rows
+     (x1, x2, y bit for bit, CC to CC_RTOL / CC_ATOL, features to
+     FEATURE_DB_TOL / FEATURE_RAD_TOL), ms per 512 rows of each builder;
+     (c) ``precompute_h5 --synth SYNTH_ROWS`` writes the train shards; (d)
+     the runner on conf/config.yaml and conf/config_passive.yaml, one
+     epoch each from those files (s per epoch and utt/s beside phase
+     10's), then ``evaluate`` of the active run's best on the test shard,
+     card against CPU as in 9; (e) ``stream_demo`` on
+     docs/protocol_r3/flagship-s1 (n_src 2, seed 4): per-hop beliefs card
+     against CPU on the card's scene (STREAM_ATOL, or the CPU's own spread
+     under 1e-6 noise where the trained checkpoint needs it), ms per hop,
+     the settled hop and the decision; (f) ``archive_protocol_run`` of
+     phase 14's AuralNet run: metric files byte-copied, the exported
+     best.pth loads strictly into a fresh AuralNet and, scored on phase
+     14's splits, writes its test1 / test2 files byte for byte.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -190,6 +212,9 @@ WAVE_ATOL = 2e-5
 AURALNET_FEAT_ATOL = 1e-4
 # phase 14: run_full_protocol's pool, train and eval sizes
 PROTOCOL_SIZES = (64, 512, 192)
+# phase 15: the written test-thirds split, the spirit split, the card vs
+# CPU rows of the precompute, the synthesised train split
+DATASET_ROWS, SPIRIT_ROWS, COMPARE_ROWS, SYNTH_ROWS = 768, 192, 64, 2048
 
 
 def log(msg: str) -> None:
@@ -1169,7 +1194,7 @@ def phase_runner(torch):
                "eval_splits_ms": split_ms, "peak_memory_bytes": peak,
                "wall_s": wall}
     log(f"runner metrics (B={B}, f32): {json.dumps(metrics)}")
-    return launches
+    return launches, metrics
 
 
 def check_run_tree(run: str, label: str) -> dict:
@@ -1644,97 +1669,434 @@ def phase_auralnet(torch, rng, synth):
     return launches
 
 
-def phase_protocol(torch):
+def protocol_common() -> list:
+    """The flags phase 14's driver runs share with its post-hoc tools."""
+    pool, _, eval_size = PROTOCOL_SIZES
+    return ["--corpus", "speech", "--noise-snr", "5,25", "--pool-size",
+            str(pool), "--eval-size", str(eval_size), "--quiet"]
+
+
+def phase_protocol(torch, tmp: str):
     """Phase 14: ``run_full_protocol`` on the card at full width and a
     small scale (speech corpus, noise at 5-25 dB, PROTOCOL_SIZES) for
     AuralNet and for conf/config.yaml --fixed-q; ``protocol_eval`` on the
     AuralNet run reproducing its test1 / test2 files byte for byte;
     ``eval_by_snr`` over both runs at 5 and 25 dB and clean. One CC and
-    one window-gather launch per batch, no mix."""
-    import tempfile
+    one window-gather launch per batch, no mix. The runs stay under `tmp`
+    for phase 15; returns (launches, {label: run directory})."""
     from biear_tpu_torch import eval_by_snr, protocol_eval, run_full_protocol
     from biear_tpu_torch.kernels import LAUNCHES
 
     here = os.path.dirname(os.path.abspath(__file__))
     pool, train_size, eval_size = PROTOCOL_SIZES
-    common = ["--corpus", "speech", "--noise-snr", "5,25", "--pool-size",
-              str(pool), "--eval-size", str(eval_size), "--quiet"]
+    common = protocol_common()
     launches, runs = {}, {}
+    for label, conf, extra in (
+            ("auralnet", "config_auralnet_deepear.yaml", []),
+            ("fixedq", "config.yaml", ["--fixed-q"])):
+        argv = (["--config", os.path.join(here, "conf", conf),
+                 "--train-size", str(train_size), "--epochs", "1",
+                 "--runs-root", tmp, "--comments", f"smoke-{label}"]
+                + common + extra)
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        res = run_full_protocol.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[f"protocol_{label}"] = got = dict(LAUNCHES)
+        val_b, test_b = synth_eval_batches(eval_size, 64)
+        steps = train_size // 64
+        # training steps, the sanity batch, the runner's val and test
+        # splits, then test1 and test2
+        want = steps + 1 + val_b + 3 * test_b
+        tr = res["history"]["train"][0]
+        log(f"protocol {label}: launches {got} (expected {want} of "
+            f"cc_lags and gather_windows); pools {res['pool_s']!r} s, "
+            f"train {steps * 64 / tr['sec']!r} utt/s, test splits ms "
+            f"{res['test_ms']!r}, wall {wall!r} s; test1 "
+            f"{json.dumps(res['test1']['overall'])}")
+        for name in ("test1", "test2"):
+            path = os.path.join(res["run_dir"],
+                                f"evaluate_biear_metrics_{name}.json")
+            with open(path) as f:
+                if set(json.load(f)) != {"overall", "1spk", "2spk",
+                                         "3spk"}:
+                    raise RuntimeError(f"protocol {label}: {name} JSON")
+        if (got.get("cc_lags", 0) != want
+                or got.get("gather_windows", 0) != want
+                or got.get("gather_mix_kb", 0)
+                or not np.isfinite(tr["loss"]) or tr["skipped"]):
+            raise RuntimeError(f"protocol {label}: wrong launches or "
+                               f"bad training {tr}")
+        runs[label] = res["run_dir"]
+
+    run = runs["auralnet"]
+    files = {n: os.path.join(run, f"evaluate_biear_metrics_{n}.json")
+             for n in ("test1", "test2")}
+    before = {n: open(p, "rb").read() for n, p in files.items()}
+    for p in files.values():
+        os.remove(p)
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    protocol_eval.main([run, "--device", "cuda"] + common)
+    torch.cuda.synchronize()
+    launches["protocol_eval"] = got = dict(LAUNCHES)
+    same = all(open(p, "rb").read() == before[n]
+               for n, p in files.items())
+    log(f"protocol_eval on the auralnet run: test1 / test2 reproduced "
+        f"byte for byte: {same}; launches {got}; "
+        f"{time.perf_counter() - t0!r} s")
+    if not same or got.get("cc_lags", 0) != 2 * test_b:
+        raise RuntimeError("protocol_eval differs from run_full_protocol")
+
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "snr.json")
+    res = eval_by_snr.main([runs["auralnet"], runs["fixedq"], "--snrs",
+                            "5,25", "--eval-size", str(eval_size),
+                            "--pool-size", str(pool), "--out", out,
+                            "--quiet"])
+    torch.cuda.synchronize()
+    launches["eval_by_snr"] = got = dict(LAUNCHES)
+    log(f"eval_by_snr (2 runs, 5 dB, 25 dB, clean): launches {got}; "
+        f"{time.perf_counter() - t0!r} s; "
+        f"{json.dumps(res['runs'])}")
+    if (not os.path.exists(out) or got.get("cc_lags", 0) != 3 * test_b
+            or any(set(v) != {"5dB", "25dB", "clean"}
+                   for v in res["runs"].values())):
+        raise RuntimeError("eval_by_snr: wrong slices or launches")
+    return launches, runs
+
+def wrapped_phase_err(a, b):
+    """Largest |a - b| wrapped to (-pi, pi], float64."""
+    d = np.angle(np.exp(1j * (a.astype(np.float64) - b)))
+    return float(np.abs(d).max()) if d.size else 0.0
+
+
+def tree_mb(path: str) -> float:
+    """Megabytes of the files under `path` (or of the file)."""
+    if os.path.isfile(path):
+        return os.path.getsize(path) / 1e6
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def timed_launches(torch, fn):
+    """fn() with the launch counts zeroed just before and read just after
+    (synchronised): (result, launches, host seconds)."""
+    from biear_tpu_torch.kernels import LAUNCHES
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES), time.perf_counter() - t0
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    """Every kernel's count equals want's (0 where want does not name it)."""
+    for k in ("cc_lags", "gather_windows", "gather_mix_kb"):
+        if got.get(k, 0) != want.get(k, 0):
+            raise RuntimeError(f"{label}: {k} launched {got.get(k, 0)} "
+                               f"times, not {want.get(k, 0)}")
+
+
+def dataset_write(torch, work: str) -> tuple:
+    """Phase 15 (a): the anechoic test-thirds split and the spirit split,
+    written on the card. Returns (launches, the anechoic split's
+    directory, rows per second)."""
+    from biear_tpu_torch import generate_binaural_data as gen
+    from biear_tpu_torch.data.labels import build_label_from_npz_dict
+
+    root = os.path.join(work, "splits")
+    n = DATASET_ROWS
+    y, got, sec = timed_launches(torch, lambda: gen.main(
+        ["--out-root", root, "--name", "anechoic_test1", "--num", str(n),
+         "--seed", "11", "--test-thirds"]))
+    split = os.path.join(root, "anechoic_test1")
+    batches = -(-n // 3 // 256) * 3
+    check_launches("write_split", got, {"cc_lags": batches,
+                                        "gather_windows": batches})
+    names = sorted(os.listdir(split))
+    if len(names) != 2 * n:
+        raise RuntimeError(f"write_split: {len(names)} files, not {2 * n}")
+    counts = []
+    for i in range(n):
+        d = np.load(os.path.join(split, f"anechoic_test1_{i:06d}.npz"))
+        counts.append(int(d["num_sources"]))
+        if not np.array_equal(build_label_from_npz_dict(d), y[i]):
+            raise RuntimeError(f"write_split: npz {i} does not rebuild the "
+                               "batch's label")
+    third = n // 3
+    want = [1] * third + [2] * third + [3] * (n - 2 * third)
+    if counts != want:
+        raise RuntimeError("write_split: wrong source counts per third")
+    rate = n / sec
+    log(f"dataset (a) write_split anechoic {n} rows, test thirds: "
+        f"launches {got}; {sec!r} s ({rate!r} rows/s), "
+        f"{tree_mb(split)!r} MB; source counts 1/2/3 per third, every npz "
+        "label equal to its batch's y")
+
+    _, sgot, ssec = timed_launches(torch, lambda: gen.main(
+        ["--out-root", root, "--scene", "spirit", "--name", "spirit_val",
+         "--num", str(SPIRIT_ROWS), "--seed", "12"]))
+    check_launches("write_split spirit", sgot, {"cc_lags": 1})
+    nfiles = len(os.listdir(os.path.join(root, "spirit_val")))
+    if nfiles != 2 * SPIRIT_ROWS:
+        raise RuntimeError(f"spirit split: {nfiles} files")
+    log(f"dataset (a) write_split spirit {SPIRIT_ROWS} rows (rFFT mix): "
+        f"launches {sgot}; {ssec!r} s ({SPIRIT_ROWS / ssec!r} rows/s)")
+    return {"dataset_write": got, "dataset_write_spirit": sgot}, split, rate
+
+
+def dataset_precompute(torch, split: str, shards: str, tmp: str) -> tuple:
+    """Phase 15 (b) and (c): precompute_h5 --from-dir on the split (the
+    val and test shards), card against the CPU port on its first
+    COMPARE_ROWS rows; precompute_h5 --synth SYNTH_ROWS (the train
+    shards). Returns (launches, metrics)."""
+    import shutil
+    from biear_tpu_torch import precompute_h5 as pre
+
+    n = DATASET_ROWS
+    act = os.path.join(shards, "anechoic_val_active_wav.shard")
+    pas = os.path.join(shards, "anechoic_val_gt_group_phase.shard")
+    card, got, sec = timed_launches(torch, lambda: pre.main(
+        ["--from-dir", split, "--out-active", act, "--out-passive", pas]))
+    per512 = -(-n // 512)
+    check_launches("precompute --from-dir", got, {"cc_lags": 2 * per512})
+    shutil.copyfile(act, os.path.join(shards,
+                                      "anechoic_test1_active_wav.shard"))
+    shutil.copyfile(pas, os.path.join(shards,
+                                      "anechoic_test2_gt_group_phase.shard"))
+    cpu = pre.main(["--from-dir", split, "--max-samples", str(COMPARE_ROWS),
+                    "--out-active", os.path.join(tmp, "a.shard"),
+                    "--out-passive", os.path.join(tmp, "p.shard"),
+                    "--device", "cpu"])
+    m = COMPARE_ROWS
+    a, c = card["active"], cpu["active"]
+    same = all(np.array_equal(a[i][:m], c[i]) for i in (0, 1, 3))
+    e_cc = float(np.abs(a[2][:m] - c[2]).max())
+    cc_ok = np.allclose(a[2][:m], c[2], rtol=CC_RTOL, atol=CC_ATOL)
+    pa, pc = card["passive"], cpu["passive"]
+    strong = [pc[i] > -60.0 for i in (0, 1)]
+    e_mag = max(float(np.abs(pa[i][:m] - pc[i])[strong[i]].max())
+                for i in (0, 1))
+    e_ph = max(wrapped_phase_err(pa[i][:m][strong[j]], pc[i][strong[j]])
+               for i, j in ((3, 0), (4, 1)))
+    p_same = np.array_equal(pa[5][:m], pc[5])
+    p_cc = np.allclose(pa[2][:m], pc[2], rtol=CC_RTOL, atol=CC_ATOL)
+    log(f"dataset (b) precompute --from-dir {n} rows -> active and passive "
+        f".shard: launches {got}; {sec!r} s with the wav reads "
+        f"({n / sec!r} rows/s), {tree_mb(act)!r} + {tree_mb(pas)!r} MB; card "
+        f"vs CPU on {m} rows: x1, x2, y equal {same}, CC max |d| {e_cc!r} "
+        f"(rtol {CC_RTOL}, atol {CC_ATOL}: {cc_ok}); passive magnitude "
+        f"{e_mag!r} dB (limit {FEATURE_DB_TOL!r}), wrapped phase {e_ph!r} "
+        f"rad (limit {FEATURE_RAD_TOL}), CC {p_cc}, y equal {p_same}")
+    if not (same and cc_ok and p_same and p_cc and e_mag <= FEATURE_DB_TOL
+            and e_ph <= FEATURE_RAD_TOL):
+        raise RuntimeError("precompute: card and CPU disagree")
+    wl, wr, y = a[0], a[1], a[3]
+    ms = {}
+    for name, fn in (("active", pre.build_active),
+                     ("passive", pre.build_passive)):
+        out = os.path.join(tmp, f"t.{name}.shard")
+        fn(wl, wr, y, 16000, out)
+        t0 = time.perf_counter()
+        fn(wl, wr, y, 16000, out)
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0) * 512 / n
+
+    train_act = os.path.join(shards, "anechoic_train_active_wav.shard")
+    train_pas = os.path.join(shards, "anechoic_train_gt_group_phase.shard")
+    N = SYNTH_ROWS
+    _, sgot, ssec = timed_launches(torch, lambda: pre.main(
+        ["--synth", str(N), "--seed", "5", "--out-active", train_act,
+         "--out-passive", train_pas]))
+    nb, n512 = -(-N // 256), -(-N // 512)
+    check_launches("precompute --synth", sgot,
+                   {"cc_lags": nb + 2 * n512, "gather_windows": nb})
+    mb = (tree_mb(train_act), tree_mb(train_pas))
+    log(f"dataset (c) precompute --synth {N} -> active and passive .shard: "
+        f"launches {sgot}; {ssec!r} s ({N / ssec!r} rows/s), "
+        f"{mb[0]!r} + {mb[1]!r} MB; builders alone on {n} rows: "
+        f"build_active {ms['active']!r} ms, build_passive "
+        f"{ms['passive']!r} ms per 512 rows (with the .shard writes)")
+    metrics = {"precompute_dir_rows_s": n / sec,
+               "precompute_synth_rows_s": N / ssec,
+               "ms_per_512": ms, "train_shard_mb": mb}
+    return ({"dataset_precompute_dir": got,
+             "dataset_precompute_synth": sgot}, metrics)
+
+
+def dataset_runner(torch, shards: str, work: str, tmp: str,
+                   runner_metrics: dict) -> dict:
+    """Phase 15 (d): the runner on conf/config.yaml and on
+    conf/config_passive.yaml, one epoch each from the shards (no kernel:
+    the CC is in the files); evaluate of the active run's best on the
+    test shard, card against CPU as in phase 9. Returns launches."""
+    from biear_tpu_torch.config import load_run_config
+    from biear_tpu_torch.train.runner import train
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    launches, runs = {}, {}
+    for name, label in (("config.yaml", "dataset_runner"),
+                        ("config_passive.yaml", "dataset_runner_passive")):
+        rc = load_run_config(os.path.join(here, "conf", name))
+        rc.data_format, rc.shard_root = "shard", shards
+        rc.epochs, rc.runs_root = 1, os.path.join(work, "runs")
+        torch.cuda.reset_peak_memory_stats()
+        out, got, wall = timed_launches(torch, lambda: train(
+            rc, run_id=label, quiet=True))
+        launches[label] = got
+        check_launches(label, got, {})
+        hist = check_run_tree(out["run_dir"], label)
+        steps = -(-SYNTH_ROWS // rc.batch_size)
+        tr, va = hist["train"][0], hist["val"][0]
+        if (out["global_step"] != steps or tr["skipped"]
+                or not np.isfinite([tr["loss"], va["loss"],
+                                    out["test"]["loss"]]).all()):
+            raise RuntimeError(f"{label}: history {hist}")
+        runs[label] = out["run_dir"]
+        log(f"dataset (d) runner on conf/{name} from .shard files: "
+            f"{SYNTH_ROWS} train rows ({steps} steps of {rc.batch_size}), "
+            f"val and test {DATASET_ROWS}: s per epoch (train + val) "
+            f"{tr['sec'] + va['sec']!r}, train utt/s "
+            f"{SYNTH_ROWS / tr['sec']!r}, peak memory "
+            f"{torch.cuda.max_memory_allocated()!r} B, wall {wall!r} s; "
+            f"launches {got}; losses train {tr['loss']!r} val "
+            f"{va['loss']!r} test {out['test']['loss']!r}")
+    log(f"dataset (d) beside phase 10 (synthesised, {RUNNER_STEPS} steps per "
+        f"epoch): s per epoch {runner_metrics['epoch_s']!r}, train utt/s "
+        f"{runner_metrics['runner_train_utt_s']!r}")
+
+    run = runs["dataset_runner"]
+    with open(os.path.join(run, "meta", "settings.json")) as f:
+        settings = json.load(f)
+    launches["dataset_evaluate"] = compare_evaluations(
+        torch, "dataset evaluate",
+        os.path.join(run, "checkpoints", "best", "params.pth"), settings,
+        os.path.join(shards, "anechoic_test1_active_wav.shard"), tmp,
+        SERVE_TOL["float32"], witness=False)
+    return launches
+
+
+def dataset_stream_demo(torch, tmp: str) -> dict:
+    """Phase 15 (e): stream_demo on docs/protocol_r3/flagship-s1 (n_src 2,
+    seed 4); its per-hop beliefs card against CPU on the card's scene, to
+    STREAM_ATOL or, where the trained checkpoint needs it, to the CPU's
+    own change under 1e-6 relative waveform noise. Returns launches."""
+    from biear_tpu_torch import stream_demo
+    from biear_tpu_torch.config import config_from_settings
+    from biear_tpu_torch.serve.infer import load_model
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    archive = os.path.join(here, "docs", "protocol_r3", "flagship-s1")
+    js = os.path.join(tmp, "stream_demo.json")
+    out, got, sec = timed_launches(torch, lambda: stream_demo.main(
+        ["--archive", archive, "--n-src", "2", "--seed", "4", "--json", js,
+         "--png", os.path.join(tmp, "stream_demo.png")]))
+    check_launches("stream_demo", got, {"cc_lags": 1, "gather_windows": 1})
+    with open(os.path.join(archive, "settings.json")) as f:
+        cfg = config_from_settings(json.load(f))
+    pth = os.path.join(archive, "best.pth")
+    card_model, cpu_model = (load_model(pth, cfg, d) for d in ("cuda", "cpu"))
+    wavL, wavR, gt = stream_demo.demo_scene(cfg, 2, 4, device="cuda")
+    p_card = stream_demo.stream_beliefs(card_model, wavL, wavR)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        stream_demo.stream_beliefs(card_model, wavL, wavR)
+    torch.cuda.synchronize()
+    hop_ms = 1e3 * (time.perf_counter() - t0) / (3 * cfg.timesteps)
+    wl, wr = wavL.cpu().numpy(), wavR.cpu().numpy()
+    p_cpu = stream_demo.stream_beliefs(cpu_model, wl, wr)
+    noise = np.random.default_rng(5).standard_normal((2,) + wl.shape)
+    p_wit = stream_demo.stream_beliefs(
+        cpu_model, (wl * (1 + 1e-6 * noise[0])).astype(np.float32),
+        (wr * (1 + 1e-6 * noise[1])).astype(np.float32))
+    err = float(np.abs(p_card - p_cpu).max())
+    spread = float(np.abs(p_wit - p_cpu).max())
+    tol = max(STREAM_ATOL, spread)
+    same_json = (gt == out["gt_sectors"] and out["probs_per_hop"]
+                 == [[round(float(v), 4) for v in p] for p in p_card])
+    log(f"dataset (e) stream_demo flagship-s1, n_src 2, seed 4: launches "
+        f"{got}; {sec!r} s in all, {hop_ms!r} ms per hop on the card "
+        f"(stream_step and readout, batch 1); true sectors "
+        f"{out['gt_sectors']}, decision {out['pred_sectors']}, settled at "
+        f"hop {out['settled_at_hop']} ({out['settled_at_s']} s); per-hop "
+        f"beliefs card vs CPU max |d| {err!r}, CPU's own spread under 1e-6 "
+        f"noise {spread!r}: limit {tol!r} "
+        f"({'STREAM_ATOL' if tol == STREAM_ATOL else 'the witness'}); JSON "
+        f"from the same scene: {same_json}")
+    if not (err <= tol and same_json and len(out["probs_per_hop"])
+            == cfg.timesteps):
+        raise RuntimeError("stream_demo: card and CPU disagree")
+    return {"stream_demo": got}
+
+
+def dataset_archive(torch, run: str, tmp: str) -> dict:
+    """Phase 15 (f): archive_protocol_run on phase 14's AuralNet run; the
+    exported best.pth loads strictly into a fresh port AuralNet and,
+    scored by protocol_eval on phase 14's test splits, writes the run's
+    test1 / test2 files byte for byte. Returns launches."""
+    import shutil
+    from biear_tpu_torch import archive_protocol_run, protocol_eval
+    from biear_tpu_torch.config import config_from_settings
+    from biear_tpu_torch.models import AuralNet
+
+    out = archive_protocol_run.main([run, "auralnet-smoke", "--dest", tmp])
+    copied = all(open(os.path.join(out, os.path.basename(rel)), "rb").read()
+                 == open(os.path.join(run, rel), "rb").read()
+                 for rel in ("evaluate_biear_metrics_test1.json",
+                             "evaluate_biear_metrics_test2.json",
+                             "logs_json/test_metrics.json",
+                             "meta/settings.json"))
+    with open(os.path.join(out, "settings.json")) as f:
+        settings = json.load(f)
+    sd = torch.load(os.path.join(out, "best.pth"), weights_only=True)
+    AuralNet(config_from_settings(settings)).load_state_dict(sd, strict=True)
+    rd = os.path.join(tmp, "archived-run")
+    os.makedirs(os.path.join(rd, "checkpoints", "best"))
+    os.makedirs(os.path.join(rd, "meta"))
+    shutil.copyfile(os.path.join(out, "best.pth"),
+                    os.path.join(rd, "checkpoints", "best", "params.pth"))
+    shutil.copyfile(os.path.join(out, "settings.json"),
+                    os.path.join(rd, "meta", "settings.json"))
+    _, got, sec = timed_launches(torch, lambda: protocol_eval.main(
+        [rd, "--device", "cuda"] + protocol_common()))
+    test_b = synth_eval_batches(PROTOCOL_SIZES[2], 64)[1]
+    check_launches("archive scoring", got, {"cc_lags": 2 * test_b,
+                                            "gather_windows": 2 * test_b})
+    same = all(
+        open(os.path.join(rd, f"evaluate_biear_metrics_{n}.json"),
+             "rb").read()
+        == open(os.path.join(run, f"evaluate_biear_metrics_{n}.json"),
+                "rb").read() for n in ("test1", "test2"))
+    log(f"dataset (f) archive_protocol_run of the AuralNet run: metric files "
+        f"byte-copied {copied}; best.pth ({len(sd)} tensors, attention "
+        f"included: {any('self_attn' in k for k in sd)}) loads strictly; "
+        f"scored on phase 14's splits, test1 / test2 byte for byte: {same}; "
+        f"launches {got}; {sec!r} s")
+    if not (copied and same):
+        raise RuntimeError("archive_protocol_run: the archive differs from "
+                           "the run")
+    return {"archive_scoring": got}
+
+
+def phase_dataset(torch, work: str, auralnet_run: str,
+                  runner_metrics: dict) -> dict:
+    """Phase 15: the offline dataset path at full width (a-d), the
+    streaming demo (e) and the run archiver (f)."""
+    import tempfile
+
+    shards = os.path.join(work, "shards")
+    os.makedirs(shards)
     with tempfile.TemporaryDirectory() as tmp:
-        for label, conf, extra in (
-                ("auralnet", "config_auralnet_deepear.yaml", []),
-                ("fixedq", "config.yaml", ["--fixed-q"])):
-            argv = (["--config", os.path.join(here, "conf", conf),
-                     "--train-size", str(train_size), "--epochs", "1",
-                     "--runs-root", tmp, "--comments", f"smoke-{label}"]
-                    + common + extra)
-            LAUNCHES.clear()
-            t0 = time.perf_counter()
-            res = run_full_protocol.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches[f"protocol_{label}"] = got = dict(LAUNCHES)
-            val_b, test_b = synth_eval_batches(eval_size, 64)
-            steps = train_size // 64
-            # training steps, the sanity batch, the runner's val and test
-            # splits, then test1 and test2
-            want = steps + 1 + val_b + 3 * test_b
-            tr = res["history"]["train"][0]
-            log(f"protocol {label}: launches {got} (expected {want} of "
-                f"cc_lags and gather_windows); pools {res['pool_s']!r} s, "
-                f"train {steps * 64 / tr['sec']!r} utt/s, test splits ms "
-                f"{res['test_ms']!r}, wall {wall!r} s; test1 "
-                f"{json.dumps(res['test1']['overall'])}")
-            for name in ("test1", "test2"):
-                path = os.path.join(res["run_dir"],
-                                    f"evaluate_biear_metrics_{name}.json")
-                with open(path) as f:
-                    if set(json.load(f)) != {"overall", "1spk", "2spk",
-                                             "3spk"}:
-                        raise RuntimeError(f"protocol {label}: {name} JSON")
-            if (got.get("cc_lags", 0) != want
-                    or got.get("gather_windows", 0) != want
-                    or got.get("gather_mix_kb", 0)
-                    or not np.isfinite(tr["loss"]) or tr["skipped"]):
-                raise RuntimeError(f"protocol {label}: wrong launches or "
-                                   f"bad training {tr}")
-            runs[label] = res["run_dir"]
-
-        run = runs["auralnet"]
-        files = {n: os.path.join(run, f"evaluate_biear_metrics_{n}.json")
-                 for n in ("test1", "test2")}
-        before = {n: open(p, "rb").read() for n, p in files.items()}
-        for p in files.values():
-            os.remove(p)
-        LAUNCHES.clear()
-        t0 = time.perf_counter()
-        protocol_eval.main([run, "--device", "cuda"] + common)
-        torch.cuda.synchronize()
-        launches["protocol_eval"] = got = dict(LAUNCHES)
-        same = all(open(p, "rb").read() == before[n]
-                   for n, p in files.items())
-        log(f"protocol_eval on the auralnet run: test1 / test2 reproduced "
-            f"byte for byte: {same}; launches {got}; "
-            f"{time.perf_counter() - t0!r} s")
-        if not same or got.get("cc_lags", 0) != 2 * test_b:
-            raise RuntimeError("protocol_eval differs from run_full_protocol")
-
-        LAUNCHES.clear()
-        t0 = time.perf_counter()
-        out = os.path.join(tmp, "snr.json")
-        res = eval_by_snr.main([runs["auralnet"], runs["fixedq"], "--snrs",
-                                "5,25", "--eval-size", str(eval_size),
-                                "--pool-size", str(pool), "--out", out,
-                                "--quiet"])
-        torch.cuda.synchronize()
-        launches["eval_by_snr"] = got = dict(LAUNCHES)
-        log(f"eval_by_snr (2 runs, 5 dB, 25 dB, clean): launches {got}; "
-            f"{time.perf_counter() - t0!r} s; "
-            f"{json.dumps(res['runs'])}")
-        if (not os.path.exists(out) or got.get("cc_lags", 0) != 3 * test_b
-                or any(set(v) != {"5dB", "25dB", "clean"}
-                       for v in res["runs"].values())):
-            raise RuntimeError("eval_by_snr: wrong slices or launches")
+        launches, split, _ = dataset_write(torch, work)
+        got, _ = dataset_precompute(torch, split, shards, tmp)
+        launches.update(got)
+        launches.update(dataset_runner(torch, shards, work, tmp,
+                                       runner_metrics))
+        launches.update(dataset_stream_demo(torch, tmp))
+        launches.update(dataset_archive(torch, auralnet_run, tmp))
     return launches
 
 
@@ -1778,11 +2140,16 @@ def main() -> int:
         torch, synth, "single", SINGLE_TRAIN_STEPS)
     launches["stream"] = phase_stream(torch, rng)
     launches["evaluate"] = phase_evaluate(torch, synth)
-    launches["runner"] = phase_runner(torch)
+    launches["runner"], runner_metrics = phase_runner(torch)
     launches.update(phase_passive(torch, synth))
     launches.update(phase_reverb(torch))
     launches.update(phase_auralnet(torch, rng, synth))
-    launches.update(phase_protocol(torch))
+    import tempfile
+    with tempfile.TemporaryDirectory() as work:
+        got, runs = phase_protocol(torch, work)
+        launches.update(got)
+        launches.update(phase_dataset(torch, work, runs["auralnet"],
+                                      runner_metrics))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())

@@ -58,7 +58,10 @@ def test_port_never_imports_jax_or_the_jax_package(banned):
                        "models/auralnet.py", "utils/qvis.py",
                        "visualize_q.py", "data/speech.py",
                        "run_full_protocol.py", "protocol_eval.py",
-                       "eval_by_snr.py"}
+                       "eval_by_snr.py", "data/labels.py", "data/sphere.py",
+                       "generate_binaural_data.py", "precompute_h5.py",
+                       "h5_to_shard.py", "stream_demo.py",
+                       "archive_protocol_run.py"}
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p)
            if m == banned or m.startswith(banned + ".")]
@@ -239,6 +242,36 @@ def test_auralnet_and_protocol_entry_points_without_device_raise_when_no_cuda(
     for main in (profile_train.main, profile_serve.main):
         with pytest.raises(SystemExit, match="CUDA card"):
             main(["--model", "auralnet", "--batch", "2"])
+
+
+def test_dataset_and_demo_entry_points_without_device_raise_when_no_cuda(
+        monkeypatch, tmp_path):
+    """generate_binaural_data, precompute_h5 (both sources and both
+    builders) and stream_demo refuse to run without a card unless given
+    the CPU, before they write anything; with --device cpu they run."""
+    from biear_tpu_torch import (generate_binaural_data, precompute_h5,
+                                 stream_demo)
+
+    _no_cuda(monkeypatch)
+    out = str(tmp_path / "out")
+    wav = np.zeros((1, 16000), np.float32)
+    for call in (
+            lambda: generate_binaural_data.main(["--out-root", out,
+                                                 "--num", "1"]),
+            lambda: precompute_h5.main(["--synth", "1", "--out-active",
+                                        out + ".shard"]),
+            lambda: precompute_h5.build_active(wav, wav, wav[:, :56], 16000,
+                                               out + ".shard"),
+            lambda: precompute_h5.build_passive(wav, wav, wav[:, :56], 16000,
+                                                out + ".shard"),
+            lambda: stream_demo.main(["--json", out + ".json",
+                                      "--png", out + ".png"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert os.listdir(tmp_path) == []
+    y = generate_binaural_data.main(["--out-root", out, "--num", "1",
+                                     "--device", "cpu"])
+    assert y.shape == (1, 56) and len(os.listdir(out + "/anechoic_train")) == 2
 
 
 def test_streaming_state_lives_on_the_model_device():
@@ -737,6 +770,33 @@ def test_runner_trains_an_epoch_on_card(tmp_path):
     assert LAUNCHES["gather_windows"] >= 2 and LAUNCHES["cc_lags"] >= 2
     assert LAUNCHES["gather_mix_kb"] == 0
     assert next(out["model"].parameters()).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_split_and_shard_built_on_card(tmp_path):
+    """A 256-row anechoic split written on the card (one window gather and
+    one CC launch for its one batch), then its active ``.shard`` (one more
+    CC launch): 256 wav + npz pairs, and the shard's labels equal the
+    split's."""
+    _need_card()
+    from biear_tpu_torch import generate_binaural_data, precompute_h5
+    from biear_tpu_torch.data.shard import ShardDataset
+    from biear_tpu_torch.kernels import LAUNCHES
+
+    LAUNCHES.clear()
+    y = generate_binaural_data.main(["--out-root", str(tmp_path), "--name",
+                                     "s", "--num", "256", "--seed", "3"])
+    assert LAUNCHES["gather_windows"] == 1 and LAUNCHES["cc_lags"] == 1
+    assert LAUNCHES["gather_mix_kb"] == 0
+    assert len(os.listdir(tmp_path / "s")) == 512
+    shard = str(tmp_path / "s.shard")
+    LAUNCHES.clear()
+    precompute_h5.main(["--from-dir", str(tmp_path / "s"), "--out-active",
+                        shard])
+    assert LAUNCHES["cc_lags"] == 1 and LAUNCHES["gather_windows"] == 0
+    rows = ShardDataset(shard).rows(np.arange(256))
+    np.testing.assert_array_equal(rows[3], y)
+    assert all(np.isfinite(r).all() for r in rows)
 
 
 def _write_shard_splits(root, fs, n_bands, rows):
