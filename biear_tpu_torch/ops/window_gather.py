@@ -126,6 +126,16 @@ def gather_windows_plain(pool3: torch.Tensor, rows: torch.Tensor,
     return torch.gather(flat, 1, t).reshape(-1, WIN_BLOCKS, 128)
 
 
+def check_pool_aligned(pool3: torch.Tensor) -> None:
+    """Raise unless pool3's data starts on the 16-byte grid: the window
+    gather reads it in 16-byte aligned pieces, which a view off that grid
+    would break (its rows, n_blocks x 512 bytes, are always on it)."""
+    if pool3.data_ptr() % 16:
+        raise ValueError("window gather needs pool3 16-byte aligned, got a "
+                         "view at a storage offset of "
+                         f"{pool3.storage_offset()} elements")
+
+
 def gather_windows_cuda(pool3: torch.Tensor, rows: torch.Tensor,
                         offs: torch.Tensor) -> torch.Tensor:
     """Launch ``gather_windows.cu`` on the current stream -> (X, 128, 128)."""
@@ -141,6 +151,7 @@ def gather_windows_cuda(pool3: torch.Tensor, rows: torch.Tensor,
                         f"{pool3.dtype}")
     if not pool3.is_contiguous():
         raise ValueError("window gather needs a contiguous pool3")
+    check_pool_aligned(pool3)
     NP, nb, _ = pool3.shape
     X = rows.shape[0]
     rows = rows.to(torch.int32).contiguous()

@@ -17,10 +17,16 @@ Phases, each of which raises on failure (the exit code is then not 0):
      RUNNER_ROWS) and at ragged ones (CC: batch 1 and 3, n = 128 and
      16000, K = 1, 17 and 63; mix: one
      window, 1, 64, 65 and 128 frames, banks of 128, 256 and 512 rows and
-     of one measurement, indices out of range that must clamp), and timed
-     beside its plain version, one library call and the card's bound for
-     the same work. Two launches of the CC and of the mix kernel on the
-     same inputs must give the same bits.
+     of one measurement, indices out of range that must clamp; window
+     gather: every X the main paths launch it at, 3 to 1536, the shape of
+     tools/bench_win_kernel.py, X = 1 and indices past the clamps), and
+     timed beside its plain version, one library call and the card's
+     bound for the same work (the window gather at each X also per
+     launch in a CUDA graph, with its pool warm and cold in L2, and with
+     a fill and a copy of its output's bytes and the kernel on one pool
+     row as floors). Two launches of each kernel on the same inputs must
+     give the same bits; a pool view off the 16-byte grid must be refused
+     by the window gather.
   4. serve: the flagship dual-controller adaptive-Q model at full width,
      seeded random weights, through ``serve.infer.predict`` at batch 1, 64
      and 512 under the bf16 policy and at batch 64 under the f32 policy.
@@ -504,7 +510,8 @@ def phase_window_kernels(torch, synth):
     bf16 bank. The mix's plain version sums in f64, so its comparison
     is also the f64 check; the kernel is held to an f32 bmm too."""
     from biear_tpu_torch.device import no_tf32
-    from biear_tpu_torch.kernels.time_kernels import window_bytes
+    from biear_tpu_torch.kernels.time_kernels import (gather_windows_timing,
+                                                      window_bytes)
     from biear_tpu_torch.ops import window_gather as wg
 
     bank = synth.bank
@@ -548,11 +555,6 @@ def phase_window_kernels(torch, synth):
         errs["gather_windows"] = max(errs["gather_windows"], eg)
         if B != TRAIN_BATCH:
             continue
-        flat = pool3.reshape(pool3.shape[0], -1)
-        t = torch.arange(16384, device="cuda")
-        glib = lambda: flat[rows.long()[:, None], offs.long()[:, None] + t]
-        if not torch.equal(glib().reshape(g.shape), g):
-            raise RuntimeError("gather_windows: library gather differs")
         win_b = window_bytes(rows, offs, row_len)
         ncol = kb.shape[1]
         kb_b = 2.0 * ncol * 256 * int(torch.unique(meas).numel())
@@ -571,38 +573,36 @@ def phase_window_kernels(torch, synth):
                 library_ms=cuda_ms(lib),
                 **bound(win_b + kb_b + 12.0 * X + 4.0 * X * nf * 256,
                         2.0 * X * nf * ncol * 256, H100_BF16_FLOPS))
-        timing["gather_windows"] = dict(
-            ms=cuda_ms(lambda: wg.gather_windows_cuda(pool3, rows, offs)),
-            plain_ms=cuda_ms(lambda: wg.gather_windows_plain(pool3, rows,
-                                                             offs)),
-            library_ms=cuda_ms(glib),
-            **bound(win_b + 8.0 * X + 4.0 * X * 16384, 0.0, H100_F32_FLOPS))
-        log(f"window kernels at X={X}: {timing}")
+        log(f"mix kernel at X={X}: {timing}")
 
-    # the shape of tools/bench_win_kernel.py (kern_chunk, kern_aligned: the
-    # same gather): 1024 x 3 windows from a 256-row random pool
-    tgen = torch.Generator(device="cuda").manual_seed(6)
-    tpool = torch.randn((256, 133, 128), generator=tgen, device="cuda")
-    trows = torch.randint(0, 256, (3072,), generator=tgen, device="cuda")
-    toffs = torch.randint(0, 384, (3072,), generator=tgen, device="cuda")
-    tflat = tpool.reshape(256, -1)
-    t = torch.arange(16384, device="cuda")
-    g = wg.gather_windows_cuda(tpool, trows, toffs)
-    gp = wg.gather_windows_plain(tpool, trows, toffs)
-    errs["gather_windows"] = max(errs["gather_windows"],
-                                 float((g - gp).abs().max()))
-    if not torch.equal(g, gp):
-        raise RuntimeError("gather_windows at the tool's shape: not exact")
-    tool = dict(
-        ms=cuda_ms(lambda: wg.gather_windows_cuda(tpool, trows, toffs)),
-        plain_ms=cuda_ms(lambda: wg.gather_windows_plain(tpool, trows,
-                                                         toffs)),
-        library_ms=cuda_ms(lambda: tflat[trows[:, None],
-                                         toffs[:, None] + t]),
-        **bound(window_bytes(trows, toffs, 133 * 128) + 8.0 * 3072
-                + 4.0 * 3072 * 16384, 0.0, H100_F32_FLOPS))
-    log(f"gather_windows at tools/bench_win_kernel.py's shape (X=3072, "
-        f"256 rows): bit-exact; {tool}")
+    # every X the main paths launch the window gather at (the demo's 3, the
+    # runner's 192 / 63 / 66, the writer's 768, training's 1536) and the
+    # shape of tools/bench_win_kernel.py (kern_chunk, kern_aligned: the
+    # same gather, X = 3072), bit-exact at each and at the clamps and
+    # X = 1; the floors of the same bytes at X = 1536; a misaligned pool
+    # must be refused
+    shapes = gather_windows_timing(torch, wg, synth)
+    if not shapes["edges_and_X=1_bit_exact"]:
+        raise RuntimeError("gather_windows: not bit-exact at the clamps or "
+                           "at X = 1")
+    if not shapes["refuses_misaligned_pool"]:
+        raise RuntimeError("gather_windows launched on a pool3 view off the "
+                           "16-byte grid")
+    differ = [k for k, v in shapes.items()
+              if k.startswith("X=") and not v["same_bits"]]
+    if differ:
+        raise RuntimeError(f"gather_windows: two launches differ at {differ}")
+    # the kernel line's numbers at the training shape, as for the mix:
+    # `ms` through the wrapper with int32 indices; `graph_ms` and
+    # `cold_ms` per launch in a CUDA graph, the pool warm or cold in L2
+    timing["gather_windows"] = dict(
+        {k: v for k, v in shapes["X=1536"].items() if k != "same_bits"},
+        by_X={k: v for k, v in shapes.items() if k.startswith("X=")},
+        floors=shapes["floors X=1536"])
+    for k, v in timing["gather_windows"]["by_X"].items():
+        log(f"gather_windows {k}: bit-exact; {v}")
+    log(f"gather_windows: bit-exact at the clamps and X = 1, a misaligned "
+        f"pool refused; floors at X = 1536: {shapes['floors X=1536']}")
     return errs, timing
 
 

@@ -1,23 +1,32 @@
-"""The arithmetic of the two redesigned CUDA kernels, emulated on the CPU.
+"""The arithmetic and schedules of the redesigned CUDA kernels, emulated
+on the CPU.
 
 A CUDA kernel cannot run without a card, but the order in which it forms
-its sums can be written out in plain tensors. These tests hold
+its sums, and the order in which it moves its tiles, can be written out in
+plain tensors. These tests hold
 
   * the mix kernel's decomposition on the UNFRAMED window,
     ``out[f] = sum_k bf16(blk[f + k]) @ kb[128 k : 128 k + 128]`` in tiles
-    of 64 bank rows with f32 sums (``kernels/gather_mix_kb.cu``), and
+    of 64 bank rows with f32 sums (``kernels/gather_mix_kb.cu``),
   * the CC kernel's chunk-looped, fixed-order sum (``kernels/cc_lags.cu``:
     40 terms per lane and chunk, chunk sums added to a running total, a
-    fixed xor tree over the 32 lanes)
+    fixed xor tree over the 32 lanes), and
+  * the window gather's tile schedule (``kernels/gather_windows.cu``: the
+    grid-stride walk over 16 KB tiles, each thread's pieces, the aligned
+    spans and the shift)
 
-to the port's plain versions and to the JAX package (the XLA composition
-``_gather_mix_xla``; the Pallas CC kernel in interpret mode), with the
-kernels' own tolerances (mix atol 5e-5; CC rtol 2e-5 / atol 2e-4). Inputs
-come from numpy seeds. The ptxas report parser of ``kernels/build.py`` is
-tested on a recorded compiler log.
+to the port's plain versions and to the JAX package (the XLA compositions
+``_gather_mix_xla`` and ``_gather_windows_xla``; the Pallas CC and window
+kernels in interpret mode), with the kernels' own tolerances (mix atol
+5e-5; CC rtol 2e-5 / atol 2e-4; the gather bit for bit). Inputs come from
+numpy seeds. The ptxas report parser of ``kernels/build.py`` is tested on
+a recorded compiler log, and the port of ``tools/bench_win_kernel.py``'s
+ladder runs on the CPU at a small batch.
 """
 
+import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -183,6 +192,193 @@ def test_cc_lag_groups_cover_every_kept_lag_once():
         written = [S * g + j for g in range(4) for j in range(S + 1)
                    if (j < S or g == 3) and S * g + j < 2 * K + 1]
         assert written == list(range(2 * K + 1)), K
+
+
+# ---------------- the window gather's tile schedule ----------------
+
+def _cu_constants(name, *keys):
+    """The named `constexpr int` values of kernels/<name>.cu."""
+    src = open(os.path.join(build.KERNEL_DIR, f"{name}.cu")).read()
+    return [int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for k in keys]
+
+
+GW_WIN, GW_CHUNK, GW_THREADS, GW_BLOCKS_PER_SM = _cu_constants(
+    "gather_windows", "kWin", "kChunk", "kThreads", "kBlocksPerSm")
+H100_SMS = 132
+
+
+def window_gather_emulation(pool3, rows, offs,
+                            blocks_per_sm=GW_BLOCKS_PER_SM,
+                            sms=H100_SMS):
+    """What gather_windows.cu does, block by block: tiles of GW_CHUNK
+    samples (tile t = chunk t % 4 of window t / 4) walked with a grid
+    stride over min(tiles, blocks_per_sm * sms) blocks; thread i of
+    GW_THREADS takes 16-byte pieces i + GW_THREADS j of the tile (which
+    must be each piece once), loads that aligned piece of the tile's span
+    (first sample rounded down to a multiple of 4) and, when the tile's
+    start is not on that grid, the piece after it, and stores the 4
+    samples `shift` into the pair. Returns (out (X, 128, 128), writes per
+    output sample, the pool's flat [lo, hi) span each tile's loads read,
+    by window)."""
+    pool3, rows, offs = (np.asarray(a) for a in (pool3, rows, offs))
+    NP, nb, _ = pool3.shape
+    flat = pool3.reshape(-1)
+    X = rows.shape[0]
+    n_tiles = X * (GW_WIN // GW_CHUNK)
+    grid = min(n_tiles, blocks_per_sm * sms)
+    per_thread = GW_CHUNK // 4 // GW_THREADS
+    order = np.array([i + GW_THREADS * j for i in range(GW_THREADS)
+                      for j in range(per_thread)])
+    assert np.array_equal(np.sort(order), np.arange(GW_CHUNK // 4))
+    out = np.full(X * GW_WIN, np.nan, np.float32)
+    writes = np.zeros(X * GW_WIN, np.uint8)
+    reads = [[] for _ in range(X)]
+    for b in range(grid):
+        for t in range(b, n_tiles, grid):
+            x, c = divmod(t, GW_WIN // GW_CHUNK)
+            row = min(max(int(rows[x]), 0), NP - 1)
+            off = min(max(int(offs[x]), 0), nb * 128 - GW_WIN)
+            first = row * nb * 128 + off + c * GW_CHUNK
+            shift = first & 3
+            n = GW_CHUNK + (4 if shift else 0)
+            span = flat[first - shift:first - shift + n]
+            reads[x].append((first - shift, first - shift + n))
+            pieces = span[:GW_CHUNK].reshape(-1, 4)
+            after = span[4:].reshape(-1, 4) if shift else pieces
+            both = np.concatenate([pieces, after], axis=1)
+            tile = out[t * GW_CHUNK:(t + 1) * GW_CHUNK].reshape(-1, 4)
+            tile[order] = both[order, shift:shift + 4]
+            writes[t * GW_CHUNK:(t + 1) * GW_CHUNK] += 1
+    return out.reshape(X, 128, 128), writes, reads
+
+
+def _gather_pool(seed, NP):
+    rng = np.random.default_rng(seed)
+    pool = rng.standard_normal((NP, 16128)).astype(np.float32)
+    return rng, jwg.pad_pool_for_windows(pool, 255, 383)
+
+
+@pytest.mark.parametrize("case", ["X=1", "X=3", "X=192", "X=1536", "edges"])
+def test_window_gather_schedule_writes_each_sample_once(case):
+    """On the kernel's grid of kBlocksPerSm blocks per SM: every
+    output sample written once, every load read from inside its
+    window's clamped [row * row_len + off, + 16384) widened to the 16-byte
+    grid (which stays inside the row), the result bit-equal to the plain
+    version and to JAX (the Pallas kernel in interpret mode where its
+    lookahead block keeps it in range, the XLA composition at every
+    case)."""
+    rng, pool3 = _gather_pool(len(case), 7)
+    NP, nb, _ = pool3.shape
+    row_len = nb * 128
+    top = row_len - WIN
+    if case == "edges":          # rows and offsets at and past the clamps
+        rows = np.array([-5, 0, NP - 1, NP, NP + 40, 1, -1, 2], np.int32)
+        offs = np.array([0, -7, top, top + 1, 10 ** 6, top - 1, 3, 129],
+                        np.int32)
+    else:
+        X = int(case[2:])
+        rows = rng.integers(0, NP, X).astype(np.int32)
+        offs = rng.integers(0, top - 128 + 1, X).astype(np.int32)
+        offs[:min(X, 2)] = [top - 128, 1][:min(X, 2)]
+    got, writes, reads = window_gather_emulation(pool3, rows, offs)
+    assert writes.min() == writes.max() == 1
+    for x, spans in enumerate(reads):
+        r = min(max(int(rows[x]), 0), NP - 1)
+        o = min(max(int(offs[x]), 0), top)
+        lo, hi = r * row_len + o, r * row_len + o + WIN
+        lo4, hi4 = lo // 4 * 4, -(-hi // 4) * 4     # the 16-byte grid
+        assert all(lo4 <= a and b <= hi4 for a, b in spans)
+        assert r * row_len <= lo4 and hi4 <= (r + 1) * row_len
+        assert sum(b - a for a, b in spans) >= WIN and len(spans) == 4
+    plain = twg.gather_windows_plain(_t(pool3), _t(rows), _t(offs)).numpy()
+    np.testing.assert_array_equal(got, plain)
+    # JAX wraps a negative row or offset numpy-style; the port clamps it
+    # to 0 (test_mix_indices_below_their_range_clamp_to_the_first_entry)
+    jrows, joffs = (jnp.asarray(np.maximum(a, 0)) for a in (rows, offs))
+    np.testing.assert_array_equal(got, np.asarray(jwg._gather_windows_xla(
+        jnp.asarray(pool3), jrows, joffs)))
+    if case in ("X=1", "X=3", "X=192"):
+        np.testing.assert_array_equal(got, np.asarray(
+            jwg._gather_windows_pallas(jnp.asarray(pool3), jrows, joffs,
+                                       True)))
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 3, 8])
+def test_window_gather_schedule_holds_for_other_grids(blocks_per_sm):
+    """The grid-stride walk stays sound for other grids (other blocks per
+    SM, another card's SM count), with a ragged last lap."""
+    rng, pool3 = _gather_pool(3, 5)
+    rows = rng.integers(0, 5, 1001).astype(np.int32)
+    offs = rng.integers(0, 300, 1001).astype(np.int32)
+    got, writes, _ = window_gather_emulation(pool3, rows, offs,
+                                             blocks_per_sm, sms=7)
+    assert writes.min() == writes.max() == 1
+    np.testing.assert_array_equal(
+        got, twg.gather_windows_plain(_t(pool3), _t(rows), _t(offs)).numpy())
+
+
+def test_window_gather_refuses_a_misaligned_pool():
+    """The kernel reads the pool in 16-byte aligned pieces: a pool3 view
+    one float into its storage is refused, an aligned one passes."""
+    pool3 = torch.zeros(3 * 134 * 128 + 4)
+    twg.check_pool_aligned(pool3[4:4 + 3 * 134 * 128].view(3, 134, 128))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        twg.check_pool_aligned(pool3[1:1 + 3 * 134 * 128].view(3, 134, 128))
+
+
+# ---------------- the ladder of tools/bench_win_kernel.py ----------------
+
+def test_bench_win_kernel_ladder_on_the_cpu(capsys):
+    """The port of the tool's ladder at a small batch on the CPU: the
+    library and plain lines with times, the kernel's line saying that it
+    cannot run here (it takes CUDA tensors only), exit code 0; the inputs
+    are the JAX tool's numpy draws."""
+    from biear_tpu_torch import bench_win_kernel as bwk
+    assert bwk.main(["--batch", "4", "--pool", "8", "--steps", "2",
+                     "--windows", "2", "--device", "cpu"]) == 0
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [d["part"] for d in lines] == ["win:library", "win:plain",
+                                          "win:cuda"]
+    for d in lines[:2]:
+        assert d["X"] == 12 and d["ms"] > 0 and d["GBps"] > 0
+        assert d["device"] == "cpu"
+    assert "CUDA" in lines[2]["not_run"] and "error" not in lines[2]
+    pool, rows, offs = bwk.tool_pool(4, 8)
+    assert pool.shape == (8, 17024) and rows.shape == offs.shape == (12,)
+    assert offs.max() <= (16128 - 16000) + 255
+    rng = np.random.default_rng(0)
+    np.testing.assert_array_equal(pool, rng.standard_normal(
+        (8, 17024)).astype(np.float32))
+    np.testing.assert_array_equal(rows, rng.integers(0, 8, 12))
+    assert bwk.main(["--batch", "2", "--pool", "4", "--steps", "1",
+                     "--windows", "1", "--device", "cpu", "--only",
+                     "plain"]) == 0
+    assert [json.loads(s)["part"] for s in
+            capsys.readouterr().out.splitlines()] == ["win:plain"]
+
+
+def test_bench_win_kernel_exits_1_when_a_variant_is_wrong(monkeypatch,
+                                                         capsys):
+    """A variant that is not bit-exact prints its error, the others still
+    run, and the run exits with 1."""
+    from biear_tpu_torch import bench_win_kernel as bwk
+    monkeypatch.setattr(bwk, "gather_windows_plain",
+                        lambda p3, r, o: twg.gather_windows_plain(p3, r, o)
+                        + 1.0)
+    assert bwk.main(["--batch", "2", "--pool", "4", "--steps", "1",
+                     "--windows", "1", "--device", "cpu",
+                     "--only", "plain,library"]) == 1
+    lines = [json.loads(s) for s in capsys.readouterr().out.splitlines()]
+    assert [d["part"] for d in lines] == ["win:library", "win:plain"]
+    assert lines[0]["ms"] > 0 and "bit-exact" in lines[1]["error"]
+
+
+def test_bench_win_kernel_without_a_card_raises(monkeypatch):
+    from biear_tpu_torch import bench_win_kernel as bwk
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bwk.main(["--batch", "2", "--pool", "4"])
 
 
 # ---------------- the compiler's resource report ----------------

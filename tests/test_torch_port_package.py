@@ -540,6 +540,36 @@ def test_window_kernels_match_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_window_gather_clamps_and_refuses_a_misaligned_pool_on_card():
+    """gather_windows.cu bit-exact at rows and offsets past the clamps and
+    at X = 1, two launches equal; a pool3 view one float into its storage
+    (the kernel reads 16-byte aligned pieces) is refused, not launched."""
+    _need_card()
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.ops import window_gather as wg
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    NP, nb = 5, 134
+    pool3 = torch.randn((NP, nb, 128), generator=gen, device="cuda")
+    top = nb * 128 - wg.WIN
+    rows = torch.tensor([-5, 0, NP - 1, NP, NP + 40, 1, -1, 2],
+                        dtype=torch.int32, device="cuda")
+    offs = torch.tensor([0, -7, top, top + 1, 10 ** 6, top - 1, 3, 129],
+                        dtype=torch.int32, device="cuda")
+    LAUNCHES.clear()
+    for r, o in ((rows, offs), (rows[3:4], offs[3:4])):
+        got = wg.gather_windows(pool3, r, o)
+        assert torch.equal(got, wg.gather_windows_plain(pool3, r, o))
+        assert torch.equal(got, wg.gather_windows(pool3, r, o))
+    assert LAUNCHES["gather_windows"] == 4
+    moved = torch.empty(pool3.numel() + 4, device="cuda")
+    moved = moved[1:pool3.numel() + 1].view(pool3.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        wg.gather_windows(moved, rows, offs)
+    assert LAUNCHES["gather_windows"] == 4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("X,nf,ncol,M,wild", [
     (1, 1, 384, 1, False), (5, 64, 384, 4, False), (5, 65, 384, 4, False),
     (7, 61, 128, 1, False), (4, 125, 512, 3, False), (6, 128, 128, 2, False),
