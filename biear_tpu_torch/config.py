@@ -217,15 +217,36 @@ def make_exp_name(rc: RunConfig, run_id: str | None = None) -> tuple[str, str]:
     return "_".join(parts), run_id
 
 
-def make_run_dirs(rc: RunConfig, exp_name: str) -> dict:
-    """The run tree under RUNS_ROOT, created."""
+def make_run_dirs(rc: RunConfig, exp_name: str, create: bool = True) -> dict:
+    """The run tree under RUNS_ROOT, created unless `create` is false."""
     run_dir = os.path.join(rc.runs_root, exp_name)
     dirs = {"run": run_dir}
     for sub in ("tb", "checkpoints", "logs_json", "q_vis", "meta"):
         dirs[sub] = os.path.join(run_dir, sub)
-    for d in dirs.values():
-        os.makedirs(d, exist_ok=True)
+    if create:
+        for d in dirs.values():
+            os.makedirs(d, exist_ok=True)
     return dirs
+
+
+def mesh_shape(rc: RunConfig, world_size: int) -> tuple[int, int]:
+    """(data, model) of MESH_DATA x MESH_MODEL over WORLD_SIZE processes,
+    one per GPU; MESH_DATA -1 is WORLD_SIZE / MESH_MODEL. A mesh that does
+    not fill the world, or a BATCH_SIZE (the global batch) that the data
+    axis does not divide, raises. (JAX's single process shrinks its data
+    axis to gcd(BATCH_SIZE, devices); with one process per device there is
+    no counterpart, as JAX's runner raises for processes.)"""
+    model = rc.mesh_model
+    data = (world_size // max(model, 1) if rc.mesh_data == -1
+            else rc.mesh_data)
+    if model < 1 or data < 1 or data * model != world_size:
+        raise ValueError(f"MESH_DATA {rc.mesh_data} x MESH_MODEL {model} "
+                         f"does not fit WORLD_SIZE {world_size} (one process "
+                         "per GPU, launched by torchrun)")
+    if rc.batch_size % data:
+        raise ValueError(f"BATCH_SIZE {rc.batch_size} must divide evenly "
+                         f"over the {data} data ranks")
+    return data, model
 
 
 def settings_dict(rc: RunConfig, run_id: str, exp_name: str) -> dict:

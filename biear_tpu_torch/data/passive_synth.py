@@ -49,13 +49,15 @@ class PassiveFeatureSynth:
         return (x1, x2, x3, x4, x5, y) + tuple(batch[4:])
 
     def sample_batch(self, gen: torch.Generator, batch_size: int,
-                     n_src: int | None = None):
+                     n_src: int | None = None, rows=None):
+        """The inner synthesizer's batch (`rows` of it) as features."""
         with torch.no_grad():
-            return self.to_passive(self.inner.sample_batch(gen, batch_size,
-                                                           n_src=n_src))
+            return self.to_passive(self.inner.sample_batch(
+                gen, batch_size, n_src=n_src, rows=rows))
 
-    def batch_fn(self, batch_size: int, n_src: int | None = None):
+    def batch_fn(self, batch_size: int, n_src: int | None = None,
+                 rows=None):
         """gen -> passive batch closure for the fused train chunk: the same
         draws as sample_batch for the same generator state."""
         return functools.partial(self.sample_batch, batch_size=batch_size,
-                                 n_src=n_src)
+                                 n_src=n_src, rows=rows)

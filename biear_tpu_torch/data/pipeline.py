@@ -1,8 +1,9 @@
 """Host input pipeline: shuffled batches and a prefetcher to the device.
 
-Counterpart of ``biear_tpu/data/pipeline.py`` for one device.
-``batch_iterator`` is a copy (the same numpy permutation, so the same rows
-arrive in the same order and the same padding). ``Prefetcher`` builds the
+Counterpart of ``biear_tpu/data/pipeline.py``. ``batch_iterator`` is a
+copy of its ``pad_to_full=True`` mode (the same numpy permutation, so the
+same rows arrive in the same order and the same padding, and the same
+per-host slices of it). ``Prefetcher`` builds the
 next batches on a worker thread: each array goes into pinned host memory
 and is copied to the card with ``non_blocking`` on a side stream; an event
 recorded after the copies orders them before the consumer's use.
@@ -18,18 +19,26 @@ import torch
 
 
 def batch_iterator(ds, batch_size: int, *, shuffle: bool, seed: int = 0,
-                   epoch: int = 0):
+                   epoch: int = 0, host_id: int = 0, host_count: int = 1):
     """Tuples of numpy batches from a dataset with ``rows()`` / ``len()``,
     each with a float32 (batch_size,) weight vector appended (1 real, 0
     padding): the last partial batch is padded to batch_size by repeating
     its own rows, so the step sees one shape per run (the JAX package's
     ``pad_to_full=True``). shuffle permutes the rows with
-    ``default_rng(seed + epoch)``."""
+    ``default_rng(seed + epoch)``.
+
+    With host_count > 1, host host_id takes ``idx[host_id::host_count]``
+    of each epoch's global permutation, and every host yields the same
+    number of batches: a host whose share runs out first appends
+    all-padding batches (weights 0), because each step is a collective
+    that every host must join."""
     n = len(ds)
     idx = np.arange(n)
     if shuffle:
         idx = np.random.default_rng(seed + epoch).permutation(n)
-    for s in range(0, n, batch_size):
+    idx = idx[host_id::host_count]
+    emitted = 0
+    for s in range(0, len(idx), batch_size):
         sel = idx[s:s + batch_size]
         n_valid = len(sel)
         if n_valid < batch_size:
@@ -38,6 +47,16 @@ def batch_iterator(ds, batch_size: int, *, shuffle: bool, seed: int = 0,
         w = np.zeros(batch_size, np.float32)
         w[:n_valid] = 1.0
         yield (*ds.rows(sel), w)
+        emitted += 1
+    if host_count > 1 and n > 0:
+        # host 0 always holds the longest share: ceil(n / host_count)
+        global_batches = -(-(-(-n // host_count)) // batch_size)
+        while emitted < global_batches:
+            sel = np.broadcast_to(idx[:1] if len(idx)
+                                  else np.zeros(1, np.int64),
+                                  (batch_size,)).copy()
+            yield (*ds.rows(sel), np.zeros(batch_size, np.float32))
+            emitted += 1
 
 
 class Prefetcher:

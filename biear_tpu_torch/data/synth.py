@@ -32,7 +32,10 @@ the crop, the source sum and the peak normalisation follow. The mix
 policy does not apply there.
 
 Random draws come from an explicit ``torch.Generator`` on the
-synthesizer's device.
+synthesizer's device. ``rows=(start, stop)`` makes rows start..stop of a
+batch: every draw (scene and noise) is made for the whole batch, then
+only those rows are mixed, noised, correlated and labelled, so the rows
+of a batch do not depend on how a mesh splits it.
 """
 
 from __future__ import annotations
@@ -50,16 +53,25 @@ from ..ops.xcorr import cross_correlation_feature
 from .labels import DIST_CLASSES, N_DIST_CLASSES, N_SECTORS
 
 
-def add_diffuse_noise(gen: torch.Generator, y: torch.Tensor, snr_range):
+def row_slice(rows) -> slice:
+    """(start, stop) -> slice; None -> every row."""
+    return slice(None) if rows is None else slice(*rows)
+
+
+def add_diffuse_noise(gen: torch.Generator, y: torch.Tensor, snr_range,
+                      batch_size: int | None = None, rows=None):
     """Mix ear-uncorrelated Gaussian noise into y (B, 2, fs) at a
-    per-sample SNR ~ U[lo, hi] dB, then re-normalise the joint peak."""
+    per-sample SNR ~ U[lo, hi] dB, then re-normalise the joint peak. With
+    `rows`, y holds those rows of a batch of `batch_size`, whose draws are
+    all made."""
     lo, hi = snr_range
-    B = y.shape[0]
+    B = y.shape[0] if batch_size is None else batch_size
+    sl = row_slice(rows)
     snr_db = lo + (hi - lo) * torch.rand((B, 1, 1), generator=gen,
-                                         device=y.device)
+                                         device=y.device)[sl]
     sig_rms = torch.sqrt(torch.mean(y * y, dim=(1, 2), keepdim=True) + 1e-12)
-    noise = torch.randn(y.shape, generator=gen, device=y.device,
-                        dtype=y.dtype)
+    noise = torch.randn((B, *y.shape[1:]), generator=gen, device=y.device,
+                        dtype=y.dtype)[sl]
     y = y + noise * sig_rms * 10.0 ** (-snr_db / 20.0)
     peak = torch.clamp(y.abs().amax(dim=(1, 2), keepdim=True), min=1e-8)
     return y / peak
@@ -131,11 +143,13 @@ def host_meta(**draws) -> dict:
 
 
 def finish_batch(gen: torch.Generator, y_lr: torch.Tensor, noise_snr_db,
-                 fs: int, num_lags: int, y: torch.Tensor):
+                 fs: int, num_lags: int, y: torch.Tensor,
+                 batch_size: int | None = None, rows=None):
     """Mixed ears (B, 2, fs) and labels -> (wavL, wavR, x3, y): the
-    optional diffuse noise, then the CC feature."""
+    optional diffuse noise, then the CC feature (`rows` of a batch of
+    `batch_size` as in ``add_diffuse_noise``)."""
     if noise_snr_db is not None:
-        y_lr = add_diffuse_noise(gen, y_lr, noise_snr_db)
+        y_lr = add_diffuse_noise(gen, y_lr, noise_snr_db, batch_size, rows)
     wavL, wavR = y_lr[:, 0], y_lr[:, 1]
     x3 = cross_correlation_feature(wavL, wavR, fs, num_lags=num_lags)
     return wavL, wavR, x3, y
@@ -316,30 +330,35 @@ class AnechoicSynthesizer:
                              self.n_sectors)
 
     def assemble(self, gen: torch.Generator, batch_size: int,
-                 n_src_fixed: int = 0, with_meta: bool = False):
+                 n_src_fixed: int = 0, with_meta: bool = False, rows=None):
         """One batch (wavL, wavR, x3, y): scene -> mix -> optional noise ->
-        CC feature -> labels; with_meta appends the scene's meta dict
+        CC feature -> labels, of `rows` (start, stop) of the batch or all
+        of it; with_meta appends the scene's meta dict
         (``sample_batch_meta``)."""
-        active, sectors, meas, seg_idx, qoff, crop = self.scene_batched(
-            gen, batch_size, n_src_fixed)
+        sl = row_slice(rows)
+        active, sectors, meas, seg_idx, qoff, crop = (
+            t[sl] for t in self.scene_batched(gen, batch_size, n_src_fixed))
         mix = self.mix_fast if self.fast else self.mix_general
         y_lr = mix(active, meas, seg_idx, qoff, crop)
         out = finish_batch(gen, y_lr, self.noise_snr_db, self.fs,
                            self.num_lags,
-                           self.labels_batched(active, sectors, meas))
+                           self.labels_batched(active, sectors, meas),
+                           batch_size, rows)
         if not with_meta:
             return out
         return (*out, host_meta(meas=meas, sector_id=sectors,
                                 active=active))
 
     def sample_batch(self, gen: torch.Generator, batch_size: int,
-                     n_src: int | None = None):
+                     n_src: int | None = None, rows=None):
         """(wavL, wavR, x3, y) with shapes (B, fs) x2, (B, num_lags),
         (B, 56). n_src=None -> Uniform{1..max_sources} per sample; n_src=k
-        -> that many sources in every sample."""
+        -> that many sources in every sample. rows=(start, stop): those
+        rows of the batch only, from the whole batch's draws."""
         with torch.no_grad():
             return self.assemble(gen, batch_size,
-                                 0 if n_src is None else int(n_src))
+                                 0 if n_src is None else int(n_src),
+                                 rows=rows)
 
     def sample_batch_meta(self, gen: torch.Generator, batch_size: int,
                           n_src: int | None = None):
@@ -352,11 +371,12 @@ class AnechoicSynthesizer:
                                  0 if n_src is None else int(n_src),
                                  with_meta=True)
 
-    def batch_fn(self, batch_size: int, n_src: int | None = None):
+    def batch_fn(self, batch_size: int, n_src: int | None = None,
+                 rows=None):
         """gen -> batch closure for the fused train chunk: the same draws
         as sample_batch for the same generator state."""
         return functools.partial(self.sample_batch, batch_size=batch_size,
-                                 n_src=n_src)
+                                 n_src=n_src, rows=rows)
 
 
 # ---------------- fixtures for tests and benchmarks ----------------

@@ -35,7 +35,8 @@ import torch.nn.functional as F
 from ..device import no_tf32, resolve_device
 from .labels import DIST_CLASSES, N_DIST_CLASSES, N_SECTORS
 from .synth import (finish_batch, host_meta, next_pow2, normalise_peak,
-                    sector_labels, segment_offsets, slice_segments)
+                    row_slice, sector_labels, segment_offsets,
+                    slice_segments)
 
 # the room scenes' distance labelling: beyond 3 m a source is "other"
 OTHER_THRESH_M = 3.0
@@ -202,27 +203,32 @@ class ReverbSynthesizer:
                              self.onehot_idx[speakers])
 
     def assemble(self, gen: torch.Generator, batch_size: int,
-                 n_src_fixed: int = 0, with_meta: bool = False):
-        head, active, sectors, speakers, seg_idx, qoff = self.scene_batched(
-            gen, batch_size, n_src_fixed)
+                 n_src_fixed: int = 0, with_meta: bool = False, rows=None):
+        """One batch, or `rows` (start, stop) of it from the whole batch's
+        draws, as ``AnechoicSynthesizer.assemble``."""
+        sl = row_slice(rows)
+        head, active, sectors, speakers, seg_idx, qoff = (
+            t[sl] for t in self.scene_batched(gen, batch_size, n_src_fixed))
         y_lr = self.mix(head, active, speakers, seg_idx, qoff)
         out = finish_batch(gen, y_lr, self.noise_snr_db, self.fs,
                            self.num_lags,
                            self.labels_batched(head, active, sectors,
-                                               speakers))
+                                               speakers),
+                           batch_size, rows)
         if not with_meta:
             return out
         return (*out, host_meta(head_index=head, speaker_id=speakers,
                                 sector_id=sectors, active=active))
 
     def sample_batch(self, gen: torch.Generator, batch_size: int,
-                     n_src: int | None = None):
+                     n_src: int | None = None, rows=None):
         """(wavL, wavR, x3, y) with shapes (B, fs) x2, (B, num_lags),
-        (B, 56); n_src as in ``AnechoicSynthesizer.sample_batch`` (a head
-        with fewer occupied sectors gives fewer sources)."""
+        (B, 56); n_src and rows as in ``AnechoicSynthesizer.sample_batch``
+        (a head with fewer occupied sectors gives fewer sources)."""
         with torch.no_grad():
             return self.assemble(gen, batch_size,
-                                 0 if n_src is None else int(n_src))
+                                 0 if n_src is None else int(n_src),
+                                 rows=rows)
 
     def sample_batch_meta(self, gen: torch.Generator, batch_size: int,
                           n_src: int | None = None):
@@ -234,10 +240,11 @@ class ReverbSynthesizer:
                                  0 if n_src is None else int(n_src),
                                  with_meta=True)
 
-    def batch_fn(self, batch_size: int, n_src: int | None = None):
+    def batch_fn(self, batch_size: int, n_src: int | None = None,
+                 rows=None):
         """gen -> batch closure for the fused train chunk."""
         return functools.partial(self.sample_batch, batch_size=batch_size,
-                                 n_src=n_src)
+                                 n_src=n_src, rows=rows)
 
 
 def make_test_brir_bank(n_yaw: int = 24, ir_len: int = 1200, seed: int = 0,

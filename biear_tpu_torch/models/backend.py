@@ -12,6 +12,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
+from ..parallel.mesh import copy_to_model, gather_heads, reduce_from_model
 from .layers import GRU, dropout
 
 
@@ -49,6 +52,8 @@ def ipd_features(xL: torch.Tensor, xR: torch.Tensor) -> torch.Tensor:
 class Body(nn.Sequential):
     """Linear 512 -> 400 -> 200, each followed by ReLU and Dropout."""
 
+    mesh = None                   # set by shard_
+
     def __init__(self, feat_dim: int, rate: float):
         super().__init__(
             nn.Linear(feat_dim, 512), nn.ReLU(), nn.Dropout(rate),
@@ -56,11 +61,31 @@ class Body(nn.Sequential):
             nn.Linear(400, 200), nn.ReLU(), nn.Dropout(rate))
         self.rate = rate
 
+    @torch.no_grad()
+    def shard_(self, mesh) -> None:
+        """Keep this model rank's share of body.0's outputs and of body.3's
+        inputs."""
+        k = self[0].out_features // mesh.model
+        cut = slice(mesh.model_rank * k, (mesh.model_rank + 1) * k)
+        l0, l3 = self[0], self[3]
+        l0.weight = nn.Parameter(l0.weight[cut].clone())
+        l0.bias = nn.Parameter(l0.bias[cut].clone())
+        l3.weight = nn.Parameter(l3.weight[:, cut].clone())
+        l0.out_features = l3.in_features = k
+        self.mesh = mesh
+
     def forward(self, x: torch.Tensor, gen: torch.Generator | None = None,
                 train: bool = False) -> torch.Tensor:
-        for i in (0, 3, 6):
-            x = dropout(gen, torch.relu(self[i](x)), self.rate, not train)
-        return x
+        off = not train
+        if self.mesh is None:
+            for i in (0, 3, 6):
+                x = dropout(gen, torch.relu(self[i](x)), self.rate, off)
+            return x
+        h = self[0](copy_to_model(x, self.mesh))
+        h = dropout(gen, torch.relu(h), self.rate, off, sharded=True)
+        h = reduce_from_model(F.linear(h, self[3].weight), self.mesh)
+        h = dropout(gen, torch.relu(h + self[3].bias), self.rate, off)
+        return dropout(gen, torch.relu(self[6](h)), self.rate, off)
 
 
 def make_body(feat_dim: int, rate: float) -> Body:
@@ -87,8 +112,9 @@ class SubHead(nn.Module):
         self.rate = rate
 
     def forward(self, x: torch.Tensor, gen: torch.Generator | None = None,
-                train: bool = False):
-        h = dropout(gen, torch.relu(self.shared[0](x)), self.rate, not train)
+                train: bool = False, sharded: bool = False):
+        h = dropout(gen, torch.relu(self.shared[0](x)), self.rate, not train,
+                    sharded)
         return (self.sound(h)[..., 0], torch.sigmoid(self.aoa(h))[..., 0],
                 self.dist(h))
 
@@ -97,8 +123,29 @@ class SubHeads(nn.ModuleList):
     """The sector heads: (B, 200) -> sound logits (B, S), AoA in [0, 1]
     (B, S), distance logits (B, S, C)."""
 
+    mesh = None                   # set by shard_
+
+    def shard_(self, mesh) -> None:
+        """Keep this model rank's heads, under their usual indices."""
+        self.n_heads = len(self)
+        h = self.n_heads // mesh.model
+        self.first = mesh.model_rank * h
+        for k in range(self.n_heads):
+            if not self.first <= k < self.first + h:
+                del self._modules[str(k)]
+        self.mesh = mesh
+
     def forward(self, x: torch.Tensor, gen: torch.Generator | None = None,
                 train: bool = False):
-        sound, aoa, dist = zip(*(head(x, gen, train) for head in self))
-        return (torch.stack(sound, dim=-1), torch.stack(aoa, dim=-1),
-                torch.stack(dist, dim=1))
+        cut = self.mesh is not None
+        if cut:
+            x = copy_to_model(x, self.mesh)
+        sound, aoa, dist = zip(*(head(x, gen, train, cut) for head in self))
+        sound, aoa = torch.stack(sound, dim=-1), torch.stack(aoa, dim=-1)
+        dist = torch.stack(dist, dim=1)
+        if not cut:
+            return sound, aoa, dist
+        full = gather_heads(torch.cat([sound[..., None], aoa[..., None],
+                                       dist], dim=-1),
+                            self.first, self.n_heads, self.mesh)
+        return full[..., 0], full[..., 1], full[..., 2:]

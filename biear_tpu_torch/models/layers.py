@@ -7,7 +7,8 @@ the same functions with the same parameter names. ``GRU`` adds a one-step
 call for the Q-controller, whose input depends on the carried state.
 
 Dropout on the training path draws its masks from an explicit
-``torch.Generator`` (``dropout``, ``dropout_masks``, ``dropout_apply``);
+``torch.Generator``, or from a rank's ``RankGenerators`` under a mesh
+(``dropout``, ``dropout_masks``, ``dropout_apply``);
 the ``nn.Dropout`` modules in the model only keep the reference's module
 indices and are never called.
 """
@@ -62,10 +63,41 @@ def init_module_(module: nn.Module, gen: torch.Generator) -> None:
                 m.bias.zero_()
 
 
-def dropout_masks(gen: torch.Generator, rate: float, shape) -> torch.Tensor:
-    """Keep-masks (True = keep, probability 1 - rate) for dropout_apply,
-    drawn in one call from an explicit generator on its device."""
+class RankGenerators:
+    """The dropout streams of one rank of a data x model mesh.
+
+    `shared` is in the same state on every rank (it drew the synthesised
+    batch); `replicated` draws the masks of activations every model rank
+    holds whole, `sharded` those of activations cut over the model axis.
+    Every mask is also drawn from `shared`, so that it stays in step on
+    every rank; where the stream of the activation is `shared` itself,
+    that draw is the mask."""
+
+    def __init__(self, shared: torch.Generator, replicated: torch.Generator,
+                 sharded: torch.Generator):
+        self.shared = shared
+        self.replicated = replicated
+        self.sharded = sharded
+
+    def keep_masks(self, rate: float, shape, sharded: bool) -> torch.Tensor:
+        own = self.sharded if sharded else self.replicated
+        keep = _keep(self.shared, rate, shape)
+        return keep if own is self.shared else _keep(own, rate, shape)
+
+
+def _keep(gen: torch.Generator, rate: float, shape) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device=gen.device) < 1.0 - rate
+
+
+def dropout_masks(gen, rate: float, shape,
+                  sharded: bool = False) -> torch.Tensor:
+    """Keep-masks (True = keep, probability 1 - rate) for dropout_apply,
+    drawn in one call from an explicit generator on its device, or from a
+    rank's ``RankGenerators`` (`sharded`: the activation is cut over the
+    model axis)."""
+    if isinstance(gen, RankGenerators):
+        return gen.keep_masks(rate, shape, sharded)
+    return _keep(gen, rate, shape)
 
 
 def dropout_apply(mask: torch.Tensor, x: torch.Tensor,
@@ -74,11 +106,11 @@ def dropout_apply(mask: torch.Tensor, x: torch.Tensor,
     return torch.where(mask, x / (1.0 - rate), 0.0)
 
 
-def dropout(gen: torch.Generator | None, x: torch.Tensor, rate: float,
-            deterministic: bool) -> torch.Tensor:
+def dropout(gen, x: torch.Tensor, rate: float, deterministic: bool,
+            sharded: bool = False) -> torch.Tensor:
     """Inverted dropout with torch.nn.Dropout's semantics, but with masks
-    from `gen` rather than the global generator; the identity when
-    deterministic or rate <= 0."""
+    from `gen` (a generator or ``RankGenerators``) rather than the global
+    generator; the identity when deterministic or rate <= 0."""
     if deterministic or rate <= 0.0:
         return x
-    return dropout_apply(dropout_masks(gen, rate, x.shape), x, rate)
+    return dropout_apply(dropout_masks(gen, rate, x.shape, sharded), x, rate)

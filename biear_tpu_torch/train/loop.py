@@ -14,6 +14,15 @@ computed in the same step.
 The chunk runs ``chunk_steps`` iterations of synthesize -> step in a
 Python loop; each step's generator draws the synthesis first and the
 dropout second. TF32 is off for the whole step, forward and backward.
+
+Under a mesh (``parallel.mesh.Mesh``) each rank's loss and gradients are
+means over its rows; one flat all-reduce over the data group turns them
+into the global batch's weighted mean (``all_reduce_grads``), and ``ok``
+is taken on the reduced values, so every rank skips a nonfinite step
+together. With a model axis M > 1 the group norms (and so the clip), the
+finite flags and the histograms are those of the whole tensors: a cut
+tensor's squares and counts are summed over the model group, a
+replicated one counted once.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ from ..device import no_tf32
 from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.frontend import device_constants
+from ..parallel.mesh import Mesh, all_reduce_grads, layout_of
 from .losses import q_regularizers, sanitize_wav, sanitize_x3, task_loss
 from .optim import Adam, TrainHyper, is_frontend
 
@@ -52,50 +62,91 @@ def is_better_tuple(curr, best, eps: float = 1e-12) -> bool:
     return False
 
 
+METRICS = ("loss", "sound_acc", "aoa_mae", "dist_acc")
+
+
 def grad_hist_names(model, max_leaves: int) -> list:
-    """Parameter names in the row order of the train step's grad_hist."""
-    return [n for n, _ in model.named_parameters()][:max_leaves]
+    """Parameter names in the row order of the train step's grad_hist (the
+    whole model's, when it is cut over a model axis)."""
+    layout = layout_of(model)
+    names = (list(layout.entries) if layout is not None
+             else [n for n, _ in model.named_parameters()])
+    return names[:max_leaves]
 
 
 def _all_finite(tensors) -> torch.Tensor:
     return torch.stack([torch.isfinite(t).all() for t in tensors]).all()
 
 
-def group_norms(grads: dict) -> dict:
+def _counted(layout, name: str) -> bool:
+    """Whether this rank counts `name` in the model group's sums: every
+    leaf without a layout; with one, a cut tensor on every rank (its
+    piece) and a replicated one on model rank 0."""
+    return (layout is None or layout.entries[name][1] is not None
+            or layout.mesh.model_rank == 0)
+
+
+def group_norms(grads: dict, layout=None) -> dict:
     """Global gradient norms split frontend (bifb) / backend, their
-    absolute maxima and finite flags (0-dim tensors on the device)."""
-    dev = next(iter(grads.values())).device
-    zero = torch.zeros((), device=dev)
+    absolute maxima and finite flags (0-dim tensors on the device); with
+    the `layout` of a model cut over M > 1 model ranks, those of the
+    whole tensors (two all-reduces over the model group)."""
+    zero = torch.zeros((), device=next(iter(grads.values())).device)
+    sq, mx = [], []
+    for front in (True, False):
+        leaves = [(n, g) for n, g in grads.items() if is_frontend(n) == front]
+        sq.append(sum((torch.sum(g.float() ** 2) for n, g in leaves
+                       if _counted(layout, n)), zero))
+        mx.append(torch.stack([g.abs().max() for _, g in leaves]).max()
+                  if leaves else zero)
+        mx.append(zero if not leaves else
+                  1.0 - _all_finite([g for _, g in leaves]).float())
+    sq, mx = torch.stack(sq), torch.stack(mx)
+    if layout is not None:
+        sq, mx = layout.mesh.model_sum_(sq), layout.mesh.model_max_(mx)
     out = {}
-    for label, leaves in (
-            ("fb", [g for n, g in grads.items() if is_frontend(n)]),
-            ("backend", [g for n, g in grads.items() if not is_frontend(n)])):
-        if leaves:
-            norm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in leaves))
-            absmax = torch.stack([g.abs().max() for g in leaves]).max()
-            finite = _all_finite(leaves).float()
-        else:
-            norm, absmax, finite = zero, zero, torch.ones((), device=dev)
-        out[f"grad_{label}_norm"] = norm
-        out[f"grad_{label}_absmax"] = absmax
-        out[f"grad_{label}_finite"] = finite
+    for i, label in enumerate(("fb", "backend")):
+        out[f"grad_{label}_norm"] = torch.sqrt(sq[i])
+        out[f"grad_{label}_absmax"] = mx[2 * i]
+        out[f"grad_{label}_finite"] = 1.0 - mx[2 * i + 1]
     return out
 
 
-def grad_histograms(grads: list, max_leaves: int) -> torch.Tensor:
-    """(n_leaves, 18) float32 counts of |g| per decade bucket for the first
-    `max_leaves` gradients: bucket k counts edges[k-1] < |g| <= edges[k],
-    with the underflow bucket first and the overflow bucket last."""
-    rows = []
-    for g in grads[:max_leaves]:
-        a = g.abs().reshape(-1)
-        edges = torch.as_tensor(GRAD_HIST_EDGES, device=a.device)
-        gt = (a[None, :] > edges[:, None]).sum(dim=1).float()
-        n = torch.full((1,), float(a.numel()), device=a.device)
-        rows.append(torch.cat([n - gt[:1], gt[:-1] - gt[1:], gt[-1:]]))
-    if not rows:
+def _hist_row(g: torch.Tensor) -> torch.Tensor:
+    """(18,) counts of |g| per decade bucket: bucket k counts edges[k-1] <
+    |g| <= edges[k], the underflow bucket first, the overflow bucket
+    last."""
+    a = g.abs().reshape(-1)
+    edges = torch.as_tensor(GRAD_HIST_EDGES, device=a.device)
+    gt = (a[None, :] > edges[:, None]).sum(dim=1).float()
+    n = torch.full((1,), float(a.numel()), device=a.device)
+    return torch.cat([n - gt[:1], gt[:-1] - gt[1:], gt[-1:]])
+
+
+def grad_histograms(grads: dict, max_leaves: int,
+                    layout=None) -> torch.Tensor:
+    """(n_leaves, 18) float32 counts of |g| per decade bucket
+    (``_hist_row``) for the first `max_leaves` gradients (name ->
+    gradient); with the `layout` of a model cut over the model axis, those
+    of the whole tensors in ``grad_hist_names`` order: each rank's counts,
+    summed over the model group."""
+    names = list(grads if layout is None else layout.entries)[:max_leaves]
+    if not names:
         return torch.zeros((0, len(GRAD_HIST_EDGES) + 1))
-    return torch.stack(rows)
+    zero = torch.zeros(len(GRAD_HIST_EDGES) + 1,
+                       device=next(iter(grads.values())).device)
+    rows = torch.stack([_hist_row(grads[n])
+                        if n in grads and _counted(layout, n) else zero
+                        for n in names])
+    return rows if layout is None else layout.mesh.model_sum_(rows)
+
+
+def batch_weight(batch) -> torch.Tensor:
+    """W = the sum of a batch's row weights (its rows when it has none)."""
+    if len(batch) in (5, 7):
+        return batch[-1].float().sum()
+    return batch[0].new_full((), float(batch[0].shape[0]),
+                             dtype=torch.float32)
 
 
 def active_loss(model: ActiveBiEAR | AuralNet, hp: TrainHyper, batch,
@@ -138,12 +189,14 @@ def model_loss(model, hp: TrainHyper, batch, gen: torch.Generator | None):
 
 
 def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
-               gen: torch.Generator, lr_scale=1.0,
-               max_param_log: int = 200) -> dict:
+               gen, lr_scale=1.0, max_param_log: int = 200,
+               mesh: Mesh | None = None) -> dict:
     """One training step on `batch`, in place on the model's parameters
     and the optimizer's state. Returns the metrics as device tensors,
-    with "skipped" (1.0 when the update was masked out) and "grad_hist"
-    (rows in ``model.named_parameters()`` order)."""
+    with "skipped" (1.0 when the update was masked out), "weight" (the
+    batch's W, global under a mesh) and "grad_hist" (rows in
+    ``grad_hist_names`` order). Under a mesh the metrics are the global
+    batch's; `gen` is then the rank's generator or ``RankGenerators``."""
     model.train()
     names, params = zip(*model.named_parameters())
     with no_tf32():
@@ -151,21 +204,36 @@ def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    ok = torch.isfinite(loss) & _all_finite(grads)
+    weight = batch_weight(batch)
+    if mesh is not None:
+        grads, scalars, weight = all_reduce_grads(
+            mesh, grads, weight, [metrics[k] for k in METRICS])
+        metrics.update(zip(METRICS, scalars))
+        loss = metrics["loss"]
     named = dict(zip(names, grads))
-    optimizer.step(named, ok, lr_scale)
-    metrics.update(group_norms(named))
+    layout = layout_of(model)
+    norms = group_norms(named, layout)
+    # the whole gradient's flags: the model ranks' differ where it is cut
+    ok = (torch.isfinite(loss) & (norms["grad_fb_finite"] > 0)
+          & (norms["grad_backend_finite"] > 0))
+    # a cut model's clip norms are the whole gradient's; otherwise the
+    # optimizer takes them from `named`
+    optimizer.step(named, ok, lr_scale, norms=None if layout is None else {
+        "frontend": norms["grad_fb_norm"],
+        "backend": norms["grad_backend_norm"]})
+    metrics.update(norms)
     metrics["skipped"] = 1.0 - ok.float()
-    metrics["grad_hist"] = grad_histograms(grads, max_param_log)
+    metrics["weight"] = weight
+    metrics["grad_hist"] = grad_histograms(named, max_param_log, layout)
     return metrics
 
 
 def make_train_step(model: _Model, hp: TrainHyper, optimizer: Adam,
-                    max_param_log: int = 200):
+                    max_param_log: int = 200, mesh: Mesh | None = None):
     """(batch, gen, lr_scale) -> metrics, training `model` in place."""
-    def step(batch, gen: torch.Generator, lr_scale=1.0) -> dict:
+    def step(batch, gen, lr_scale=1.0) -> dict:
         return train_step(model, hp, optimizer, batch, gen, lr_scale,
-                          max_param_log)
+                          max_param_log, mesh)
     return step
 
 
@@ -181,19 +249,23 @@ def make_eval_step(model: _Model, hp: TrainHyper):
 
 def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
                      synth_batch_fn, chunk_steps: int,
-                     max_param_log: int = 200):
-    """Fused dispatch: (gen, lr_scale) -> metrics stacked over
-    `chunk_steps` (synthesize -> train step) iterations. synth_batch_fn is
-    gen -> batch (``AnechoicSynthesizer.batch_fn``, ``ReverbSynthesizer``'s
-    or ``PassiveFeatureSynth``'s for the passive model); per step the
-    generator draws the synthesis first, then the dropout. (fb_vjp "auto"
-    is "custom" at every batch, which the JAX chunk forces.)"""
-    def run_chunk(gen: torch.Generator, lr_scale=1.0) -> dict:
+                     max_param_log: int = 200, mesh: Mesh | None = None):
+    """Fused dispatch: (gen, lr_scale, dropout_gen) -> metrics stacked
+    over `chunk_steps` (synthesize -> train step) iterations.
+    synth_batch_fn is gen -> batch (``AnechoicSynthesizer.batch_fn``,
+    ``ReverbSynthesizer``'s or ``PassiveFeatureSynth``'s for the passive
+    model; under a mesh, of this rank's rows); per step the generator
+    draws the synthesis first, then the dropout, from `dropout_gen` when
+    given (a rank's ``RankGenerators`` over `gen`). (fb_vjp "auto" is
+    "custom" at every batch, which the JAX chunk forces.)"""
+    def run_chunk(gen: torch.Generator, lr_scale=1.0,
+                  dropout_gen=None) -> dict:
         ms = []
         for _ in range(chunk_steps):
             batch = synth_batch_fn(gen)
-            ms.append(train_step(model, hp, optimizer, batch, gen, lr_scale,
-                                 max_param_log))
+            ms.append(train_step(model, hp, optimizer, batch,
+                                 gen if dropout_gen is None else dropout_gen,
+                                 lr_scale, max_param_log, mesh))
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     return run_chunk

@@ -9,6 +9,10 @@ runs, in this order: clip by the group's global norm -> add ``wd * p``
 weight_decay) -> Adam (b1 0.9, b2 0.999, eps 1e-7, bias-corrected) ->
 ``-lr`` -> the plateau scale.
 
+The moments of a parameter cut over a model axis live with its piece on
+each rank; the group's clip norm is then the whole gradient's, passed in
+by the train step.
+
 Written by hand on tensor lists, not torch.optim.Adam: the step takes a
 device-side ``ok`` flag and, when it is false (a nonfinite loss or
 gradient), leaves the parameters, both moments and the step count exactly
@@ -115,17 +119,22 @@ class Adam:
             g.count.copy_(torch.as_tensor(st["count"], dtype=torch.int32))
 
     @torch.no_grad()
-    def step(self, grads: dict, ok: torch.Tensor, lr_scale=1.0) -> None:
+    def step(self, grads: dict, ok: torch.Tensor, lr_scale=1.0,
+             norms: dict | None = None) -> None:
         """One update from `grads` (name -> gradient) where `ok` (a bool
-        tensor) is true; where it is false nothing changes."""
+        tensor) is true; where it is false nothing changes. `norms` gives
+        each group's clip norm by label (the whole gradient's, for a model
+        cut over a model axis); by default it is the norm of `grads`."""
         for g in self.groups:
             if not g.frozen and g.params:
-                self._update(g, [grads[n] for n in g.names], ok, lr_scale)
+                self._update(g, [grads[n] for n in g.names], ok, lr_scale,
+                             None if norms is None else norms[g.label])
 
     def _update(self, g: ParamGroup, grads: list, ok: torch.Tensor,
-                lr_scale) -> None:
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads)))
+                lr_scale, norm=None) -> None:
+        if norm is None:
+            norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm(grads)))
         factor = torch.where(norm < g.clip, 1.0, g.clip / norm)
         u = torch._foreach_mul(grads, factor)
         torch._foreach_add_(u, g.params, alpha=self.weight_decay)

@@ -25,6 +25,19 @@ after epoch e equals an uninterrupted one at a fixed SYNTH_CHUNK_STEPS;
 the dataset path draws its dropout from a generator seeded with `seed`
 at each call of ``train``, as the JAX runner re-seeds its key. torch's
 streams are not JAX's: the two runners draw different batches and masks.
+
+Across processes (``torchrun``, one per GPU, the process group joined by
+``parallel.mesh.init_distributed``) the run is one job over a
+MESH_DATA x MESH_MODEL mesh: BATCH_SIZE stays the global batch and each
+data rank makes or reads its 1 / MESH_DATA of every batch (its rows of
+each synthesised batch, drawn whole on every rank; its host slice of each
+dataset epoch); the train step reduces the gradients; the evaluation
+sums are added over the data ranks once per epoch. Rank 0 alone writes
+the run tree (settings, logs, history, checkpoints, test metrics); the
+others meet it at the checkpoints' gathers and before the test pass.
+Data rank 0 draws its dropout as one process does; data rank d from a
+generator keyed (..., d), and activations cut over the model axis from
+one keyed (..., d, model rank). The Q plots are drawn in a world of one.
 """
 
 from __future__ import annotations
@@ -33,18 +46,22 @@ import json
 import math
 import os
 import time
+from datetime import datetime
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import (RunConfig, check_matmul_precision, data_paths,
-                      is_passive, make_exp_name, make_run_dirs,
+                      is_passive, make_exp_name, make_run_dirs, mesh_shape,
                       settings_dict)
 from ..data.pipeline import Prefetcher, batch_iterator
 from ..device import resolve_device
 from ..models.auralnet import build_auralnet
 from ..models.biear import build_active, build_passive
-from ..utils.logging import MetricLogger
+from ..models.layers import RankGenerators
+from ..parallel.mesh import Mesh, shard_model
+from ..utils.logging import MetricLogger, NullLogger
 from ..utils.qvis import visualize_Q_LR
 from . import state as ckpt
 from .loop import (GRAD_HIST_EDGES, grad_hist_names, is_better_tuple,
@@ -62,13 +79,30 @@ def keyed_generator(device, *key: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s >> 1)
 
 
-def check_supported(rc: RunConfig) -> None:
-    """Refuse what the port does not run."""
-    if rc.mesh_model != 1 or rc.mesh_data not in (-1, 1):
-        raise NotImplementedError(
-            f"MESH_DATA={rc.mesh_data}, MESH_MODEL={rc.mesh_model}: the port "
-            "trains on one device; multi-GPU is ROADMAP.md Queue 2 item 10")
+def dropout_streams(mesh: Mesh | None, shared: torch.Generator, device,
+                    *key: int) -> RankGenerators | None:
+    """This rank's dropout streams over the generator `shared`: None (draw
+    from `shared`) on rank 0 and without a mesh; otherwise data rank d's
+    replicated activations draw from a generator keyed (key..., d), or
+    from `shared` on data rank 0, and activations cut over the model axis
+    from one keyed (key..., d, model rank)."""
+    if mesh is None or mesh.rank == 0:
+        return None
+    d = mesh.data_rank
+    rep = shared if d == 0 else keyed_generator(device, *key, d)
+    cut = (rep if mesh.model == 1
+           else keyed_generator(device, *key, d, mesh.model_rank))
+    return RankGenerators(shared, rep, cut)
+
+
+def check_supported(rc: RunConfig) -> tuple:
+    """Refuse what the port does not run: a mesh that does not fit the
+    process group's world (one process without a group is a world of
+    one), a reduced matmul precision. Returns the mesh's (data, model)."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    shape = mesh_shape(rc, world)
     check_matmul_precision(rc.matmul_precision)
+    return shape
 
 
 def open_datasets(rc: RunConfig) -> dict:
@@ -92,11 +126,13 @@ class SynthEvalDataset:
     default 2048) is spilled to pinned host memory batch by batch and
     copied back per epoch; keep_on_device=True/False forces either.
     test_thirds makes the split 1/3 one source, 1/3 two, 1/3 three, no
-    batch straddling a third."""
+    batch straddling a third. Under a mesh every batch is drawn whole and
+    this data rank keeps its share of its rows (``Mesh.rows``)."""
 
     def __init__(self, synth, n: int, seed: int, batch_size: int,
                  test_thirds: bool = False,
-                 keep_on_device: bool | None = None):
+                 keep_on_device: bool | None = None,
+                 mesh: Mesh | None = None):
         self.budget_mb = int(os.environ.get("SYNTH_EVAL_HBM_BUDGET_MB", 2048))
         self.device = synth.device
         if keep_on_device is None:
@@ -125,11 +161,16 @@ class SynthEvalDataset:
                 boundary = (third if made < third
                             else 2 * third if made < 2 * third else n)
                 take = min(take, boundary - made)
-            b = synth.sample_batch(gen, take, n_src=ns)
+            a, z = (0, take) if mesh is None else mesh.rows(take)
+            # a rank with no rows of this batch still makes its draws
+            b = synth.sample_batch(gen, take, n_src=ns,
+                                   rows=(a, z) if z > a else (0, 1))
+            made += take
+            if z == a:
+                continue
             if not keep_on_device:
                 b = tuple(t.cpu().pin_memory() if pin else t.cpu() for t in b)
             self._batches.append(b)
-            made += take
         self.length = made
 
     def __len__(self) -> int:
@@ -158,16 +199,25 @@ def _accumulate(sums: dict, metrics: dict, bs) -> dict:
     return sums
 
 
-def _finalize(sums: dict) -> dict:
-    """Per-row means of the sums: one host read for the whole epoch."""
+def _finalize(sums: dict, mesh: Mesh | None = None) -> dict:
+    """Per-row means of the sums: one host read for the whole epoch. With
+    a mesh the data ranks' sums are added first (every rank joins, also
+    one that saw no batch)."""
+    keys = [*METRICS, "skipped", "_n"]
+    if mesh is not None:
+        zero = torch.zeros((), device=mesh.device)
+        vec = torch.stack([sums.get(k, zero) for k in keys]
+                          + [zero + bool(sums)])
+        vals = mesh.data_sum_(vec).tolist()
+        sums = dict(zip(keys, vals)) if vals[-1] else {}
+    elif sums:
+        sums = dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
     if not sums:
         return {"loss": float("nan"), "sound_acc": 0.0,
                 "aoa_mae": float("nan"), "dist_acc": 0.0, "skipped": 0}
-    keys = list(sums)
-    vals = dict(zip(keys, torch.stack([sums[k] for k in keys]).tolist()))
-    n = max(vals.pop("_n"), 1.0)
-    skipped = int(vals.pop("skipped"))
-    out = {k: v / n for k, v in vals.items()}
+    n = max(sums.pop("_n"), 1.0)
+    skipped = int(sums.pop("skipped"))
+    out = {k: v / n for k, v in sums.items()}
     out["skipped"] = skipped
     return out
 
@@ -199,6 +249,13 @@ def q_plots(model, test, save_dir: str, batch_size: int, say) -> None:
         say(f"[Q-vis] skipped: {e}")
 
 
+def shared_run_id(mesh: Mesh) -> str:
+    """Rank 0's timestamp run id (``make_exp_name``'s format) on every
+    rank."""
+    stamp = mesh.from_main(int(datetime.now().strftime("%Y%m%d%H%M%S")))
+    return f"{stamp // 10**6}-{stamp % 10**6:06d}"
+
+
 def _sync(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -220,11 +277,17 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
 
     Returns {"run_dir", "exp_name", "history", "test", "best_tuple",
     "global_step", "model" and "optimizer" (in the state that ``last``
-    holds), "timings" (host seconds of the eval splits' materialisation
-    and of each checkpoint write)}."""
-    say = (lambda *a: None) if quiet else print
+    holds; this rank's pieces under a model axis), "timings" (host seconds
+    of the eval splits' materialisation and of each checkpoint write)}.
+
+    In a process group (``parallel.mesh.init_distributed``) every rank
+    calls it with the same arguments and `device` its own; the histories
+    it returns are the same on every rank."""
     device = resolve_device(device)
-    check_supported(rc)
+    n_data, n_model = check_supported(rc)
+    mesh = Mesh(n_data, n_model, device) if dist.is_initialized() else None
+    is_main = mesh is None or mesh.is_main
+    say = print if is_main and not quiet else (lambda *a: None)
     synthesising = synth is not None and rc.synth_on_device
     if synthesising and synth.device != device:
         raise ValueError(f"the synthesizer lives on {synth.device}, the run "
@@ -235,28 +298,44 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
         rc.runs_root = os.path.dirname(os.path.normpath(resume_from)) or "."
         run_id = run_id or "resume"
     else:
+        if run_id is None and mesh is not None:
+            run_id = shared_run_id(mesh)
         exp_name, run_id = make_exp_name(rc, run_id)
-    dirs = make_run_dirs(rc, exp_name)
-    with open(os.path.join(dirs["meta"], "settings.json"), "w") as f:
-        json.dump(settings_dict(rc, run_id, exp_name), f, indent=2)
-    logger = MetricLogger(dirs["logs_json"], dirs["tb"])
+    dirs = make_run_dirs(rc, exp_name, create=is_main)
+    if is_main:
+        with open(os.path.join(dirs["meta"], "settings.json"), "w") as f:
+            json.dump(settings_dict(rc, run_id, exp_name), f, indent=2)
+        logger = MetricLogger(dirs["logs_json"], dirs["tb"])
+    else:
+        logger = NullLogger()
     say(f"[Run dir] {dirs['run']}")
     say(f"[Device] {device}")
+    say(f"[Mesh] {{'data': {n_data}, 'model': {n_model}}} over "
+        f"{n_data * n_model} device(s)")
+    # BATCH_SIZE is the global batch; each data rank makes or reads its rows
+    local_bs = rc.batch_size // n_data
+    rows = None if mesh is None else mesh.rows(rc.batch_size)
+    host = {} if mesh is None else {"host_id": mesh.data_rank,
+                                    "host_count": n_data}
 
     passive = is_passive(rc)
     build = (build_passive if passive else
              build_auralnet if rc.model_kind == "auralnet" else build_active)
     model = build(rc.model_cfg, seed=seed, device=device)
+    if mesh is not None:
+        mesh.broadcast_module_(model)
+        shard_model(model, mesh)
     optimizer = make_optimizer(
         model, rc.hyper, freeze_controller=(
             not passive and rc.freeze_q_controller_only
             and not rc.fixed_frontend_q))
     train_step = make_train_step(model, rc.hyper, optimizer,
-                                 rc.max_param_log)
+                                 rc.max_param_log, mesh)
     eval_step = make_eval_step(model, rc.hyper)
     hist_names = grad_hist_names(model, rc.max_param_log)
     sched = PlateauScheduler(factor=0.5, patience=10)
     step_gen = torch.Generator(device=device).manual_seed(seed)
+    step_drop = dropout_streams(mesh, step_gen, device, seed) or step_gen
     timings = {"eval_splits_s": None, "checkpoint_s": []}
 
     chunk_runners = {}
@@ -264,8 +343,9 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
     def get_chunk_runner(chunk: int):
         if chunk not in chunk_runners:
             chunk_runners[chunk] = make_train_chunk(
-                model, rc.hyper, optimizer, synth.batch_fn(rc.batch_size),
-                chunk, rc.max_param_log)
+                model, rc.hyper, optimizer,
+                synth.batch_fn(rc.batch_size, rows=rows), chunk,
+                rc.max_param_log, mesh)
         return chunk_runners[chunk]
 
     def save(name: str, with_optimizer: bool, meta: dict):
@@ -284,10 +364,11 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
             t0 = time.perf_counter()
             datasets = {
                 "val": SynthEvalDataset(synth, n_eval, seed + 101,
-                                        rc.batch_size, keep_on_device=on_dev),
+                                        rc.batch_size, keep_on_device=on_dev,
+                                        mesh=mesh),
                 "test": SynthEvalDataset(synth, n_eval, seed + 202,
                                          rc.batch_size, test_thirds=True,
-                                         keep_on_device=on_dev),
+                                         keep_on_device=on_dev, mesh=mesh),
             }
             _sync(device)
             timings["eval_splits_s"] = time.perf_counter() - t0
@@ -300,11 +381,11 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
     # ---- sanity batch ----
     if synthesising:
         sb = synth.sample_batch(torch.Generator(device=device).manual_seed(0),
-                                rc.batch_size)
+                                rc.batch_size, rows=rows)
     else:
         sb = tuple(torch.as_tensor(a, device=device) for a in next(
-            batch_iterator(datasets["train"], rc.batch_size,
-                           shuffle=False)))
+            batch_iterator(datasets["train"], local_bs, shuffle=False,
+                           **host)))
     first = float(eval_step(sb)["loss"])
     if not math.isfinite(first):
         raise RuntimeError(f"[Sanity] nonfinite loss on the first batch: "
@@ -352,8 +433,9 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
                 history = json.load(f)
         say(f"[Resume] from epoch {start_epoch - 1}, lr_scale={lr_scale}")
 
-    def log_split(name, epoch, sums, t0):
-        out = _finalize(sums)
+    def log_split(name, epoch, sums, t0, training):
+        # a training step's metrics are already the global batch's
+        out = _finalize(sums, None if training else mesh)
         out["sec"] = time.time() - t0
         logger.scalars(name, {k: v for k, v in out.items() if k != "sec"},
                        epoch)
@@ -372,9 +454,10 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
         while done < steps:
             c = min(chunk, steps - done)
             gen = keyed_generator(device, seed, epoch, chunk_idx)
+            drop = dropout_streams(mesh, gen, device, seed, epoch, chunk_idx)
             chunk_idx += 1
             gs_before = global_step
-            ms = get_chunk_runner(c)(gen, lr_scale)
+            ms = get_chunk_runner(c)(gen, lr_scale, drop)
             _accumulate(sums, ms, rc.batch_size)
             done += c
             global_step += c
@@ -403,7 +486,7 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
                     f" | sound_acc={sc['sound_acc'][row]:.3f}"
                     f" | aoa_mae={sc['aoa_mae'][row]:.3f}"
                     f" | dist_acc={sc['dist_acc'][row]:.3f}")
-        return log_split(name, epoch, sums, t0)
+        return log_split(name, epoch, sums, t0, True)
 
     def run_split(name, epoch, training):
         nonlocal global_step
@@ -421,20 +504,20 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
             # the last partial batch is padded with weight-0 rows
             padded = True
             it = Prefetcher(batch_iterator(
-                datasets[name], rc.batch_size, shuffle=training, seed=seed,
-                epoch=epoch), device)
+                datasets[name], local_bs, shuffle=training, seed=seed,
+                epoch=epoch, **host), device)
         t0 = time.time()
         try:
             for i, batch in enumerate(it):
                 if (max_steps_per_epoch is not None
                         and i >= max_steps_per_epoch):
                     break
-                # real rows only: padding rows carry weight 0
-                bs = batch[-1].sum() if padded else batch[0].shape[0]
                 if not training:
+                    # real rows only: padding rows carry weight 0
+                    bs = batch[-1].sum() if padded else batch[0].shape[0]
                     _accumulate(sums, eval_step(batch), bs)
                     continue
-                m = train_step(batch, step_gen, lr_scale)
+                m = train_step(batch, step_drop, lr_scale)
                 if global_step % rc.hist_every == 0:
                     logger.scalars("train_step", {k: m[k] for k in
                                                   STEP_SCALARS}, global_step)
@@ -449,12 +532,12 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
                         f" | aoa_mae={float(m['aoa_mae']):.3f}"
                         f" | dist_acc={float(m['dist_acc']):.3f}")
                 global_step += 1
-                _accumulate(sums, m, bs)
+                _accumulate(sums, m, m["weight"])
         finally:
             # stopping early must release the prefetch worker
             if hasattr(it, "close"):
                 it.close()
-        return log_split(name, epoch, sums, t0)
+        return log_split(name, epoch, sums, t0, training)
 
     def last_meta(epoch):
         return {"epoch": epoch, "lr_scale": lr_scale,
@@ -464,8 +547,10 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
                           "scale": sched.scale}}
 
     def write_history():
-        with open(os.path.join(dirs["logs_json"], "history.json"), "w") as f:
-            json.dump(history, f, indent=2)
+        if is_main:
+            with open(os.path.join(dirs["logs_json"], "history.json"),
+                      "w") as f:
+                json.dump(history, f, indent=2)
 
     for e in range(start_epoch, rc.epochs + 1):
         tr = run_split("train", e, True)
@@ -497,15 +582,20 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
     te = None
     if "test" in datasets:
         trained = {k: v.clone() for k, v in model.state_dict().items()}
+        if mesh is not None:
+            mesh.barrier()             # rank 0 has written 'best'
         best_dir = os.path.join(dirs["checkpoints"], "best")
         if os.path.isdir(best_dir):
             ckpt.load_checkpoint(best_dir, model)
         te = run_split("test", 0, False)
-        with open(os.path.join(dirs["logs_json"], "test_metrics.json"),
-                  "w") as f:
-            json.dump(te, f, indent=2)
+        if is_main:
+            with open(os.path.join(dirs["logs_json"], "test_metrics.json"),
+                      "w") as f:
+                json.dump(te, f, indent=2)
         say(f"Test metrics: {te}")
-        if rc.active and rc.model_kind == "active":
+        # the plots' forward passes would be collectives of one rank
+        if (mesh is None or mesh.world == 1) and rc.active \
+                and rc.model_kind == "active":
             q_plots(model, datasets["test"], dirs["q_vis"], rc.batch_size,
                     say)
         with torch.no_grad():

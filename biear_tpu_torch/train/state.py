@@ -11,6 +11,12 @@ A checkpoint is a directory {params.pth, opt_state.pt, meta.json}:
   * ``meta.json``: the runner's epoch, LR scale, step count, best tuple
     and plateau state.
 
+Under a process group every rank calls ``save_checkpoint`` (a model cut
+over a model axis gathers its pieces, a collective of its model group)
+and rank 0 alone writes; ``load_checkpoint`` reads the whole tensors and
+gives each rank its pieces, so a checkpoint of one mesh restores on any
+other, or on one device.
+
 ``adam_state_from_optax`` turns the JAX runner's optax state (restored
 from its orbax checkpoint, leaves already numpy) into ``opt_state.pt``'s
 layout, so that a JAX run resumes in the port; the conversion of the
@@ -26,17 +32,27 @@ import torch
 
 from ..models.config import BiEARConfig
 from ..models.weights import state_dict_from_jax
+from ..parallel.mesh import (full_optimizer_state, full_state_dict, is_main,
+                             layout_of, load_full_optimizer_state,
+                             load_full_state_dict)
 
 
 def save_checkpoint(path: str, model, optimizer=None,
                     meta: dict | None = None) -> None:
-    """Write the checkpoint directory `path` (created; files replaced)."""
+    """Write the checkpoint directory `path` (created; files replaced)
+    with the whole tensors; under a process group every rank calls it and
+    rank 0 writes."""
+    if layout_of(model) is None and not is_main():
+        return
+    params = full_state_dict(model)
+    opt = None if optimizer is None else full_optimizer_state(optimizer,
+                                                              model)
+    if not is_main():
+        return
     os.makedirs(path, exist_ok=True)
-    params = {k: v.detach().to("cpu", copy=True)
-              for k, v in model.state_dict().items()}
     torch.save(params, os.path.join(path, "params.pth"))
-    if optimizer is not None:
-        torch.save(optimizer.state_dict(), os.path.join(path, "opt_state.pt"))
+    if opt is not None:
+        torch.save(opt, os.path.join(path, "opt_state.pt"))
     if meta is not None:
         with open(os.path.join(path, "meta.json"), "w") as f:
             json.dump(meta, f, indent=2)
@@ -44,15 +60,15 @@ def save_checkpoint(path: str, model, optimizer=None,
 
 def load_checkpoint(path: str, model, optimizer=None) -> dict | None:
     """Restore the model (strict) and, when given and saved, the optimizer
-    in place on the model's device; returns meta.json's dict or None."""
+    in place on the model's device, each rank taking its pieces; returns
+    meta.json's dict or None."""
     sd = torch.load(os.path.join(path, "params.pth"), map_location="cpu",
                     weights_only=True)
-    with torch.no_grad():
-        model.load_state_dict(sd, strict=True)
+    load_full_state_dict(model, sd)
     opt_path = os.path.join(path, "opt_state.pt")
     if optimizer is not None and os.path.exists(opt_path):
-        optimizer.load_state_dict(torch.load(opt_path, map_location="cpu",
-                                             weights_only=True))
+        load_full_optimizer_state(optimizer, model, torch.load(
+            opt_path, map_location="cpu", weights_only=True))
     mp = os.path.join(path, "meta.json")
     if not os.path.exists(mp):
         return None

@@ -12,6 +12,16 @@ synthesises the training data on the device (SOFA_FILE, SEGMENT_POOL,
 SCENE: anechoic, auditorium or spirit; the passive family's features are
 computed from the synthesised waveforms). It runs on the card unless
 ``--device cpu`` is given.
+
+Over N GPUs of one machine, one process per GPU, with MESH_DATA x
+MESH_MODEL = N in the config (MESH_DATA: -1 takes N / MESH_MODEL):
+
+    torchrun --standalone --nproc_per_node N \
+        -m biear_tpu_torch.train_biear --config conf/config.yaml
+
+Under torchrun (RANK and WORLD_SIZE set) each process joins the process
+group (NCCL on the card, gloo with ``--device cpu``) before training, and
+rank 0 alone writes the run tree.
 """
 
 from __future__ import annotations
@@ -69,9 +79,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from .device import resolve_device
+    from .parallel.mesh import init_distributed, is_main
     from .train.runner import train
 
-    device = resolve_device(args.device)
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    device = (init_distributed(args.device) if launched
+              else resolve_device(args.device))
     rc = load_run_config(args.config)
     if args.epochs is not None:
         rc.epochs = args.epochs
@@ -79,8 +92,12 @@ def main(argv=None):
     out = train(rc, synth=synth, seed=args.seed, quiet=args.quiet,
                 max_steps_per_epoch=args.max_steps_per_epoch,
                 resume_from=args.resume, device=device)
-    print("Training finished.")
-    print("[Run dir]", out["run_dir"])
+    if is_main():
+        print("Training finished.")
+        print("[Run dir]", out["run_dir"])
+    if launched:
+        import torch.distributed as dist
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -71,3 +71,17 @@ class MetricLogger:
         if self._tb is not None:
             self._tb.flush()
             self._tb.close()
+
+
+class NullLogger:
+    """The logger of a process that is not rank 0: the same interface, no
+    file opened, nothing written."""
+
+    def scalars(self, tag_prefix, values, step):
+        pass
+
+    def histograms(self, tag_prefix, hists, edges, step):
+        pass
+
+    def close(self):
+        pass

@@ -154,6 +154,25 @@ Phases, each of which raises on failure (the exit code is then not 0):
      phase 14's AuralNet run: metric files byte-copied, the exported
      best.pth loads strictly into a fresh AuralNet and, scored on phase
      14's splits, writes its test1 / test2 files byte for byte.
+ 16. distributed: the runner across processes started by ``torchrun``
+     (``python -m torch.distributed.run --standalone``; each rank is this
+     script with ``--dist-worker``), conf/config.yaml at full width,
+     dropout 0, one epoch of RUNNER_STEPS steps, against the runner in
+     this process without a process group on the same seed: (a) one rank
+     over NCCL gives its per-step losses and gradient norms bit for bit
+     (over one data rank the step sends and scales nothing, and the
+     runner's other collectives over one rank are identities); (b) two
+     ranks share the one card, which NCCL refuses (its error is printed),
+     so they run over gloo on CUDA tensors, as MESH 2x1 and 1x2: per-step
+     losses and gradient norms within DIST_RTOL (at DIST_STEPS_HELD),
+     one run tree each, rank 0's best.pth loads strictly into a
+     one-device model; (c) the same two ranks run DIST_CHUNK_STEPS steps
+     of the fused bf16 chunk at DIST_RANK_BATCH rows per rank (global
+     batch 512): one mix and one CC launch per step on each rank. Launch
+     counts per rank (cleared just before each run, read just after), the
+     flat gradient all-reduce's ms (CUDA events, on a buffer of the step's
+     size) and utt/s per rank are printed beside the card's name and
+     power limit; two processes on one card measure no scaling.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -221,6 +240,21 @@ PROTOCOL_SIZES = (64, 512, 192)
 # phase 15: the written test-thirds split, the spirit split, the card vs
 # CPU rows of the precompute, the synthesised train split
 DATASET_ROWS, SPIRIT_ROWS, COMPARE_ROWS, SYNTH_ROWS = 768, 192, 64, 2048
+# phase 16: two ranks against the world of one, per-step losses at
+# tests/test_sharding.py's mesh tolerance and gradient norms at 1e-4
+# (tests/test_torch_parallel_steps.py's: Adam and the clip do not see a
+# gradient scaled by a constant, its norm does), the distributed bf16
+# chunk, the all-reduce timing. The steps held (None: every one): the
+# frontend's gradient norm only at the first, where the parameters are
+# still equal; after one rounding of the parameters it moves by up to
+# 10 % (it runs through the phases of weak bands), while the losses stay
+# within 2.5e-7 and the backend's norm within 1.3e-5.
+DIST_SCALARS = ("loss", "grad_fb_norm", "grad_backend_norm")
+DIST_RTOL = {"loss": 2e-4, "grad_fb_norm": 1e-4, "grad_backend_norm": 1e-4}
+DIST_STEPS_HELD = {"loss": None, "grad_fb_norm": 1,
+                   "grad_backend_norm": None}
+DIST_CHUNK_STEPS, DIST_RANK_BATCH = 4, 256
+ALLREDUCE_REPS = 20
 
 
 def log(msg: str) -> None:
@@ -2100,6 +2134,289 @@ def phase_dataset(torch, work: str, auralnet_run: str,
     return launches
 
 
+def dist_run_config(runs_root: str, mesh: tuple):
+    """conf/config.yaml as phase 10 runs it, for one epoch, with dropout 0,
+    a loss in scalars.jsonl at every step, over the mesh (data, model)."""
+    import dataclasses
+    rc = synthesised_run_config("config.yaml", 1)
+    rc.model_cfg = dataclasses.replace(rc.model_cfg, ctrl_dropout=0.0,
+                                       backend_dropout=0.0)
+    rc.hist_every, rc.runs_root = 1, runs_root
+    rc.mesh_data, rc.mesh_model = mesh
+    return rc
+
+
+def step_scalars(run: str) -> dict:
+    """The per-step train loss and gradient norms a run logged, each in
+    step order."""
+    with open(os.path.join(run, "logs_json", "scalars.jsonl")) as f:
+        recs = sorted((r for r in map(json.loads, f)
+                       if "train_step/loss" in r), key=lambda r: r["step"])
+    return {k: [r[f"train_step/{k}"] for r in recs] for k in DIST_SCALARS}
+
+
+def max_rel(got: list, want: list) -> float:
+    """max |got - want| / |want| over a run's steps (0 where both are 0)."""
+    return max(abs(g - w) / abs(w) if w else abs(g)
+               for g, w in zip(got, want))
+
+
+def allreduce_ms(torch, n: int, device) -> dict:
+    """The flat all-reduce of n float32 values over the world: ms per call
+    by CUDA events around ALLREDUCE_REPS calls, and by the host clock."""
+    import torch.distributed as dist
+    buf = torch.ones(n, device=device)
+    dist.all_reduce(buf)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(ALLREDUCE_REPS):
+        dist.all_reduce(buf)
+    end.record()
+    torch.cuda.synchronize()
+    return {"floats": n,
+            "event_ms": start.elapsed_time(end) / ALLREDUCE_REPS,
+            "host_ms": (time.perf_counter() - t0) * 1e3 / ALLREDUCE_REPS}
+
+
+def dist_chunk(torch, device) -> dict:
+    """Phase 16 (c) on one rank of two: DIST_CHUNK_STEPS steps of the fused
+    bf16 chunk of the flagship at DIST_RANK_BATCH rows per rank, this
+    rank's rows of each global batch, over a 2x1 mesh."""
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.parallel.mesh import Mesh
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.runner import dropout_streams, keyed_generator
+
+    mesh = Mesh(2, 1, device)
+    hp = TrainHyper()
+    model = build_active(BiEARConfig(**GEOMETRY["dual"],
+                                     fb_w_dtype="bfloat16"), seed=0,
+                         device=device)
+    mesh.broadcast_module_(model)
+    B = DIST_RANK_BATCH * mesh.data
+    chunk = make_train_chunk(
+        model, hp, make_optimizer(model, hp),
+        training_synth(torch, "bfloat16").batch_fn(B, rows=mesh.rows(B)),
+        DIST_CHUNK_STEPS, mesh=mesh)
+    gen = keyed_generator(device, 0, 1, 0)
+    drop = dropout_streams(mesh, gen, device, 0, 1, 0)
+    LAUNCHES.clear()
+    ms = chunk(gen, 1.0, drop)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    t0 = time.perf_counter()
+    chunk(gen, 1.0, drop)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return {"launches": launches, "losses": ms["loss"].tolist(),
+            "skipped": ms["skipped"].tolist(),
+            "utt_s_per_rank": DIST_RANK_BATCH * DIST_CHUNK_STEPS / sec}
+
+
+def dist_worker(spec_path: str) -> int:
+    """One rank of phase 16, started by torchrun: a probe of NCCL, or the
+    spec's runner runs (and the bf16 chunk) under its backend; writes this
+    rank's results as JSON into the spec's directory."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from biear_tpu_torch import train_biear
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.parallel.mesh import init_distributed
+    from biear_tpu_torch.train.runner import train
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    out = {"rank": rank}
+    if spec["task"] == "nccl-probe":
+        try:
+            init_distributed(backend="nccl")
+            t = torch.ones(1, device="cuda")
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            out["error"] = None
+        except Exception as e:        # NCCL's refusal is the expected end
+            out["error"] = f"{type(e).__name__}: {e}"
+    else:
+        device = init_distributed(backend=spec.get("backend"))
+        out["backend"] = dist.get_backend()
+        out["runs"] = {}
+        for run in spec["runs"]:
+            rc = dist_run_config(run["root"], tuple(run["mesh"]))
+            synth = train_biear.make_synth(rc, device)
+            LAUNCHES.clear()
+            res = train(rc, synth=synth, run_id=run["name"], quiet=True,
+                        device=device)
+            torch.cuda.synchronize()
+            n = sum(p.numel() for p in res["model"].parameters())
+            data_parallel = rc.mesh_model == 1
+            out["runs"][run["name"]] = {
+                "launches": dict(LAUNCHES), "run_dir": res["run_dir"],
+                "history": {k: [{m: v for m, v in e.items() if m != "sec"}
+                                for e in h]
+                            for k, h in res["history"].items()},
+                "utt_s_per_rank": [RUNNER_STEPS * rc.batch_size / rc.mesh_data
+                                   / e["sec"] for e in
+                                   res["history"]["train"]],
+                # the step's flat buffer (gradients, W, W loss, the three
+                # metrics) over its data group, here the world
+                "allreduce": (allreduce_ms(torch, n + 5, device)
+                              if data_parallel else None)}
+        if spec.get("chunk"):
+            out["chunk"] = dist_chunk(torch, device)
+        dist.destroy_process_group()
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def torchrun(n: int, spec: dict, tmp: str):
+    """Start dist_worker on n ranks of this machine through torchrun;
+    ``torchrun_results`` waits for it."""
+    out = os.path.join(tmp, f"{spec['task']}-{n}-{len(os.listdir(tmp))}")
+    os.makedirs(out)
+    path = os.path.join(out, "spec.json")
+    with open(path, "w") as f:
+        json.dump(dict(spec, out=out), f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__),
+           "--dist-worker", path]
+    return n, out, spec["task"], subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+
+
+def torchrun_results(run, timeout: float) -> list:
+    """Each rank's results of a ``torchrun``. A run that fails or
+    outlasts `timeout` raises (its process group is killed)."""
+    import signal
+    n, out, task, p = run
+    try:
+        text, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        text, _ = p.communicate()
+        raise RuntimeError(f"torchrun {task} on {n} ranks outlasted "
+                           f"{timeout} s:\n{text[-4000:]}")
+    if p.returncode:
+        raise RuntimeError(f"torchrun {task} on {n} ranks: exit "
+                           f"{p.returncode}\n{text[-4000:]}")
+    return [json.load(open(os.path.join(out, f"rank{r}.json")))
+            for r in range(n)]
+
+
+def phase_distributed(torch, smi: str) -> dict:
+    """Phase 16: the runner across processes, (a) one rank over NCCL, (b)
+    two ranks sharing the card over gloo, 2x1 and 1x2, (c) the fused bf16
+    chunk on the same two ranks. Returns launches by path and rank."""
+    import tempfile
+    from biear_tpu_torch import train_biear
+    from biear_tpu_torch.models import ActiveBiEAR
+    from biear_tpu_torch.train.runner import train
+
+    label = f"({smi}; two processes share one card: no scaling claim)"
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = dist_run_config(os.path.join(tmp, "ref"), (-1, 1))
+        ref = train(rc, synth=train_biear.make_synth(rc), run_id="ref",
+                    quiet=True)
+        want = step_scalars(ref["run_dir"])
+        log(f"distributed: reference runner (no process group), "
+            f"{RUNNER_STEPS} steps at batch {rc.batch_size}, dropout 0: "
+            f"per-step losses and gradient norms {json.dumps(want)}")
+        del ref
+        torch.cuda.empty_cache()
+
+        # (b)'s probe: two ranks on one card over NCCL, beside (a)
+        probe = torchrun(2, {"task": "nccl-probe"}, tmp)
+        # (a) one rank over NCCL
+        a, = torchrun_results(torchrun(1, {"task": "runs", "runs": [{
+            "name": "nccl-1x1", "mesh": [1, 1],
+            "root": os.path.join(tmp, "a")}]}, tmp), 300)
+        run = a["runs"]["nccl-1x1"]
+        got = step_scalars(run["run_dir"])
+        launches["dist_nccl_1x1"] = run["launches"]
+        log(f"distributed (a) torchrun 1 rank, backend {a['backend']}: "
+            f"per-step losses {got['loss']!r}; losses and gradient norms "
+            f"equal to the reference bit for bit: {got == want}; launches "
+            f"{run['launches']}; "
+            f"{run['utt_s_per_rank']!r} utt/s; flat all-reduce "
+            f"{json.dumps(run['allreduce'])} ({smi})")
+        if a["backend"] != "nccl" or got != want:
+            raise RuntimeError("distributed (a): the NCCL world of one "
+                               "differs from the runner without a group")
+
+        # (b) two ranks on one card: NCCL refuses, gloo on CUDA tensors
+        for r in torchrun_results(probe, 150):
+            log(f"distributed (b) NCCL probe, 2 ranks on one card, rank "
+                f"{r['rank']}: {r['error']}")
+        ranks = torchrun_results(torchrun(2, {
+            "task": "runs", "backend": "gloo", "chunk": True,
+            "runs": [{"name": f"gloo-{d}x{m}", "mesh": [d, m],
+                      "root": os.path.join(tmp, f"{d}x{m}")}
+                     for d, m in ((2, 1), (1, 2))]}, tmp), 600)
+        for name in ranks[0]["runs"]:
+            runs = [r["runs"][name] for r in ranks]
+            got = step_scalars(runs[0]["run_dir"])
+            root = os.path.dirname(runs[0]["run_dir"])
+            trees = os.listdir(root)
+            check_run_tree(runs[0]["run_dir"], name)
+            model = ActiveBiEAR(rc.model_cfg).cuda()
+            model.load_state_dict(torch.load(os.path.join(
+                runs[0]["run_dir"], "checkpoints", "best", "params.pth"),
+                weights_only=True), strict=True)
+            err = {k: max_rel(got[k][:DIST_STEPS_HELD[k]],
+                              want[k][:DIST_STEPS_HELD[k]])
+                   for k in DIST_SCALARS}
+            fb_drift = max_rel(got["grad_fb_norm"], want["grad_fb_norm"])
+            for r, x in zip(ranks, runs):
+                launches[f"dist_{name}_rank{r['rank']}"] = x["launches"]
+            log(f"distributed (b) {name} over {ranks[0]['backend']}: "
+                f"per-step losses {got['loss']!r}, gradient norms (fb, "
+                f"backend) {got['grad_fb_norm']!r}, "
+                f"{got['grad_backend_norm']!r}; max relative differences "
+                f"from the reference {json.dumps(err)} (limits "
+                f"{json.dumps(DIST_RTOL)}, steps held "
+                f"{json.dumps(DIST_STEPS_HELD)}; the frontend's norm over "
+                f"every step {fb_drift!r}, not held); run "
+                f"trees {trees}; best.pth loads strictly; launches per "
+                f"rank {[x['launches'] for x in runs]}; utt/s per rank "
+                f"{[x['utt_s_per_rank'] for x in runs]!r}; flat all-reduce "
+                f"{[x['allreduce'] for x in runs]} {label}")
+            if (any(len(got[k]) != len(want[k]) or err[k] > DIST_RTOL[k]
+                    for k in DIST_SCALARS)
+                    or len(trees) != 1
+                    or any(x["history"] != runs[0]["history"]
+                           for x in runs)):
+                raise RuntimeError(f"distributed (b) {name}: {got}, "
+                                   f"trees {trees}")
+        for r in ranks:
+            c = r["chunk"]
+            launches[f"dist_chunk_bf16_rank{r['rank']}"] = c["launches"]
+            log(f"distributed (c) rank {r['rank']}: bf16 chunk, "
+                f"{DIST_CHUNK_STEPS} steps at {DIST_RANK_BATCH} rows per "
+                f"rank (global {2 * DIST_RANK_BATCH}): launches "
+                f"{c['launches']}, losses "
+                f"{c['losses']!r}, {c['utt_s_per_rank']!r} utt/s {label}")
+            if (any(c["launches"].get(k, 0) != DIST_CHUNK_STEPS
+                    for k in ("gather_mix_kb", "cc_lags"))
+                    or not all(np.isfinite(c["losses"]))
+                    or any(c["skipped"])):
+                raise RuntimeError(f"distributed (c): {c}")
+        if not all(any(c.get(k, 0) for c in launches.values())
+                   for k in ("cc_lags", "gather_windows", "gather_mix_kb")):
+            raise RuntimeError(f"distributed: a kernel never launched "
+                               f"{launches}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2150,6 +2467,7 @@ def main() -> int:
         launches.update(got)
         launches.update(phase_dataset(torch, work, runs["auralnet"],
                                       runner_metrics))
+    launches.update(phase_distributed(torch, smi))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())
@@ -2190,4 +2508,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--dist-worker":
+        sys.exit(dist_worker(sys.argv[2]))
     sys.exit(main())

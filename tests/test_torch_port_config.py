@@ -266,11 +266,12 @@ def test_metric_logger_writes_jaxs_records(tmp_path):
 
 def test_refused_configs_name_their_roadmap_items():
     base = tcfg.load_run_config(CONFS[0])
-    for kw, item in (({"mesh_data": 4}, "item 10"),
-                     ({"mesh_model": 2}, "item 10")):
+    # a mesh larger than the world of one process raises, naming WORLD_SIZE
+    for kw in ({"mesh_data": 4}, {"mesh_model": 2}):
         rc = dataclasses.replace(base, **kw)
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(ValueError, match="WORLD_SIZE 1"):
             trun.check_supported(rc)
+    assert trun.check_supported(base) == (1, 1)
     # AuralNet, once refused, is ported
     trun.check_supported(dataclasses.replace(base, model_kind="auralnet"))
     with pytest.raises(NotImplementedError, match="f32"):

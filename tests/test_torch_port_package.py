@@ -61,7 +61,7 @@ def test_port_never_imports_jax_or_the_jax_package(banned):
                        "eval_by_snr.py", "data/labels.py", "data/sphere.py",
                        "generate_binaural_data.py", "precompute_h5.py",
                        "h5_to_shard.py", "stream_demo.py",
-                       "archive_protocol_run.py"}
+                       "archive_protocol_run.py", "parallel/mesh.py"}
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p)
            if m == banned or m.startswith(banned + ".")]

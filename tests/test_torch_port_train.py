@@ -279,7 +279,7 @@ def test_group_norms_and_histograms_match_jax():
                                    err_msg=k)
     leaves = list(grads.values())
     hj = jloop._grad_histograms([jnp.asarray(g) for g in leaves], 4)
-    ht = tloop.grad_histograms([_t(g) for g in leaves], 4)
+    ht = tloop.grad_histograms({k: _t(v) for k, v in grads.items()}, 4)
     np.testing.assert_array_equal(ht.numpy(), np.asarray(hj))
     np.testing.assert_array_equal(tloop.GRAD_HIST_EDGES,
                                   jloop.GRAD_HIST_EDGES)
