@@ -10,10 +10,10 @@ The YAML is read with PyYAML's ``safe_load``, as the JAX package reads it
 (the card's machine has PyYAML).
 
 Differences from the JAX package:
-  * MATMUL_PRECISION is checked against the port's one f32 policy (TF32
-    off for the whole train step, ``device.no_tf32``): "default", "high",
-    "highest" and "float32" all mean it; "tensorfloat32" and "bfloat16"
-    raise NotImplementedError.
+  * MATMUL_PRECISION is applied by ``device.matmul_precision`` (the
+    JAX ``apply_matmul_precision``; names and their meaning on the card
+    in ``device.py``); "default" is full f32 there, one-pass bf16 on a
+    TPU.
   * ``config_from_settings`` returns the model config alone, which is all
     the serving CLI and the evaluator need.
 """
@@ -167,18 +167,6 @@ def is_passive(src) -> bool:
     if isinstance(src, RunConfig):
         return not src.active or src.model_kind == "passive"
     return not bool(src.get("Active", True)) or model_kind(src) == "passive"
-
-
-def check_matmul_precision(name: str) -> str:
-    """MATMUL_PRECISION under the port's one f32 policy (TF32 off in the
-    train step): the f32-class names pass, the reduced ones raise."""
-    name = str(name).lower()
-    if name in ("tensorfloat32", "bfloat16"):
-        raise NotImplementedError(
-            f"MATMUL_PRECISION={name!r}: the port trains its f32 surfaces at "
-            "full f32 (TF32 off); reduced matmul precision is not ported")
-    return _choice(name, "MATMUL_PRECISION",
-                   ("default", "high", "highest", "float32"))
 
 
 def _slug(x: str) -> str:

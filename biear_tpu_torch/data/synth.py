@@ -46,7 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import no_tf32, resolve_device
+from ..device import precision_highest, resolve_device
 from ..ops.window_gather import (WIN, frame_windows, gather_mix_kb,
                                  gather_windows, pad_pool_for_windows)
 from ..ops.xcorr import cross_correlation_feature
@@ -300,7 +300,7 @@ class AnechoicSynthesizer:
             kb = bank["KB"]
             fw = frame_windows(gather_windows(bank["pool3"], rows, crop), nf,
                                kb.shape[1])
-            with no_tf32():
+            with precision_highest():
                 out = torch.matmul(fw, kb[meas])
         out = out.reshape(B, MS, nf, 2, 128)
         out = out * active.to(out.dtype)[:, :, None, None, None]

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import no_tf32, resolve_device
+from ..device import precision_highest, resolve_device
 from .labels import DIST_CLASSES, N_DIST_CLASSES, N_SECTORS
 from .synth import (finish_batch, host_meta, next_pow2, normalise_peak,
                     row_slice, sector_labels, segment_offsets,
@@ -191,7 +191,7 @@ class ReverbSynthesizer:
         segs = slice_segments(self.bank["segments"], seg_idx,
                               qoff * self.off_step, fs)           # (B, MS, fs)
         H = self.bank["H"][head[:, None], speakers]          # (B, MS, 2, F)
-        with no_tf32():
+        with precision_highest():
             X = torch.fft.rfft(segs, n=self.fft_len)
             src = torch.fft.irfft(X[:, :, None] * H, n=self.fft_len)
         return normalise_peak(src[..., :fs], active, 0.9)

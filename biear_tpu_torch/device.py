@@ -1,7 +1,25 @@
-"""Device choice and the f32 numerics policy of the port.
+"""Device choice and the matmul precision policy of the port.
 
 Entry points run on the card unless the caller asks for the CPU: with no
 ``device`` and no card they raise rather than carry on quietly on the CPU.
+
+MATMUL_PRECISION (the JAX package's ``apply_matmul_precision`` and
+``jax_default_matmul_precision``) names the precision of the products
+that JAX leaves at the process default: the GRUs, Linears and attention
+products of the models. On the card:
+
+  * "default", "highest", "float32": full f32 (TF32 off for cuBLAS and
+    cuDNN), the port's parity surface. "default" differs from a TPU by
+    design: there it is one-pass bf16 for those products.
+  * "high", "tensorfloat32": TF32 on for cuBLAS and cuDNN ("high" is
+    JAX's alias of "tensorfloat32").
+  * "bfloat16": bf16 operands with f32 sums, by ``torch.autocast("cuda",
+    torch.bfloat16)``.
+
+The products JAX pins to ``Precision.HIGHEST`` (the filterbank, the DFT,
+the fixed-Q, AuralNet and passive filterbanks, the plain CC, the mixes,
+streaming) run under ``precision_highest``, which no policy moves. Only
+CUDA state is touched, so on the CPU every name computes the same bits.
 """
 
 from __future__ import annotations
@@ -9,6 +27,12 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+PRECISION_NAMES = ("default", "bfloat16", "tensorfloat32", "high",
+                   "highest", "float32")
+TF32_NAMES = ("high", "tensorfloat32")
+
+_policy = "default"          # the process-wide name, as JAX's config holds it
 
 
 def resolve_device(device=None) -> torch.device:
@@ -22,19 +46,69 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
-@contextlib.contextmanager
-def no_tf32():
-    """Full f32 products inside the block (TF32 off for cuBLAS and cuDNN).
+def check_matmul_precision(name: str) -> str:
+    """The lower-cased MATMUL_PRECISION name; ValueError for any other."""
+    name = str(name).lower()
+    if name not in PRECISION_NAMES:
+        raise ValueError(f"MATMUL_PRECISION must be one of "
+                         f"{PRECISION_NAMES}, got {name!r}")
+    return name
 
-    The JAX reference runs its f32 surfaces (filterbank, DFT, CC, GRUs) at
-    full f32 precision; TF32 keeps about three decimal digits. The previous
-    settings are restored on exit."""
+
+def apply_matmul_precision(name: str) -> str:
+    """Set the process-wide policy that ``matmul_precision()`` applies
+    (the JAX package's ``apply_matmul_precision``). Returns the name."""
+    global _policy
+    _policy = check_matmul_precision(name)
+    return _policy
+
+
+def matmul_precision_name() -> str:
+    """The process-wide policy."""
+    return _policy
+
+
+@contextlib.contextmanager
+def _tf32(on: bool):
     mm = torch.backends.cuda.matmul.allow_tf32
     cd = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
         torch.backends.cudnn.allow_tf32 = cd
+
+
+@contextlib.contextmanager
+def matmul_precision(name: str | None = None):
+    """Run the block under MATMUL_PRECISION `name` (default: the
+    process-wide policy), which is also the process-wide policy inside
+    it: the TF32 flags and the CUDA autocast of the name. Everything is
+    restored on exit."""
+    global _policy
+    name = _policy if name is None else check_matmul_precision(name)
+    bf16 = name == "bfloat16" and torch.cuda.is_available()
+    prev, _policy = _policy, name
+    try:
+        with _tf32(name in TF32_NAMES), torch.autocast(
+                "cuda", dtype=torch.bfloat16, enabled=bf16):
+            yield
+    finally:
+        _policy = prev
+
+
+@contextlib.contextmanager
+def precision_highest():
+    """JAX's ``Precision.HIGHEST`` pin: full f32 products inside the block
+    (TF32 off for cuBLAS and cuDNN, CUDA autocast off) under every policy.
+    The previous settings are restored on exit."""
+    with _tf32(False), torch.autocast("cuda", enabled=False):
+        yield
+
+
+def autocast_bf16(x: torch.Tensor) -> bool:
+    """Whether the bf16 policy's autocast is on for `x`'s device."""
+    return (x.is_cuda and torch.is_autocast_enabled("cuda")
+            and torch.get_autocast_dtype("cuda") == torch.bfloat16)

@@ -120,7 +120,7 @@ def measure(repo: str, verbose: bool = False) -> dict:
     from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
                                             make_test_hrir_bank,
                                             make_test_segments)
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.kernels import build
     from biear_tpu_torch.ops import window_gather as wg
     from biear_tpu_torch.ops.xcorr import cc_kept_lags_plain
@@ -139,7 +139,7 @@ def measure(repo: str, verbose: bool = False) -> dict:
         lf, rf = (torch.tensor(rng.standard_normal((B, n)),
                                dtype=torch.float32, device="cuda")
                   for _ in range(2))
-        with no_tf32():
+        with precision_highest():
             want = cc_kept_lags_plain(lf, rf, K)
         got = wg.cc_kept_lags_cuda(lf, rf, K)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
@@ -160,7 +160,7 @@ def measure(repo: str, verbose: bool = False) -> dict:
                         crop.reshape(-1).to(torch.int32).contiguous(),
                         meas.reshape(-1).to(torch.int32).contiguous())
     nf = 125
-    with no_tf32():
+    with precision_highest():
         want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
     run = lambda: wg.gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf)
     got = run()

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import no_tf32, resolve_device
+from ..device import matmul_precision, resolve_device
 from .backend import SubHead, SubHeads, make_body
 from .biear import check_gen
 from .config import BiEARConfig
@@ -170,7 +170,7 @@ class AuralNet(nn.Module):
                 gen: torch.Generator | None = None):
         train = check_gen(self, gen)
         cfg = self.cfg
-        with no_tf32():
+        with matmul_precision():
             wavL = torch.clamp(wavL.float(), -1.0, 1.0)
             wavR = torch.clamp(wavR.float(), -1.0, 1.0)
             c = device_constants(cfg, wavL.device)
@@ -187,7 +187,7 @@ class AuralNet(nn.Module):
                 feats.append(self.cc_proj(x3.float()))
             body = self.body(torch.cat(feats, -1), gen, train)
             sound, aoa, dist = self.subheads(body, gen, train)
-        return sound, aoa, dist, {"Q": None}
+        return sound.float(), aoa.float(), dist.float(), {"Q": None}
 
 
 def build_auralnet(cfg: BiEARConfig, seed: int = 0, device=None) -> AuralNet:

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..device import no_tf32, resolve_device
+from ..device import matmul_precision, resolve_device
 from .backend import (Encoder, SubHead, SubHeads, ild_features, ipd_features,
                       make_body)
 from .config import BiEARConfig
@@ -96,7 +96,7 @@ class ActiveBiEAR(_Heads):
         """In .train() mode `gen` (on the model's device) draws the dropout
         masks, frontend first, then body and heads."""
         train = check_gen(self, gen)
-        with no_tf32():
+        with matmul_precision():
             wavL, wavR = wavL.float(), wavR.float()
             YL, YR, QL, QR, phL, phR = self.bifb(wavL, wavR, gen, train)
             x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
@@ -104,7 +104,8 @@ class ActiveBiEAR(_Heads):
             sound, aoa, dist = self.heads(
                 self.encoder_ild(ild_features(x1, x2)),
                 self.encoder_ipd(ipd_features(phL, phR)), x3, gen, train)
-        return sound, aoa, dist, {"QL": QL, "QR": QR, "Q": 0.5 * (QL + QR)}
+        return (sound.float(), aoa.float(), dist.float(),
+                {"QL": QL, "QR": QR, "Q": 0.5 * (QL + QR)})
 
 
 def build_active(cfg: BiEARConfig, seed: int = 0, device=None) -> ActiveBiEAR:
@@ -133,11 +134,11 @@ class PassiveBiEAR(_Heads):
     def forward(self, x1, x2, x3, x4, x5,
                 gen: torch.Generator | None = None):
         train = check_gen(self, gen)
-        with no_tf32():
+        with matmul_precision():
             sound, aoa, dist = self.heads(
                 self.encoder_ild(ild_features(x1, x2)),
                 self.encoder_ipd(ipd_features(x4, x5)), x3, gen, train)
-        return sound, aoa, dist, {"Q": None}
+        return sound.float(), aoa.float(), dist.float(), {"Q": None}
 
 
 def build_passive(cfg: BiEARConfig, seed: int = 0,

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..device import precision_highest
 from ..ops.erb import erb_spaced_fc_and_q, make_deltaQ_profile
 from ..ops.filterbank import (band_phase, fb_forward, filterbank_apply_rhs,
                               resolve_fb_vjp, stack_rhs)
@@ -97,10 +98,12 @@ def frame_spectra(cfg: BiEARConfig, frames: torch.Tensor, c: dict):
     """frames (..., win) -> (Xmag, Xre, Xim), each (..., F).
 
     "fft": rFFT of the Hann-windowed, zero-padded frames. "matmul": the
-    windowed DFT bases as one f32 product each (TF32 off on the card)."""
+    windowed DFT bases as one f32 product each (TF32 off on the card,
+    under every MATMUL_PRECISION)."""
     if cfg.use_dft_matmul:
-        re = frames @ c["dft_re"]
-        im = frames @ c["dft_im"]
+        with precision_highest():
+            re = frames @ c["dft_re"]
+            im = frames @ c["dft_im"]
         return torch.sqrt(re * re + im * im), re, im
     X = torch.fft.rfft(frames * c["window"], n=cfg.n_fft)
     return X.abs(), X.real, X.imag
@@ -181,13 +184,16 @@ def adaptive_step(ctrl: Controller, cfg: BiEARConfig, c: dict, Q, h, Y,
 
 def fixed_forward(cfg: BiEARConfig, c: dict, Xmag, Xre, Xim):
     """Fixed-Q filterbank over the whole spectrogram with the precomputed
-    clamped-Q0 matrix, under the same f32/bf16 operand policy."""
+    clamped-Q0 matrix, under the same f32/bf16 operand policy (f32 sums,
+    TF32 off on the card)."""
     W = c["W_fixed"]                                     # (N, F)
     if cfg.fb_w_dtype == "bfloat16":
         rnd = lambda a: a.to(torch.bfloat16).float()
         W, Xmag, Xre, Xim = rnd(W), rnd(Xmag), rnd(Xre), rnd(Xim)
-    Y = torch.nan_to_num(Xmag @ W.T, nan=0.0, posinf=0.0, neginf=0.0)
-    phase = band_phase(Xre @ W.T, Xim @ W.T)
+    with precision_highest():
+        Ym, Zre, Zim = Xmag @ W.T, Xre @ W.T, Xim @ W.T
+    Y = torch.nan_to_num(Ym, nan=0.0, posinf=0.0, neginf=0.0)
+    phase = band_phase(Zre, Zim)
     B, T = Xmag.shape[:2]
     Qc = torch.clamp(c["Q0"], cfg.q_min, cfg.q_max)
     return Y, Qc.expand(B, T, cfg.n_bands), phase
@@ -365,8 +371,9 @@ def auralnet_fb(cfg: BiEARConfig, wav: torch.Tensor, c: dict) -> torch.Tensor:
     in f32 under either policy (TF32 off on the card), then nan_to_num.
     No phase (JAX ``auralnet_fb``)."""
     Xmag = spectra(cfg, wav, c)[0]
-    return torch.nan_to_num(Xmag @ c["W_fixed"].T, nan=0.0, posinf=0.0,
-                            neginf=0.0)
+    with precision_highest():
+        Y = Xmag @ c["W_fixed"].T
+    return torch.nan_to_num(Y, nan=0.0, posinf=0.0, neginf=0.0)
 
 
 def make_frontend(cfg: BiEARConfig) -> _Frontend:

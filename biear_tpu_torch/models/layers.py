@@ -20,6 +20,8 @@ import math
 import torch
 from torch import nn
 
+from ..device import autocast_bf16
+
 
 class GRU(nn.GRU):
     """Single-layer batch-first GRU (gate order r, z, n) with a step call.
@@ -30,6 +32,19 @@ class GRU(nn.GRU):
 
     def __init__(self, input_size: int, hidden_size: int):
         super().__init__(input_size, hidden_size, batch_first=True)
+
+    def forward(self, x: torch.Tensor, hx: torch.Tensor | None = None):
+        """nn.GRU's forward; under the bf16 policy's autocast on the card,
+        a loop of ``step`` in bf16, since cuDNN's RNN casts itself to
+        float16 under autocast whatever its dtype."""
+        if not autocast_bf16(x):
+            return super().forward(x, hx)
+        h = x.new_zeros(x.shape[0], self.hidden_size) if hx is None else hx[0]
+        hs = []
+        for t in range(x.shape[1]):
+            h = self.step(x[:, t], h)
+            hs.append(h)
+        return torch.stack(hs, dim=1), h[None]
 
     def step(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
         """One GRU step: x (B, I), h (B, H) -> h' (B, H)."""

@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import no_tf32
+from ..device import precision_highest
 
 DATA_DIM = 100
 TIMESTEPS = 19
@@ -106,7 +106,7 @@ def passive_features(wav: torch.Tensor, fs: int = 16000,
                          "frame")
     frames = wav.unfold(-1, n_fft, hop)[:, :t] * w          # (B, t, n_fft)
     S = torch.fft.rfft(frames, n=n_fft)                     # (B, t, F)
-    with no_tf32():
+    with precision_highest():
         bc_re = S.real @ Ht
         bc_im = S.imag @ Ht
     mag = torch.sqrt(bc_re ** 2 + bc_im ** 2)

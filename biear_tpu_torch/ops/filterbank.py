@@ -22,16 +22,19 @@ and (B, N, 4) tensors.
 
 Precision policies:
   * f32: the exact association exp(-0.5 ((f - fc) / bw)^2), f32 product.
-    Run it with TF32 off on the card.
   * bf16: the divide-free build exp(D / bw^2), D = -0.5 (f - fc)^2; both
     operands are rounded to bf16 and contracted in f32, which is what
     JAX's bf16 operands with an f32 result compute (a bf16 torch matmul
     would round the result too).
+Every product is pinned to full f32 with TF32 off on the card, forward
+and backward, whatever MATMUL_PRECISION says (JAX pins them to HIGHEST).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..device import precision_highest
 
 EPS_Q = 1e-8
 EPS_BW = 1e-8
@@ -73,13 +76,38 @@ def stack_rhs(Xmag: torch.Tensor, Xre: torch.Tensor, Xim: torch.Tensor,
     return rhs.to(torch.bfloat16) if bf16 else rhs
 
 
+class _HighestEinsum(torch.autograd.Function):
+    """Two-operand einsum with f32 sums and TF32 off on the card, forward
+    and backward, under every MATMUL_PRECISION (JAX pins the filterbank's
+    products, and so their transposes, to HIGHEST). Every index of
+    ``sub`` appears in two of its three terms."""
+
+    @staticmethod
+    def forward(ctx, sub: str, lhs, rhs):
+        ctx.terms = sub.replace("->", ",").split(",")
+        ctx.save_for_backward(lhs, rhs)
+        with precision_highest():
+            return torch.einsum(sub, lhs, rhs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.terms
+        lhs, rhs = ctx.saved_tensors
+        with precision_highest():
+            ga = (torch.einsum(f"{out},{b}->{a}", g, rhs)
+                  if ctx.needs_input_grad[1] else None)
+            gb = (torch.einsum(f"{out},{a}->{b}", g, lhs)
+                  if ctx.needs_input_grad[2] else None)
+        return None, ga, gb
+
+
 def _dot(lhs: torch.Tensor, rhs: torch.Tensor, bf16: bool,
          sub: str) -> torch.Tensor:
     """einsum with f32 sums; under bf16 both operands are rounded first."""
     if bf16:
         lhs = lhs.to(torch.bfloat16).float()
         rhs = rhs.to(torch.bfloat16).float()
-    return torch.einsum(sub, lhs, rhs.float())
+    return _HighestEinsum.apply(sub, lhs, rhs.float())
 
 
 def _normalise(out: torch.Tensor):
@@ -130,6 +158,11 @@ class FilterbankFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gY, gZre, gZim):
+        with precision_highest():
+            return FilterbankFn._backward(ctx, gY, gZre, gZim)
+
+    @staticmethod
+    def _backward(ctx, gY, gZre, gZim):
         bf16, x_grad, fwd_T = ctx.mode
         if fwd_T:
             Q, fc, bw0, T, Y, Zre, Zim, den, finite = ctx.saved_tensors

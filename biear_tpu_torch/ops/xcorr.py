@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import precision_highest
+
 
 @functools.lru_cache(maxsize=None)
 def lag_plan(n: int, fs: int, num_lags: int, max_lag_ms: float):
@@ -62,8 +64,8 @@ def cc_kept_lags_plain(lf: torch.Tensor, rf: torch.Tensor,
     corr[s - K] = sum_{f,i} rf[128 f + i] Lp[128 f + i + s], so
     C[b, i, j] = sum_f Rf[b, f, i] Lw[b, f, j] (Lw = two-block halo frames
     of Lp) holds every kept lag on the diagonals j = i + s, read at flat
-    stride 257 after a pad. Needs n % 128 == 0 and 2K <= 128. Run it with
-    TF32 off on the card."""
+    stride 257 after a pad. Needs n % 128 == 0 and 2K <= 128. The product
+    is pinned to full f32 (TF32 off on the card)."""
     B, n = lf.shape
     nf = n // 128
     halo = 2 * 128
@@ -71,7 +73,8 @@ def cc_kept_lags_plain(lf: torch.Tensor, rf: torch.Tensor,
     Lb = Lp.reshape(B, nf + 1, 128)
     Lw = torch.cat([Lb[:, :nf], Lb[:, 1:nf + 1]], dim=-1)
     Rf = rf.reshape(B, nf, 128)
-    C = torch.einsum("bfi,bfj->bij", Rf, Lw)                  # (B, 128, 256)
+    with precision_highest():
+        C = torch.einsum("bfi,bfj->bij", Rf, Lw)              # (B, 128, 256)
     n_s = 2 * max_kept + 1
     Cp = F.pad(C.reshape(B, 128 * halo), (0, 128))
     return Cp.reshape(B, 128, halo + 1)[:, :, :n_s].sum(dim=1)

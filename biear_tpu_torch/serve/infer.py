@@ -12,7 +12,8 @@ in the same directory or up to two levels above):
 
     python -m biear_tpu_torch.serve.infer --checkpoint run/best.pth a.wav b.wav
 
-It runs on the card unless ``--device cpu`` is given. Orbax checkpoints of
+It runs on the card unless ``--device cpu`` is given, under the settings'
+MATMUL_PRECISION (``device.matmul_precision``). Orbax checkpoints of
 the JAX runner are not read: convert them with
 ``biear_tpu_torch.train.state`` where JAX is installed (README.md).
 """
@@ -28,7 +29,7 @@ import torch
 
 from ..config import (config_from_settings,  # noqa: F401 (re-exported)
                       family, load_settings_near_checkpoint)
-from ..device import resolve_device
+from ..device import matmul_precision, resolve_device
 from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.config import BiEARConfig
@@ -151,7 +152,9 @@ def main(argv=None):
     pairs = [read_stereo_wav(p, cfg.fs) for p in args.wavs]
     wavL = np.stack([p[0] for p in pairs])
     wavR = np.stack([p[1] for p in pairs])
-    probs, aoa, distp = (a.cpu().numpy() for a in predict(model, wavL, wavR))
+    with matmul_precision(settings.get("MATMUL_PRECISION", "default")):
+        out = predict(model, wavL, wavR)
+    probs, aoa, distp = (a.cpu().numpy() for a in out)
 
     sink = open(args.out, "w") if args.out else sys.stdout
     try:

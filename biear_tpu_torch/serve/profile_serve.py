@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from ..device import no_tf32
+from ..device import precision_highest
 from ..models import AuralNet, BiEARConfig, build_active, build_auralnet
 from ..models.backend import ild_features, ipd_features
 from ..models.frontend import auralnet_fb, device_constants, spectra
@@ -114,7 +114,7 @@ def _stages(model, wl, wr, x3, c):
 def stage_times(model, wavL, wavR) -> dict:
     cfg = model.cfg
     c = device_constants(cfg, wavL.device)
-    with torch.inference_mode(), no_tf32():
+    with torch.inference_mode(), precision_highest():
         wl, wr = sanitize_wav(wavL, wavR)
         x3 = sanitize_x3(cross_correlation_feature(wl, wr, cfg.fs,
                                                    num_lags=cfg.n_bands))

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import no_tf32
+from ..device import precision_highest
 from ..models.backend import ild_features, ipd_features
 from ..models.biear import ActiveBiEAR
 from ..models.config import BiEARConfig
@@ -268,7 +268,7 @@ def stream_step(model: ActiveBiEAR, state: dict, chunkL, chunkR) -> dict:
     chunkL = torch.as_tensor(chunkL, device=dev).float()
     chunkR = torch.as_tensor(chunkR, device=dev).float()
     c = device_constants(cfg, dev)
-    with no_tf32():
+    with precision_highest():
         xsL = frame_spectra(cfg, chunkL, c)
         xsR = frame_spectra(cfg, chunkR, c)
         fe, YL, YR, phL, phR = _frontend_step(model, c, state["fe"], xsL, xsR)
@@ -294,7 +294,7 @@ def stream_readout(model: ActiveBiEAR, state: dict, tailL=None, tailR=None):
     cfg = model.cfg
     dev = _device(model)
     plan = stream_plan(cfg)
-    with no_tf32():
+    with precision_highest():
         cc = state.get("cc")
         if cc is not None and tailL is not None and tailL.shape[1]:
             cc = _cc_accumulate(cc, torch.as_tensor(tailL, device=dev).float(),

@@ -11,7 +11,8 @@ batch padded to full with repeated rows, which are dropped), and the
 train-identical metric definitions over all N x 8 sectors, overall and
 for 1, 2 and 3 sources. A ``.pth`` that lacks a parameter of the model
 (the archived AuralNet checkpoints hold no attention weights) raises,
-naming the missing keys.
+naming the missing keys. The forward runs under the settings'
+MATMUL_PRECISION (``device.matmul_precision``), as the run trained.
 
 The checkpoint is a reference-format ``.pth`` or a checkpoint directory of
 the port's runner (``<run>/checkpoints/best``, read as its
@@ -40,6 +41,7 @@ import torch
 from ..config import (config_from_settings, family, is_passive,
                       load_settings_near_checkpoint)
 from ..data.pipeline import batch_iterator
+from ..device import matmul_precision
 from ..data.shard import ShardDataset, shard_shapes
 from ..serve.infer import load_model
 from ..models.biear import PassiveBiEAR
@@ -183,8 +185,10 @@ def evaluate(checkpoint: str, settings: dict | None = None, dataset=None,
     model = load_model(pth, cfg, device, kind=family(settings))
     if dataset is None:
         dataset = ShardDataset(test_shard, shapes=shard_shapes(cfg, passive))
-    out = metrics_from_predictions(*collect_predictions(model, dataset,
-                                                        batch_size))
+    # under the precision policy the run trained with
+    with matmul_precision(settings.get("MATMUL_PRECISION", "default")):
+        out = metrics_from_predictions(*collect_predictions(model, dataset,
+                                                            batch_size))
     if out_path is None:
         out_path = os.path.join(os.path.dirname(os.path.abspath(checkpoint)),
                                 "..", "evaluate_biear_metrics.json")

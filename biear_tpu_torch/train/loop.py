@@ -13,7 +13,8 @@ computed in the same step.
 
 The chunk runs ``chunk_steps`` iterations of synthesize -> step in a
 Python loop; each step's generator draws the synthesis first and the
-dropout second. TF32 is off for the whole step, forward and backward.
+dropout second. The whole step, forward and backward, runs under the
+process-wide MATMUL_PRECISION (``device.matmul_precision``).
 
 Under a mesh (``parallel.mesh.Mesh``) each rank's loss and gradients are
 means over its rows; one flat all-reduce over the data group turns them
@@ -30,7 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import no_tf32
+from ..device import matmul_precision
 from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.frontend import device_constants
@@ -199,7 +200,7 @@ def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
     batch's; `gen` is then the rank's generator or ``RankGenerators``."""
     model.train()
     names, params = zip(*model.named_parameters())
-    with no_tf32():
+    with matmul_precision():
         loss, metrics = model_loss(model, hp, batch, gen)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
@@ -242,8 +243,7 @@ def make_eval_step(model: _Model, hp: TrainHyper):
     @torch.no_grad()
     def step(batch) -> dict:
         model.eval()
-        with no_tf32():
-            return model_loss(model, hp, batch, None)[1]
+        return model_loss(model, hp, batch, None)[1]
     return step
 
 

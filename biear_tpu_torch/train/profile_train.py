@@ -54,7 +54,7 @@ from ..data.passive_synth import PassiveFeatureSynth
 from ..data.synth import (AnechoicSynthesizer, build_synthesizer,
                           make_test_hrir_bank, make_test_segments)
 from ..data.synth_reverb import ReverbSynthesizer
-from ..device import no_tf32
+from ..device import matmul_precision
 from ..models import BiEARConfig, build_active, build_auralnet, build_passive
 from ..ops.window_gather import cc_kept_lags, gather_mix_kb, gather_windows
 from ..ops.xcorr import lag_plan
@@ -82,14 +82,16 @@ def events_ms(fn, setup=lambda: None, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def rate_windows(run, utt_per_run: int, windows: int) -> dict:
-    """Utterances/s of `windows` synchronised host-clock windows of run()."""
+def rate_windows(run, utt_per_run: int, windows: int,
+                 sync=torch.cuda.synchronize) -> dict:
+    """Utterances/s of `windows` host-clock windows of run(), each begun
+    and ended by sync()."""
     rates = []
     for _ in range(windows):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         run()
-        torch.cuda.synchronize()
+        sync()
         rates.append(utt_per_run / (time.perf_counter() - t0))
     return {"median": statistics.median(rates), "min": min(rates),
             "max": max(rates), "windows": rates}
@@ -146,14 +148,14 @@ def stage_times(model, hp, opt, synth, batch, gen) -> dict:
     model.train()
 
     def forward(_):
-        with no_tf32():
+        with matmul_precision():
             return model_loss(model, hp, batch, gen)[0]
 
     def backward(loss):
-        with no_tf32():
+        with matmul_precision():
             torch.autograd.grad(loss, params)
 
-    with no_tf32():
+    with matmul_precision():
         grads = dict(zip([n for n, _ in model.named_parameters()],
                          torch.autograd.grad(forward(None), params)))
     ok = torch.ones((), dtype=torch.bool, device=wl.device)

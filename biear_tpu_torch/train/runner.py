@@ -52,11 +52,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..config import (RunConfig, check_matmul_precision, data_paths,
-                      is_passive, make_exp_name, make_run_dirs, mesh_shape,
-                      settings_dict)
+from ..config import (RunConfig, data_paths, is_passive, make_exp_name,
+                      make_run_dirs, mesh_shape, settings_dict)
 from ..data.pipeline import Prefetcher, batch_iterator
-from ..device import resolve_device
+from ..device import check_matmul_precision, matmul_precision, resolve_device
 from ..models.auralnet import build_auralnet
 from ..models.biear import build_active, build_passive
 from ..models.layers import RankGenerators
@@ -98,7 +97,7 @@ def dropout_streams(mesh: Mesh | None, shared: torch.Generator, device,
 def check_supported(rc: RunConfig) -> tuple:
     """Refuse what the port does not run: a mesh that does not fit the
     process group's world (one process without a group is a world of
-    one), a reduced matmul precision. Returns the mesh's (data, model)."""
+    one), an unknown MATMUL_PRECISION. Returns the mesh's (data, model)."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     shape = mesh_shape(rc, world)
     check_matmul_precision(rc.matmul_precision)
@@ -282,9 +281,22 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
 
     In a process group (``parallel.mesh.init_distributed``) every rank
     calls it with the same arguments and `device` its own; the histories
-    it returns are the same on every rank."""
-    device = resolve_device(device)
+    it returns are the same on every rank.
+
+    The run trains and evaluates under its MATMUL_PRECISION, which is the
+    process-wide policy until it returns (``device.matmul_precision``)."""
     n_data, n_model = check_supported(rc)
+    with matmul_precision(rc.matmul_precision):
+        return _train(rc, n_data, n_model, datasets=datasets, synth=synth,
+                      seed=seed, run_id=run_id, quiet=quiet,
+                      max_steps_per_epoch=max_steps_per_epoch,
+                      resume_from=resume_from, device=device)
+
+
+def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
+           seed: int, run_id, quiet: bool, max_steps_per_epoch,
+           resume_from, device) -> dict:
+    device = resolve_device(device)
     mesh = Mesh(n_data, n_model, device) if dist.is_initialized() else None
     is_main = mesh is None or mesh.is_main
     say = print if is_main and not quiet else (lambda *a: None)
@@ -310,6 +322,8 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
         logger = NullLogger()
     say(f"[Run dir] {dirs['run']}")
     say(f"[Device] {device}")
+    if rc.matmul_precision != "default":
+        say(f"[Precision] MATMUL_PRECISION={rc.matmul_precision}")
     say(f"[Mesh] {{'data': {n_data}, 'model': {n_model}}} over "
         f"{n_data * n_model} device(s)")
     # BATCH_SIZE is the global batch; each data rank makes or reads its rows

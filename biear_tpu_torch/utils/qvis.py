@@ -15,7 +15,6 @@ import os
 import numpy as np
 import torch
 
-from ..device import no_tf32
 from ..models.frontend import frontend_constants
 
 
@@ -44,8 +43,7 @@ def visualize_Q_LR(model, batches, save_dir: str, max_batches: int = 5,
             break
         wavL, wavR, x3 = (torch.as_tensor(a, device=device)
                           for a in batch[:3])
-        with no_tf32():
-            aux = model(wavL, wavR, x3)[3]
+        aux = model(wavL, wavR, x3)[3]
         QL = aux["QL"][:sample_per_batch].cpu().numpy()
         QR = aux["QR"][:sample_per_batch].cpu().numpy()
         np.savez(os.path.join(save_dir, f"q_batch{bi:03d}.npz"),

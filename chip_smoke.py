@@ -173,6 +173,21 @@ Phases, each of which raises on failure (the exit code is then not 0):
      flat gradient all-reduce's ms (CUDA events, on a buffer of the step's
      size) and utt/s per rank are printed beside the card's name and
      power limit; two processes on one card measure no scaling.
+ 17. bench and precision: (a) ``biear_tpu_torch.bench.measure`` at full
+     width, bf16, one window of one 16-step fused chunk and one window of
+     5 bare steps (launch counts zeroed just before and read just after:
+     the mix and CC kernels launch on its fused path), its line printed
+     with "reduced": true; (b) for each MATMUL_PRECISION name, the seeded
+     flagship forward (tests/test_precision.py's config, controllers
+     perturbed so Q moves) at PRECISION_BATCH on the card against
+     "highest" within PRECISION_TOL, the TF32 flags and CUDA autocast of
+     the name inside the block and restored after it; (c) one train step
+     of bench.py's flagship, AuralNet (phase 13's width) and the passive
+     model at PRECISION_STEP_BATCH under "tensorfloat32" and one under
+     "bfloat16": finite loss and gradient norms, nothing skipped; (d) ``probe_dft_matmul.probe`` at the production shape
+     (batch 1024), DFT_PROBE_ITERS chained calls: each product's spectra
+     against cuFFT's within DFT_PROBE_TOL of the spectrum's largest
+     value, and the times.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -182,6 +197,7 @@ It imports nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import statistics
@@ -255,6 +271,18 @@ DIST_STEPS_HELD = {"loss": None, "grad_fb_norm": 1,
                    "grad_backend_norm": None}
 DIST_CHUNK_STEPS, DIST_RANK_BATCH = 4, 256
 ALLREDUCE_REPS = 20
+# phase 17: each MATMUL_PRECISION name's forward against "highest"
+# (tests/test_precision.py:92-96: Q, AoA, sound and distance logits), the
+# train steps under the reduced names, the DFT probe (f32 products: the
+# CPU test's limit; bf16 operands with f32 sums: JAX's ~1e-3 class;
+# TF32: inside that class; bf16 results: their rounding, 2^-8 of a value,
+# above it)
+PRECISION_BATCH = 4
+PRECISION_TOL = {"Q": 0.05, "aoa": 0.02, "sound": 0.15, "dist": 0.15}
+PRECISION_STEP_BATCH = 64
+DFT_PROBE_ITERS = 5
+DFT_PROBE_TOL = {"dft_f32": 1e-5, "dft_f32_flat": 1e-5, "dft_tf32": 2e-3,
+                 "dft_bf16_operands": 2e-3, "dft_bf16": 5e-3}
 
 
 def log(msg: str) -> None:
@@ -292,13 +320,13 @@ MIX_RAGGED = ((1, 1, 384, 1, False), (5, 64, 384, 4, False),
 
 def phase_kernels(torch, rng):
     """Hold cc_lags.cu against the plain version, time both."""
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.ops.window_gather import cc_kept_lags_cuda
     from biear_tpu_torch.ops.xcorr import cc_kept_lags_plain
 
     max_err = 0.0
     timing = None
-    with no_tf32():
+    with precision_highest():
         for B, n, K in CC_SHAPES:
             lf = torch.tensor(rng.standard_normal((B, n)), dtype=torch.float32,
                               device="cuda")
@@ -498,7 +526,7 @@ def mix_ragged(torch, pool3):
     """gather_mix_kb.cu on seeded random banks at MIX_RAGGED's shapes,
     against the plain version (f64 sums) and an f32 bmm, both to MIX_ATOL;
     two launches must give the same bits. Returns the largest error."""
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.ops import window_gather as wg
 
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -515,7 +543,7 @@ def mix_ragged(torch, pool3):
         else:
             rows, offs, meas = (draw(0, NP), draw(0, nb * 128 - wg.WIN + 1),
                                 draw(0, M))
-        with no_tf32():
+        with precision_highest():
             got = wg.gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf)
             want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
             fw = wg.frame_windows(wg.gather_windows_plain(pool3, rows, offs)
@@ -543,7 +571,7 @@ def phase_window_kernels(torch, synth):
     (RUNNER_ROWS: 192, 63 and 66 windows), on the synthesizer's pool and
     bf16 bank. The mix's plain version sums in f64, so its comparison
     is also the f64 check; the kernel is held to an f32 bmm too."""
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.kernels.time_kernels import (gather_windows_timing,
                                                       window_bytes)
     from biear_tpu_torch.ops import window_gather as wg
@@ -561,7 +589,7 @@ def phase_window_kernels(torch, synth):
         X = meas.numel() - trim
         rows = (seg_idx * synth.n_q + qoff).reshape(-1)[:X]
         offs, meas = crop.reshape(-1)[:X], meas.reshape(-1)[:X]
-        with no_tf32():
+        with precision_highest():
             got = wg.gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf)
             want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
             fw = wg.frame_windows(wg.gather_windows_plain(pool3, rows, offs)
@@ -596,7 +624,7 @@ def phase_window_kernels(torch, synth):
         # to int32 in three small launches of its own; with int32 indices
         # the wrapper launches the kernel alone
         r32, o32, m32 = (a.to(torch.int32) for a in (rows, offs, meas))
-        with no_tf32():
+        with precision_highest():
             timing["gather_mix_kb"] = dict(
                 ms=cuda_ms(lambda: wg.gather_mix_kb_cuda(pool3, r32, o32,
                                                          m32, kb, nf)),
@@ -649,7 +677,7 @@ def step_stages(torch, model, hp, batch, front=None):
     outputs, their cotangents, the body's ReLU inputs). `front` (leaf
     tensors) replaces the frontend's outputs, so that the backend runs on
     given inputs."""
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.train.loop import active_loss
 
     held, relu_in = [], []
@@ -664,7 +692,7 @@ def step_stages(torch, model, hp, batch, front=None):
         for i in (0, 3, 6)]
     model.train()
     names, params = zip(*model.named_parameters())
-    with no_tf32():
+    with precision_highest():
         loss, _ = active_loss(model, hp, batch, torch.Generator(
             device=batch[0].device))
         grads = torch.autograd.grad(loss, params + tuple(held),
@@ -679,12 +707,12 @@ def step_stages(torch, model, hp, batch, front=None):
 def frontend_grads(torch, model, wavs, cot):
     """Gradients of the frontend's parameters under cotangents `cot` of its
     outputs, on waveforms `wavs` (sanitised as the train step does)."""
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.train.losses import sanitize_wav
     names, params = zip(*[(n, p) for n, p in model.named_parameters()
                           if n.startswith("bifb.")])
     model.train()
-    with no_tf32():
+    with precision_highest():
         out = model.bifb(*sanitize_wav(*wavs), torch.Generator(), True)
         return out, dict(zip(names, torch.autograd.grad(out, params, cot)))
 
@@ -702,10 +730,10 @@ def rel_l2(torch, a, b):
 def spectra_of(torch, cfg, wavs):
     """Real and imaginary spectra of both ears' waveforms, flattened, on
     the CPU."""
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.models.frontend import device_constants, spectra
     c = device_constants(cfg, wavs[0].device)
-    with no_tf32():
+    with precision_highest():
         return torch.cat([x.reshape(-1).cpu() for w in wavs
                           for x in spectra(cfg, w, c)[1:]])
 
@@ -1535,7 +1563,7 @@ def auralnet_step_card_vs_cpu(torch, hp, cfg, batch):
     the loss, and every gradient with the CPU's blocks fed the card's
     features (BACKEND_RTOL in relative L2); the whole gradient is logged.
     Raises on disagreement."""
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.models import build_auralnet
     from biear_tpu_torch.train.loop import active_loss
 
@@ -1554,7 +1582,7 @@ def auralnet_step_card_vs_cpu(torch, hp, cfg, batch):
                  for i, blk in enumerate(blocks)]
         model.train()
         names, params = zip(*model.named_parameters())
-        with no_tf32():
+        with precision_highest():
             loss, _ = active_loss(model, hp, b, torch.Generator(
                 device=b[0].device))
             grads = torch.autograd.grad(loss, params)
@@ -2417,6 +2445,121 @@ def phase_distributed(torch, smi: str) -> dict:
     return launches
 
 
+def precision_state(torch) -> tuple:
+    """(cuBLAS TF32, cuDNN TF32, CUDA autocast on, its dtype, the port's
+    process-wide MATMUL_PRECISION)."""
+    from biear_tpu_torch.device import matmul_precision_name
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32,
+            torch.is_autocast_enabled("cuda"),
+            torch.get_autocast_dtype("cuda"), matmul_precision_name())
+
+
+def phase_precision(torch, rng):
+    """17: the bench's line at a reduced window count, every
+    MATMUL_PRECISION name's forward and the reduced names' train steps,
+    the DFT probe. Returns the bench path's launch counts."""
+    from biear_tpu_torch import bench, probe_dft_matmul
+    from biear_tpu_torch.device import (PRECISION_NAMES, TF32_NAMES,
+                                        matmul_precision)
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import (BiEARConfig, build_active,
+                                        build_passive)
+    from biear_tpu_torch.train.loop import train_step
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import fixed_batch
+
+    # (a)
+    t0 = time.perf_counter()
+    LAUNCHES.clear()
+    line = bench.measure(steps=5, chunk_dispatches=1, windows=1)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    by_op = line.pop("flops_by_op")
+    print(json.dumps({**line, "reduced": True}), flush=True)
+    log(f"bench (a): {time.perf_counter() - t0:.1f} s, launches "
+        f"{launches}, FLOPs per utterance by op {by_op}")
+    if any(launches.get(k, 0) <= 0 for k in ("gather_mix_kb", "cc_lags")):
+        raise RuntimeError(f"bench: a kernel of its path never launched "
+                           f"{launches}")
+    if not all(np.isfinite(line[k]) and line[k] > 0
+               for k in ("value", "model_step_utt_s", "flops_per_utt",
+                         "mfu")):
+        raise RuntimeError(f"bench: {line}")
+
+    # (b)
+    cfg = BiEARConfig()
+    model = build_active(cfg, seed=0)
+    perturb_controllers(torch, model, seed=1)
+    x = [torch.tensor(rng.uniform(-1, 1, (PRECISION_BATCH, n)),
+                      dtype=torch.float32, device="cuda")
+         for n in (cfg.fs, cfg.fs, cfg.n_bands)]
+    before = precision_state(torch)
+    outs = {}
+    for name in PRECISION_NAMES:
+        with matmul_precision(name):
+            inside = precision_state(torch)
+            with torch.inference_mode():
+                s, a, d, aux = model(*x)
+        want = (name in TF32_NAMES, name in TF32_NAMES, name == "bfloat16")
+        if inside[:3] != want or inside[4] != name:
+            raise RuntimeError(f"{name}: state inside the block {inside}")
+        if precision_state(torch) != before:
+            raise RuntimeError(f"{name}: state not restored "
+                               f"{precision_state(torch)} != {before}")
+        outs[name] = {"Q": aux["Q"], "aoa": a, "sound": s, "dist": d}
+    for name, out in outs.items():
+        errs = {k: float((out[k] - outs["highest"][k]).abs().max())
+                for k in PRECISION_TOL}
+        log(f"precision (b) {name}: max |{name} - highest| {errs}")
+        if any(not errs[k] <= PRECISION_TOL[k] for k in errs):
+            raise RuntimeError(f"{name}: beyond {PRECISION_TOL}: {errs}")
+
+    # (c)
+    hp = TrainHyper()
+    B = PRECISION_STEP_BATCH
+    wave = fixed_batch(B, 100, 0, "cuda")
+    planes = [torch.tensor(rng.uniform(lo, hi, (B, 19, 100)),
+                           dtype=torch.float32, device="cuda")
+              for lo, hi in ((-80, 0), (-80, 0), (-np.pi, np.pi),
+                             (-np.pi, np.pi))]
+    passive = (*planes[:2], wave[2], *planes[2:], wave[3])
+    models = {"flagship": (lambda: build_active(
+                  bench.flagship_config("bfloat16"), seed=0), wave),
+              "auralnet": (lambda: serve_model(torch, "auralnet",
+                                               "bfloat16"), wave),
+              "passive": (lambda: build_passive(BiEARConfig(), seed=0),
+                          passive)}
+    for (label, (build, batch)), name in itertools.product(
+            models.items(), ("tensorfloat32", "bfloat16")):
+        m = build()
+        opt = make_optimizer(m, hp)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        with matmul_precision(name):
+            got = train_step(m, hp, opt, batch, gen)
+        got = {k: float(got[k]) for k in ("loss", "grad_fb_norm",
+                                          "grad_backend_norm", "skipped")}
+        log(f"precision (c) {label} {name}: train step at B={B}: {got}")
+        if not all(np.isfinite(v) for v in got.values()) or got["skipped"]:
+            raise RuntimeError(f"{label} {name}: train step {got}")
+        if precision_state(torch) != before:
+            raise RuntimeError(f"{name}: state not restored after a step")
+
+    # (d)
+    probe = probe_dft_matmul.probe(iters=DFT_PROBE_ITERS, repeats=1)
+    for name, tol in DFT_PROBE_TOL.items():
+        acc = probe[f"accuracy_{name}"]
+        worst = max(c["max_abs_vs_specmax"] for c in acc.values())
+        log(f"DFT probe (d) {name}: max error / spectrum max {worst!r} "
+            f"(limit {tol}), {probe[f'ms_per_call_{name}']['median']!r} "
+            f"ms per call (rfft "
+            f"{probe['ms_per_call_rfft']['median']!r})")
+        if not worst <= tol:
+            raise RuntimeError(f"DFT probe {name}: {acc}")
+    log(f"phase 17 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2468,6 +2611,7 @@ def main() -> int:
         launches.update(phase_dataset(torch, work, runs["auralnet"],
                                       runner_metrics))
     launches.update(phase_distributed(torch, smi))
+    launches["bench"] = phase_precision(torch, rng)
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())

@@ -86,14 +86,27 @@ def test_eager_validators_refuse_like_jax(tmp_path, key, value):
         tcfg.load_run_config(str(p))
 
 
-def test_matmul_precision_maps_to_the_f32_policy():
-    for name in ("default", "high", "highest", "float32", "HIGHEST"):
-        assert tcfg.check_matmul_precision(name) == name.lower()
-    for name in ("tensorfloat32", "bfloat16"):
-        with pytest.raises(NotImplementedError, match="TF32"):
-            tcfg.check_matmul_precision(name)
-    with pytest.raises(ValueError):
-        tcfg.check_matmul_precision("fast")
+@pytest.mark.parametrize("name", ["default", "high", "highest", "float32",
+                                  "tensorfloat32", "bfloat16", "HIGHEST"])
+def test_matmul_precision_maps_to_the_f32_policy(name):
+    """Every name of JAX's MATMUL_PRECISION is accepted, lower-cased as
+    JAX's apply_matmul_precision returns it; TF32 is on under "high" and
+    "tensorfloat32" only ("bfloat16" is CUDA autocast, the rest the f32
+    policy); an unknown name raises."""
+    import jax
+    from biear_tpu_torch.device import check_matmul_precision, matmul_precision
+    assert check_matmul_precision(name) == name.lower()
+    prev = jax.config.jax_default_matmul_precision
+    try:
+        assert jcfg.apply_matmul_precision(name) == name.lower()
+    finally:
+        jax.config.update("jax_default_matmul_precision",
+                          prev if prev is not None else "default")
+    with matmul_precision(name):
+        assert torch.backends.cuda.matmul.allow_tf32 is (
+            name.lower() in ("high", "tensorfloat32"))
+    with pytest.raises(ValueError, match="MATMUL_PRECISION"):
+        check_matmul_precision("fast")
 
 
 @pytest.mark.parametrize("settings", [
@@ -274,9 +287,13 @@ def test_refused_configs_name_their_roadmap_items():
     assert trun.check_supported(base) == (1, 1)
     # AuralNet, once refused, is ported
     trun.check_supported(dataclasses.replace(base, model_kind="auralnet"))
-    with pytest.raises(NotImplementedError, match="f32"):
-        trun.check_supported(dataclasses.replace(
-            base, matmul_precision="bfloat16"))
+    # every MATMUL_PRECISION name, once reduced ones were refused, runs;
+    # an unknown one is refused
+    trun.check_supported(dataclasses.replace(base,
+                                             matmul_precision="bfloat16"))
+    with pytest.raises(ValueError, match="MATMUL_PRECISION"):
+        trun.check_supported(dataclasses.replace(base,
+                                                 matmul_precision="fast"))
     passive = dataclasses.replace(base, model_kind="passive", active=False)
     trun.check_supported(passive)
     assert tcfg.is_passive(passive) and not tcfg.is_passive(base)

@@ -61,7 +61,9 @@ def test_port_never_imports_jax_or_the_jax_package(banned):
                        "eval_by_snr.py", "data/labels.py", "data/sphere.py",
                        "generate_binaural_data.py", "precompute_h5.py",
                        "h5_to_shard.py", "stream_demo.py",
-                       "archive_protocol_run.py", "parallel/mesh.py"}
+                       "archive_protocol_run.py", "parallel/mesh.py",
+                       "bench.py", "bench_batch_sweep.py",
+                       "probe_dft_matmul.py", "bench_input_pipeline.py"}
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported_modules(p)
            if m == banned or m.startswith(banned + ".")]
@@ -274,6 +276,27 @@ def test_dataset_and_demo_entry_points_without_device_raise_when_no_cuda(
     assert y.shape == (1, 56) and len(os.listdir(out + "/anechoic_train")) == 2
 
 
+def test_bench_entry_points_without_device_raise_when_no_cuda(monkeypatch,
+                                                              tmp_path):
+    """The bench, the batch sweep, the DFT probe and the input-pipeline
+    bench refuse to run without a card unless given the CPU, before they
+    write anything."""
+    from biear_tpu_torch import (bench, bench_batch_sweep,
+                                 bench_input_pipeline, probe_dft_matmul)
+
+    _no_cuda(monkeypatch)
+    out = str(tmp_path / "out.json")
+    for call in (bench.measure, lambda: bench.main([]),
+                 lambda: bench_batch_sweep.main(["--batches", "2",
+                                                 "--out", out]),
+                 lambda: probe_dft_matmul.main(["--out", out]),
+                 lambda: bench_input_pipeline.main(["--rows", "2",
+                                                    "--json", out])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert os.listdir(tmp_path) == []
+
+
 def test_streaming_state_lives_on_the_model_device():
     """The streaming functions follow the model: a CPU model keeps a CPU
     state, and numpy hops are moved to the model's device."""
@@ -464,7 +487,7 @@ def test_cc_kernel_matches_plain_on_card():
     2e-5 / atol 2e-4, the JAX kernel's tolerance); two launches on the same
     inputs give the same bits."""
     _need_card()
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.ops.window_gather import cc_kept_lags
     from biear_tpu_torch.ops.xcorr import cc_kept_lags_plain
@@ -478,7 +501,7 @@ def test_cc_kernel_matches_plain_on_card():
         lf, rf = (torch.tensor(rng.standard_normal((B, n)),
                                dtype=torch.float32, device="cuda")
                   for _ in range(2))
-        with no_tf32():
+        with precision_highest():
             want = cc_kept_lags_plain(lf, rf, mk)
             got = cc_kept_lags(lf, rf, mk)
         torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
@@ -489,7 +512,7 @@ def test_cc_kernel_matches_plain_on_card():
     lf, rf = (torch.tensor(rng.standard_normal(1 + 2 * 1280),
                            dtype=torch.float32, device="cuda")[1:].view(2, -1)
               for _ in range(2))
-    with no_tf32():
+    with precision_highest():
         torch.testing.assert_close(cc_kept_lags(lf, rf, 48),
                                    cc_kept_lags_plain(lf, rf, 48),
                                    rtol=2e-5, atol=2e-4)
@@ -504,7 +527,7 @@ def test_window_kernels_match_plain_on_card():
     from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
                                             make_test_hrir_bank,
                                             make_test_segments)
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.ops import window_gather as wg
 
@@ -520,7 +543,7 @@ def test_window_kernels_match_plain_on_card():
         offs, meas = crop.reshape(-1), meas.reshape(-1)
         assert torch.equal(wg.gather_windows(pool3, rows, offs),
                            wg.gather_windows_plain(pool3, rows, offs))
-        with no_tf32():
+        with precision_highest():
             torch.testing.assert_close(
                 wg.gather_mix_kb(pool3, rows, offs, meas, kb, nf),
                 wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf),
@@ -580,7 +603,7 @@ def test_mix_kernel_ragged_shapes_on_card(X, nf, ncol, M, wild):
     and with indices out of range (`wild`), which clamp; two launches on
     the same inputs give the same bits."""
     _need_card()
-    from biear_tpu_torch.device import no_tf32
+    from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.ops import window_gather as wg
 
     gen = torch.Generator(device="cuda").manual_seed(X + nf + ncol)
@@ -596,7 +619,7 @@ def test_mix_kernel_ragged_shapes_on_card(X, nf, ncol, M, wild):
     else:
         rows, offs, meas = (draw(0, NP), draw(0, nb * 128 - wg.WIN + 1),
                             draw(0, M))
-    with no_tf32():
+    with precision_highest():
         got = wg.gather_mix_kb(pool3, rows, offs, meas, kb, nf)
         want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
     torch.testing.assert_close(got, want, rtol=0, atol=5e-5)
@@ -1006,3 +1029,80 @@ def test_stream_apply_on_card_matches_forward(mode, fixed):
         assert g.device.type == "cuda"
         torch.testing.assert_close(g, w, rtol=0, atol=2e-4)
     assert stream_init(model, 2)["t"].device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_bench_measure_on_card_at_reduced_windows():
+    """bench.measure at full width on the card with one window of one
+    chunk and of 2 bare steps: bench.py's keys, the card's name and power
+    limit, an MFU, and the mix and CC kernels launched on the fused path."""
+    _need_card()
+    import ast
+    from biear_tpu_torch import bench
+    from biear_tpu_torch.kernels import LAUNCHES
+
+    tree = ast.parse(open(os.path.join(REPO, "bench.py")).read())
+    keys = next([k.value for k in n.keys] for n in ast.walk(tree)
+                if isinstance(n, ast.Dict) and any(
+                    isinstance(k, ast.Constant) and k.value == "metric"
+                    for k in n.keys))
+    LAUNCHES.clear()
+    out = bench.measure(batch=64, chunk=2, steps=2, chunk_dispatches=1,
+                        windows=1)
+    assert LAUNCHES["gather_mix_kb"] == 4 and LAUNCHES["cc_lags"] == 4
+    assert list(out) == keys + ["power_limit", "flops_by_op"]
+    assert out["device"] == torch.cuda.get_device_name()
+    assert out["power_limit"].endswith("W")
+    assert out["sync"] == "torch.cuda.synchronize"
+    assert out["value"] > 0 and out["model_step_utt_s"] > 0
+    if out["device"] in bench.PEAK_FLOPS:
+        assert 0 < out["mfu"] < 1
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.cuda)])
+def test_tensorfloat32_flags_inside_a_train_step(device):
+    """A train step under "tensorfloat32" runs its unpinned products with
+    TF32 on (forward and backward) and the filterbank's with TF32 off;
+    the flags are back as they were after the step. (The flags are
+    global, so the CPU run checks the same switching.)"""
+    if device == "cuda":
+        _need_card()
+    from biear_tpu_torch.device import matmul_precision
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.ops import filterbank
+    from biear_tpu_torch.train.loop import train_step
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import fixed_batch
+
+    cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative")
+    model = build_active(cfg, seed=0, device=device)
+    hp = TrainHyper()
+    opt = make_optimizer(model, hp)
+    flags = lambda: (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    seen = {}
+
+    def note(key):                     # a hook that changes nothing
+        return lambda *a: seen.setdefault(key, flags()) and None
+
+    model.body[0].register_forward_hook(note("body"))
+    model.body[0].weight.register_hook(note("body_backward"))
+    fn = filterbank.FilterbankFn._backward
+
+    def spy(ctx, *g):
+        seen.setdefault("filterbank_backward", flags())
+        return fn(ctx, *g)
+
+    before = flags()
+    filterbank.FilterbankFn._backward = staticmethod(spy)
+    try:
+        with matmul_precision("tensorfloat32"):
+            m = train_step(model, hp, opt, fixed_batch(4, 100, 0, device),
+                           torch.Generator(device=device).manual_seed(0))
+    finally:
+        filterbank.FilterbankFn._backward = staticmethod(fn)
+    assert seen == {"body": (True, True), "body_backward": (True, True),
+                    "filterbank_backward": (False, False)}
+    assert flags() == before
+    assert bool(torch.isfinite(m["loss"])) and float(m["skipped"]) == 0.0
