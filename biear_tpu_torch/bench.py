@@ -14,8 +14,9 @@ power limit under ``power_limit``:
     model at BATCH, median utterances/s of WINDOWS windows of
     CHUNK_DISPATCHES chunks of CHUNK steps; ``best`` and ``windows``
     beside it;
-  * ``model_step_utt_s``: the bare train step on one fixed batch in device
-    memory (``bench.py``'s batch), WINDOWS windows of STEPS steps;
+  * ``model_step_utt_s``: the bare train step (``train.loop.
+    make_train_step``) on one fixed batch in device memory (``bench.py``'s
+    batch), WINDOWS windows of STEPS steps;
   * ``flops_per_utt``: ``torch.utils.flop_counter.FlopCounterMode`` over
     one train step (forward, backward, Adam) of a CPU copy of the model
     at full width on FLOP_ROWS rows, divided by the rows. The counter
@@ -31,7 +32,10 @@ power limit under ``power_limit``:
     reference is not measured here);
   * ``sync``: every window ends in ``torch.cuda.synchronize()``.
 
-The flagship config is ``bench.py``'s; ``--f32-parity`` runs the f32
+On the card both run as captured CUDA graphs (``train/graph.py``: the
+step replayed per step, the chunk's synthesize -> step replayed per step
+of a chunk); the warm-up call captures them. The flagship config is
+``bench.py``'s; ``--f32-parity`` runs the f32
 filterbank operands, the rFFT and the f32 mix (the window-gather kernel
 and an f32 product) in place of the bf16 policy. The step runs under the
 process-wide MATMUL_PRECISION (``device.matmul_precision``, "default").
@@ -55,7 +59,7 @@ from .data.synth import (AnechoicSynthesizer, make_test_hrir_bank,
                          make_test_segments)
 from .device import resolve_device
 from .models import BiEARConfig, build_active
-from .train.loop import make_train_chunk, train_step
+from .train.loop import make_train_chunk, make_train_step, train_step
 from .train.optim import TrainHyper, make_optimizer
 from .train.profile_train import fixed_batch, rate_windows
 
@@ -103,14 +107,16 @@ def bare_step_rates(cfg: BiEARConfig, hp: TrainHyper, batch: int,
                     steps: int, windows: int, device,
                     trace_dir: str | None = None) -> list:
     """utt/s of `windows` windows of `steps` train steps on one fixed
-    batch (a fresh seeded model and optimizer, one warm-up step)."""
+    batch (a fresh seeded model and optimizer, one warm-up step, which
+    captures it on the card)."""
     device = resolve_device(device)
     sync = synchronizer(device)
     model = build_active(cfg, seed=0, device=device)
     opt = make_optimizer(model, hp)
     data = fixed_batch(batch, cfg.n_bands, 0, device)
     gen = torch.Generator(device=device).manual_seed(0)
-    step = lambda: train_step(model, hp, opt, data, gen)
+    train = make_train_step(model, hp, opt)
+    step = lambda: train(data, gen)
     step()
     rates = rate_windows(lambda: [step() for _ in range(steps)],
                          batch * steps, windows, sync)["windows"]
@@ -134,7 +140,8 @@ def fused_rates(cfg: BiEARConfig, hp: TrainHyper, batch: int, chunk: int,
                 segments: int = SEGMENTS) -> list:
     """utt/s of `windows` windows of `dispatches` fused chunks of `chunk`
     synthesize -> train steps (``bench.py``'s synthesizer fixture, a fresh
-    seeded model and optimizer, one warm-up chunk)."""
+    seeded model and optimizer, one warm-up chunk, which captures it on
+    the card)."""
     device = resolve_device(device)
     ir, az, dist = make_test_hrir_bank()
     synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(segments),

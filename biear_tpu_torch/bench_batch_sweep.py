@@ -10,7 +10,8 @@ At each batch: the bare train step and the fused synthesize -> train
 chunk of ``bench.py``'s flagship, with ``biear_tpu_torch.bench``'s
 methodology (windows ended by ``torch.cuda.synchronize()``, median of
 WINDOWS; step: STEPS steps per window; fused: CHUNK_DISPATCHES chunks of
-CHUNK steps), and the peak device memory of both. ``--fb-vjp`` sets
+CHUNK steps; both replay captured CUDA graphs, ``train/graph.py``), and
+the peak device memory of both. ``--fb-vjp`` sets
 ``BiEARConfig.fb_vjp`` (the filterbank backward); ``--matmul-precision``
 runs the sweep under that MATMUL_PRECISION (``device.matmul_precision``).
 Writes one JSON with a row per batch; a file whose ``device`` names a TPU

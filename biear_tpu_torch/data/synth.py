@@ -44,7 +44,6 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..device import precision_highest, resolve_device
 from ..ops.window_gather import (WIN, frame_windows, gather_mix_kb,
@@ -115,6 +114,14 @@ def normalise_peak(src: torch.Tensor, active: torch.Tensor,
     return level * y / peak
 
 
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n).bool()`` for indices in [0, n) as one
+    comparison: ``F.one_hot`` checks the range with a host read of the
+    indices' min and max on the CPU, a sync that a captured step must not
+    make."""
+    return idx[..., None] == torch.arange(n, device=idx.device)
+
+
 def sector_labels(active, sectors, angle_norm, dist_idx,
                   n_sectors: int = N_SECTORS) -> torch.Tensor:
     """Scatter-free labels (B, S * (2 + C)) from each slot's distinct
@@ -122,12 +129,13 @@ def sector_labels(active, sectors, angle_norm, dist_idx,
     + 1; 0 is 'no source'); inactive slots leave their sector empty."""
     S, C = n_sectors, N_DIST_CLASSES
     maskf = active.float()
-    sec1 = F.one_hot(sectors, S).float()                   # (B, MS, S)
+    sec1 = one_hot(sectors, S).float()                     # (B, MS, S)
     sound = torch.einsum("bms,bm->bs", sec1, maskf)
     angle = torch.einsum("bms,bm->bs", sec1, angle_norm * maskf)
-    base = torch.zeros((S, C), device=maskf.device)
-    base[:, 0] = 1.0
-    rows = F.one_hot(torch.where(active, dist_idx, 0), C).float()
+    # (S, C): class 0 ('no source') in every sector
+    base = one_hot(torch.zeros(S, dtype=torch.long, device=maskf.device),
+                   C).float()
+    rows = one_hot(torch.where(active, dist_idx, 0), C).float()
     covered = sec1.sum(dim=1)                              # (B, S)
     onehot = (base[None] * (1.0 - covered)[:, :, None]
               + torch.einsum("bms,bmc->bsc", sec1, rows))

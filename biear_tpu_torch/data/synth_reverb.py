@@ -30,12 +30,11 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..device import precision_highest, resolve_device
 from .labels import DIST_CLASSES, N_DIST_CLASSES, N_SECTORS
 from .synth import (finish_batch, host_meta, next_pow2, normalise_peak,
-                    row_slice, sector_labels, segment_offsets,
+                    one_hot, row_slice, sector_labels, segment_offsets,
                     slice_segments)
 
 # the room scenes' distance labelling: beyond 3 m a source is "other"
@@ -160,7 +159,7 @@ class ReverbSynthesizer:
         else:
             n_src = torch.randint(1, MS + 1, (B,), generator=gen, device=dev)
         spk_sector = self.sector_table[head]                      # (B, E)
-        occ = F.one_hot(spk_sector, S).amax(dim=1).bool()         # (B, S)
+        occ = one_hot(spk_sector, S).any(dim=1)                   # (B, S)
         n_eff = torch.minimum(n_src, occ.sum(dim=1))
         prio = (torch.rand((B, S), generator=gen, device=dev)
                 + torch.where(occ, 0.0, -1e9))
@@ -176,7 +175,7 @@ class ReverbSynthesizer:
             score = (r + torch.where(cand, 0.0, -1e9)
                      + torch.where(used, -1e3, 0.0))
             s = score.argmax(dim=1)
-            used = used | F.one_hot(s, E).bool()
+            used = used | one_hot(s, E)
             speakers.append(s)
         speakers = torch.stack(speakers, dim=1)                   # (B, MS)
         seg_idx = torch.randint(0, self.bank["segments"].shape[0], (B, MS),

@@ -14,7 +14,10 @@ products of the models. On the card:
   * "high", "tensorfloat32": TF32 on for cuBLAS and cuDNN ("high" is
     JAX's alias of "tensorfloat32").
   * "bfloat16": bf16 operands with f32 sums, by ``torch.autocast("cuda",
-    torch.bfloat16)``.
+    torch.bfloat16)`` with its cast cache off: a cached bf16 copy of a
+    weight lives until the outermost autocast block ends, so across the
+    optimizer's in-place updates of a run it would go stale, and inside
+    a CUDA graph capture it would outlive the capture.
 
 The products JAX pins to ``Precision.HIGHEST`` (the filterbank, the DFT,
 the fixed-Q, AuralNet and passive filterbanks, the plain CC, the mixes,
@@ -25,6 +28,7 @@ CUDA state is touched, so on the CPU every name computes the same bits.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -33,6 +37,19 @@ PRECISION_NAMES = ("default", "bfloat16", "tensorfloat32", "high",
 TF32_NAMES = ("high", "tensorfloat32")
 
 _policy = "default"          # the process-wide name, as JAX's config holds it
+
+
+def constant_cache(build):
+    """``functools.lru_cache`` for a function that makes constant tensors
+    (host arrays copied to a device once, not on every call). The tensors are
+    made outside inference mode: one made inside it could not be saved
+    for a backward, and a cached one outlives the block that made it."""
+    @functools.lru_cache(maxsize=None)
+    @functools.wraps(build)
+    def cached(*args):
+        with torch.inference_mode(False):
+            return build(*args)
+    return cached
 
 
 def resolve_device(device=None) -> torch.device:
@@ -93,7 +110,8 @@ def matmul_precision(name: str | None = None):
     prev, _policy = _policy, name
     try:
         with _tf32(name in TF32_NAMES), torch.autocast(
-                "cuda", dtype=torch.bfloat16, enabled=bf16):
+                "cuda", dtype=torch.bfloat16, enabled=bf16,
+                cache_enabled=False):
             yield
     finally:
         _policy = prev

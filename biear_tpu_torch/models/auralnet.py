@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import matmul_precision, resolve_device
+from ..device import constant_cache, matmul_precision, resolve_device
 from .backend import SubHead, SubHeads, make_body
 from .biear import check_gen
 from .config import BiEARConfig
@@ -48,6 +48,13 @@ def sinusoidal_pe(T: int, d_model: int) -> np.ndarray:
     pe[:, 0::2] = np.sin(position * div)
     pe[:, 1::2] = np.cos(position * div)
     return pe
+
+
+@constant_cache
+def device_pe(T: int, d_model: int, device: torch.device) -> torch.Tensor:
+    """sinusoidal_pe as a tensor on `device`, copied there once (not on
+    every forward)."""
+    return torch.as_tensor(sinusoidal_pe(T, d_model), device=device)
 
 
 class MultiheadSelfAttention(nn.Module):
@@ -125,8 +132,7 @@ class AttnBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, gen=None, train: bool = False):
         h = self.proj(x)
-        pe = torch.as_tensor(sinusoidal_pe(x.shape[1], h.shape[-1]),
-                             device=h.device)
+        pe = device_pe(x.shape[1], h.shape[-1], h.device)
         return self.encoder(h + pe[None], gen, train)
 
 

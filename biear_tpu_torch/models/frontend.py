@@ -46,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import precision_highest
+from ..device import constant_cache, precision_highest
 from ..ops.erb import erb_spaced_fc_and_q, make_deltaQ_profile
 from ..ops.filterbank import (band_phase, fb_forward, filterbank_apply_rhs,
                               resolve_fb_vjp, stack_rhs)
@@ -89,7 +89,14 @@ def frontend_constants(cfg: BiEARConfig) -> dict:
 
 
 def device_constants(cfg: BiEARConfig, device) -> dict:
-    """frontend_constants with the arrays as tensors on `device`."""
+    """frontend_constants with the arrays as tensors on `device`, copied
+    there once per (cfg, device) and shared by every caller (read only):
+    a copy per forward would put a host transfer inside every step."""
+    return _device_constants(cfg, torch.device(device))
+
+
+@constant_cache
+def _device_constants(cfg: BiEARConfig, device: torch.device) -> dict:
     return {k: torch.as_tensor(v, device=device) if isinstance(v, np.ndarray)
             else v for k, v in frontend_constants(cfg).items()}
 

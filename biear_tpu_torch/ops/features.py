@@ -29,7 +29,7 @@ import functools
 import numpy as np
 import torch
 
-from ..device import precision_highest
+from ..device import constant_cache, precision_highest
 
 DATA_DIM = 100
 TIMESTEPS = 19
@@ -84,7 +84,7 @@ def passive_consts(fs: int, n: int, timesteps: int, data_dim: int):
     return n_fft, hop, t, _padded_hann(win, n_fft), H
 
 
-@functools.lru_cache(maxsize=None)
+@constant_cache
 def _device_consts(fs: int, n: int, timesteps: int, data_dim: int,
                    device: torch.device):
     """The window and H.T as tensors on `device`, built once per geometry

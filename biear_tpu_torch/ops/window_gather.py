@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..kernels import LAUNCHES
+from ..kernels import count_launch
 
 MAX_KEPT = 63          # the lag window 2K+1 must fit the kernel's 128 lags
 WIN_BLOCKS = 128       # output window: 128 blocks of 128 = 16384 samples
@@ -77,7 +77,7 @@ def cc_kept_lags_cuda(lf: torch.Tensor, rf: torch.Tensor,
                                            out.data_ptr(), B, n, max_kept,
                                            stream)
     check_launch(err, "cc_lags")
-    LAUNCHES["cc_lags"] += 1
+    count_launch("cc_lags")
     return out
 
 
@@ -166,7 +166,7 @@ def gather_windows_cuda(pool3: torch.Tensor, rows: torch.Tensor,
             pool3.data_ptr(), rows.data_ptr(), offs.data_ptr(),
             out.data_ptr(), NP, nb * 128, X, stream)
     check_launch(err, "gather_windows")
-    LAUNCHES["gather_windows"] += 1
+    count_launch("gather_windows")
     return out
 
 
@@ -271,7 +271,7 @@ def gather_mix_kb_cuda(pool3, rows, offs, meas, kb, nf: int) -> torch.Tensor:
             meas.data_ptr(), kb.data_ptr(), out.data_ptr(),
             NP, nb * 128, M, ncol, X, nf, stream)
     check_launch(err, "gather_mix_kb")
-    LAUNCHES["gather_mix_kb"] += 1
+    count_launch("gather_mix_kb")
     return out
 
 

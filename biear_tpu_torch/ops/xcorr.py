@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import precision_highest
+from ..device import constant_cache, precision_highest
 
 
 @functools.lru_cache(maxsize=None)
@@ -43,13 +43,38 @@ def lag_plan(n: int, fs: int, num_lags: int, max_lag_ms: float):
     return kept.astype(np.int64), (j - 1).astype(np.int64), w.astype(np.float32)
 
 
-def interp_to_lags(cc_crop: torch.Tensor, j0: np.ndarray,
-                   w: np.ndarray) -> torch.Tensor:
+@constant_cache
+def device_lag_plan(n: int, fs: int, num_lags: int, max_lag_ms: float,
+                    device: torch.device) -> tuple:
+    """lag_plan's interp index j0 and weights w, and the rFFT path's
+    column of each kept lag (``kept mod fft_len``, None on the lag
+    kernel's path), as tensors on `device`, copied once per geometry and
+    device (not on every call)."""
+    kept, j0, w = lag_plan(n, fs, num_lags, max_lag_ms)
+    fft_len = rfft_len(n, int(np.max(np.abs(kept))))
+    idx = (None if fft_len is None
+           else torch.as_tensor(np.mod(kept, fft_len), device=device))
+    return (torch.as_tensor(j0, device=device),
+            torch.as_tensor(w, device=device), idx)
+
+
+def rfft_len(n: int, max_kept: int) -> int | None:
+    """The rFFT correlation's length (a circular wrap at a kept lag l
+    aliases corr(l - fft_len), which has zero overlap once fft_len >= n +
+    max|kept|), or None where the lag kernel's block path takes n."""
+    if n % 128 == 0 and 2 * max_kept <= 128:
+        return None
+    fft_len = 1
+    while fft_len < n + max_kept:
+        fft_len *= 2
+    return fft_len
+
+
+def interp_to_lags(cc_crop: torch.Tensor, j0: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
     """Peak-normalise the kept lags, then resample them (np.interp)."""
     peak = cc_crop.abs().amax(dim=-1, keepdim=True) + 1e-8
     cc_crop = cc_crop / peak
-    j0 = torch.as_tensor(j0, device=cc_crop.device)
-    w = torch.as_tensor(w, device=cc_crop.device)
     c0 = cc_crop[:, j0]
     c1 = cc_crop[:, j0 + 1]
     return (c0 + w[None, :] * (c1 - c0)).float()
@@ -93,25 +118,21 @@ def cross_correlation_feature(left: torch.Tensor, right: torch.Tensor,
     from .window_gather import MAX_KEPT, cc_kept_lags
 
     n = left.shape[1]
-    kept, j0, w = lag_plan(n, fs, num_lags, max_lag_ms)
+    kept = lag_plan(n, fs, num_lags, max_lag_ms)[0]
     max_kept = int(np.max(np.abs(kept)))
+    j0, w, idx = device_lag_plan(n, fs, num_lags, max_lag_ms, left.device)
     lf = left - left.mean(dim=-1, keepdim=True)
     rf = right - right.mean(dim=-1, keepdim=True)
 
-    if n % 128 == 0 and 2 * max_kept <= 128:
+    fft_len = rfft_len(n, max_kept)
+    if fft_len is None:
         if max_kept <= MAX_KEPT:
             cc = cc_kept_lags(lf, rf, max_kept)
         else:
             cc = cc_kept_lags_plain(lf, rf, max_kept)
         return interp_to_lags(cc, j0, w)
 
-    # Unaligned n: circular wrap at a kept lag l aliases corr(l - fft_len),
-    # which has zero overlap once fft_len >= n + max|kept|.
-    fft_len = 1
-    while fft_len < n + max_kept:
-        fft_len *= 2
     L = torch.fft.rfft(lf, n=fft_len)
     R = torch.fft.rfft(rf, n=fft_len)
     corr = torch.fft.irfft(L * torch.conj(R), n=fft_len)
-    idx = torch.as_tensor(np.mod(kept, fft_len), device=corr.device)
     return interp_to_lags(corr[:, idx], j0, w)

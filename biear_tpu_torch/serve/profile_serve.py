@@ -134,10 +134,18 @@ def stage_times(model, wavL, wavR) -> dict:
         }
 
 
+# the CUDA API calls that put work on a stream from the host
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                     "cudaMemcpyAsync", "cudaMemsetAsync")
+
+
 def device_profile(fn, calls: int = 3, top: int = 15) -> dict:
     """Device time by kernel over `calls` traced calls of fn (after one
-    untraced call), and the share of the traced wall time in which no
-    kernel ran (one stream, so kernel times do not overlap)."""
+    untraced call), the share of the traced wall time in which no kernel
+    ran (one stream, so kernel times do not overlap), and the host's calls
+    that enqueue work (kernel and graph launches, async copies and
+    fills) per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -154,11 +162,14 @@ def device_profile(fn, calls: int = 3, top: int = 15) -> dict:
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in HOST_LAUNCH_CALLS) / calls
     return {
         "wall_ms_per_call": wall_ms,
         "device_busy_ms_per_call": device_ms,
         "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
         "kernels_per_call": sum(r[2] for r in rows),
+        "host_launches_per_call": launches,
         "top": [{"name": k[:90], "ms_per_call": ms, "launches_per_call": n}
                 for k, ms, n in rows[:top]],
     }

@@ -51,7 +51,7 @@ from ..models.config import BiEARConfig
 from ..models.frontend import device_constants, fixed_forward, frame_spectra
 from ..ops.filterbank import stack_rhs
 from ..ops.framing import frame_params
-from ..ops.xcorr import interp_to_lags, lag_plan
+from ..ops.xcorr import device_lag_plan, interp_to_lags, lag_plan
 
 GRU1_HIDDEN = 200
 
@@ -66,15 +66,15 @@ def stream_plan(cfg: BiEARConfig) -> dict:
         raise NotImplementedError(
             "streaming inference requires hop_ratio == 1.0 (win == hop); "
             f"got win={win}, hop={hop}")
-    kept, j0, w = lag_plan(cfg.fs, cfg.fs, cfg.n_bands, 3.0)
+    kept = lag_plan(cfg.fs, cfg.fs, cfg.n_bands, 3.0)[0]
     K = int(np.max(np.abs(kept)))
     if len(kept) != 2 * K + 1:
         raise AssertionError("CC lag window is not contiguous")
     if win < K:
         raise NotImplementedError(
             f"first chunk must cover the CC head buffer: win={win} < K={K}")
-    return {"win": win, "hop": hop, "K": K, "j0": j0, "w": w,
-            "tail_len": cfg.fs - cfg.timesteps * hop}
+    return {"win": win, "hop": hop, "K": K, "fs": cfg.fs,
+            "num_lags": cfg.n_bands, "tail_len": cfg.fs - cfg.timesteps * hop}
 
 
 def _device(model: ActiveBiEAR) -> torch.device:
@@ -228,7 +228,9 @@ def _cc_readout(cc: dict, plan: dict) -> torch.Tensor:
     S_L = cc["sumL"][:, None] - torch.where(pos, headL, tailL)
     centered = (cc["raw"] - muL[:, None] * S_R - muR[:, None] * S_L
                 + (n[:, None] - a[None, :]) * (muL * muR)[:, None])
-    return interp_to_lags(centered, plan["j0"], plan["w"])
+    j0, w, _ = device_lag_plan(plan["fs"], plan["fs"], plan["num_lags"], 3.0,
+                               dev)
+    return interp_to_lags(centered, j0, w)
 
 
 # ---------------- per-frame step ----------------

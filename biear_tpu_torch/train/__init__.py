@@ -1,3 +1,3 @@
-"""Training of the port: losses, the optimizer, the train step and chunk,
-the runner and its checkpoints, the training profile, and checkpoint
+"""Training of the port: losses, the optimizer, the train step and chunk
+(captured as CUDA graphs on the card, ``graph.py``), the runner and its checkpoints, the training profile, and checkpoint
 evaluation."""

@@ -11,10 +11,13 @@ leaves the parameters and the whole Adam state untouched and counts as
 norms, absolute maxima, finite flags, per-leaf magnitude histograms) is
 computed in the same step.
 
-The chunk runs ``chunk_steps`` iterations of synthesize -> step in a
-Python loop; each step's generator draws the synthesis first and the
-dropout second. The whole step, forward and backward, runs under the
-process-wide MATMUL_PRECISION (``device.matmul_precision``).
+The chunk runs ``chunk_steps`` iterations of synthesize -> step; each
+step's generator draws the synthesis first and the dropout second. The
+whole step, forward and backward, runs under the process-wide
+MATMUL_PRECISION (``device.matmul_precision``). On a CUDA device without a
+mesh, ``make_train_step`` and ``make_train_chunk`` replay captured CUDA
+graphs of these steps (``train/graph.py``), JAX's one-dispatch programs;
+the CPU and a mesh run them eagerly, in a Python loop.
 
 Under a mesh (``parallel.mesh.Mesh``) each rank's loss and gradients are
 means over its rows; one flat all-reduce over the data group turns them
@@ -31,12 +34,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import matmul_precision
+from ..device import constant_cache, matmul_precision
 from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.frontend import device_constants
 from ..parallel.mesh import Mesh, all_reduce_grads, layout_of
 from .losses import q_regularizers, sanitize_wav, sanitize_x3, task_loss
+from .graph import CapturedChunk, CapturedStep, train_state
 from .optim import Adam, TrainHyper, is_frontend
 
 _Model = ActiveBiEAR | AuralNet | PassiveBiEAR
@@ -113,12 +117,18 @@ def group_norms(grads: dict, layout=None) -> dict:
     return out
 
 
+@constant_cache
+def _device_edges(device: torch.device) -> torch.Tensor:
+    """GRAD_HIST_EDGES on `device`, copied there once."""
+    return torch.as_tensor(GRAD_HIST_EDGES, device=device)
+
+
 def _hist_row(g: torch.Tensor) -> torch.Tensor:
     """(18,) counts of |g| per decade bucket: bucket k counts edges[k-1] <
     |g| <= edges[k], the underflow bucket first, the overflow bucket
     last."""
     a = g.abs().reshape(-1)
-    edges = torch.as_tensor(GRAD_HIST_EDGES, device=a.device)
+    edges = _device_edges(a.device)
     gt = (a[None, :] > edges[:, None]).sum(dim=1).float()
     n = torch.full((1,), float(a.numel()), device=a.device)
     return torch.cat([n - gt[:1], gt[:-1] - gt[1:], gt[-1:]])
@@ -132,10 +142,10 @@ def grad_histograms(grads: dict, max_leaves: int,
     of the whole tensors in ``grad_hist_names`` order: each rank's counts,
     summed over the model group."""
     names = list(grads if layout is None else layout.entries)[:max_leaves]
+    device = next(iter(grads.values())).device
     if not names:
-        return torch.zeros((0, len(GRAD_HIST_EDGES) + 1))
-    zero = torch.zeros(len(GRAD_HIST_EDGES) + 1,
-                       device=next(iter(grads.values())).device)
+        return torch.zeros((0, len(GRAD_HIST_EDGES) + 1), device=device)
+    zero = torch.zeros(len(GRAD_HIST_EDGES) + 1, device=device)
     rows = torch.stack([_hist_row(grads[n])
                         if n in grads and _counted(layout, n) else zero
                         for n in names])
@@ -229,9 +239,39 @@ def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
     return metrics
 
 
+def use_capture(model: _Model, mesh: Mesh | None,
+                capture: bool | None) -> bool:
+    """Whether the step runs as a captured CUDA graph: by default exactly
+    on a CUDA device without a mesh (gloo cannot be captured, NCCL in a
+    graph needs several cards); ``capture=False`` takes the eager loop on
+    the card; ``capture=True`` on the CPU or under a mesh raises."""
+    on_card = next(model.parameters()).is_cuda
+    if capture is None:
+        return on_card and mesh is None
+    if capture and not on_card:
+        raise ValueError("capture=True needs the model on a CUDA device: "
+                         "the CPU runs the eager step")
+    if capture and mesh is not None:
+        raise ValueError("capture=True under a mesh: its collectives run "
+                         "in the eager step")
+    return bool(capture)
+
+
 def make_train_step(model: _Model, hp: TrainHyper, optimizer: Adam,
-                    max_param_log: int = 200, mesh: Mesh | None = None):
-    """(batch, gen, lr_scale) -> metrics, training `model` in place."""
+                    max_param_log: int = 200, mesh: Mesh | None = None, *,
+                    capture: bool | None = None):
+    """(batch, gen, lr_scale) -> metrics, training `model` in place.
+
+    On a CUDA device without a mesh the step is a captured CUDA graph per
+    batch signature (``graph.CapturedStep``, JAX's jitted step), drawing
+    from the generator of its first call; the CPU, a mesh and
+    ``capture=False`` run the eager step (``use_capture``)."""
+    if use_capture(model, mesh, capture):
+        return CapturedStep(
+            lambda batch, gen, lr: train_step(model, hp, optimizer, batch,
+                                              gen, lr, max_param_log),
+            train_state(model, optimizer))
+
     def step(batch, gen, lr_scale=1.0) -> dict:
         return train_step(model, hp, optimizer, batch, gen, lr_scale,
                           max_param_log, mesh)
@@ -249,7 +289,8 @@ def make_eval_step(model: _Model, hp: TrainHyper):
 
 def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
                      synth_batch_fn, chunk_steps: int,
-                     max_param_log: int = 200, mesh: Mesh | None = None):
+                     max_param_log: int = 200, mesh: Mesh | None = None, *,
+                     capture: bool | None = None):
     """Fused dispatch: (gen, lr_scale, dropout_gen) -> metrics stacked
     over `chunk_steps` (synthesize -> train step) iterations.
     synth_batch_fn is gen -> batch (``AnechoicSynthesizer.batch_fn``,
@@ -257,7 +298,20 @@ def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
     model; under a mesh, of this rank's rows); per step the generator
     draws the synthesis first, then the dropout, from `dropout_gen` when
     given (a rank's ``RankGenerators`` over `gen`). (fb_vjp "auto" is
-    "custom" at every batch, which the JAX chunk forces.)"""
+    "custom" at every batch, which the JAX chunk forces.)
+
+    On a CUDA device without a mesh one synthesize -> step iteration is a
+    captured CUDA graph replayed `chunk_steps` times per call
+    (``graph.CapturedChunk``; JAX's scan is one program), drawing from
+    the generator of its first call, which the caller re-seeds between
+    chunks; the CPU, a mesh and ``capture=False`` run the eager loop
+    (``use_capture``)."""
+    if use_capture(model, mesh, capture):
+        return CapturedChunk(
+            lambda batch, gen, lr: train_step(model, hp, optimizer, batch,
+                                              gen, lr, max_param_log),
+            synth_batch_fn, chunk_steps, train_state(model, optimizer))
+
     def run_chunk(gen: torch.Generator, lr_scale=1.0,
                   dropout_gen=None) -> dict:
         ms = []

@@ -122,9 +122,12 @@ class Adam:
     def step(self, grads: dict, ok: torch.Tensor, lr_scale=1.0,
              norms: dict | None = None) -> None:
         """One update from `grads` (name -> gradient) where `ok` (a bool
-        tensor) is true; where it is false nothing changes. `norms` gives
-        each group's clip norm by label (the whole gradient's, for a model
-        cut over a model axis); by default it is the norm of `grads`."""
+        tensor) is true; where it is false nothing changes. `lr_scale` is
+        a float or a 0-dim tensor on the parameters' device, a tensor
+        operand of the update (a captured step reads its value at each
+        replay; the same bits as the float). `norms` gives each group's
+        clip norm by label (the whole gradient's, for a model cut over a
+        model axis); by default it is the norm of `grads`."""
         for g in self.groups:
             if not g.frozen and g.params:
                 self._update(g, [grads[n] for n in g.names], ok, lr_scale,

@@ -33,9 +33,14 @@ Reported:
     (the kernel alone on the anechoic fast path), the CC kernel, the
     passive features of both ears), forward (loss included), backward,
     optimizer;
-  * torch.profiler over two train steps: device-busy time, idle share of
-    the wall time and the top kernels;
-  * peak device memory of a train step.
+  * torch.profiler over two fused one-step chunks: device-busy time,
+    idle share of the wall time, host launches and the top kernels;
+  * peak device memory of the train step's warm-up and capture;
+  * each graph's warm-up and capture ms and its memory pool's bytes.
+
+The chunk and the step run as captured CUDA graphs (``train/graph.py``),
+as every training entry point on the card does; the stage times of the
+forward, backward and optimizer are of the eager code.
 Needs a CUDA card; prints the card's name and power limit.
 """
 
@@ -59,7 +64,7 @@ from ..models import BiEARConfig, build_active, build_auralnet, build_passive
 from ..ops.window_gather import cc_kept_lags, gather_mix_kb, gather_windows
 from ..ops.xcorr import lag_plan
 from ..serve.profile_serve import AURALNET, GEOMETRY, device_profile
-from .loop import make_train_chunk, model_loss, train_step
+from .loop import make_train_chunk, make_train_step, model_loss
 from .optim import TrainHyper, make_optimizer
 
 POLICIES = {"bf16": "bfloat16", "f32": "float32"}
@@ -136,7 +141,7 @@ def mix_stage(synth, B: int, gen):
                                                      crop.reshape(X))
 
 
-def stage_times(model, hp, opt, synth, batch, gen) -> dict:
+def stage_times(model, hp, opt, synth, batch, gen, train) -> dict:
     B = batch[0].shape[0]
     inner = getattr(synth, "inner", synth)
     mix_name, mix = mix_stage(inner, B, gen)
@@ -169,8 +174,7 @@ def stage_times(model, hp, opt, synth, batch, gen) -> dict:
         "forward_ms": events_ms(forward),
         "backward_ms": events_ms(backward, setup=lambda: forward(None)),
         "optimizer_ms": events_ms(lambda _: opt.step(grads, ok)),
-        "train_step_ms": events_ms(
-            lambda _: train_step(model, hp, opt, batch, gen)),
+        "train_step_ms": events_ms(lambda _: train(batch, gen)),
     }
     if synth is not inner:
         out["passive_features_ms"] = events_ms(
@@ -231,25 +235,25 @@ def main(argv=None):
 
     batch = (synth.sample_batch(gen, B) if args.model == "passive"
              else fixed_batch(B, cfg.n_bands, args.seed, "cuda"))
-    steps = lambda: [train_step(model, hp, opt, batch, gen)
-                     for _ in range(args.chunk)]
-    steps()
-    bare = rate_windows(steps, B * args.chunk, args.windows)
-
+    train = make_train_step(model, hp, opt)
     torch.cuda.reset_peak_memory_stats()
-    train_step(model, hp, opt, batch, gen)
+    train(batch, gen)                     # warm-up and capture
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    steps = lambda: [train(batch, gen) for _ in range(args.chunk)]
+    bare = rate_windows(steps, B * args.chunk, args.windows)
     result = {
         "card": smi, "batch": B, "policy": args.policy, "chunk": args.chunk,
         "controller_mode": args.controller_mode, "model": args.model,
         "scene": args.scene,
         "fused_train_pipeline_utterances_per_sec": fused,
         "model_step_utt_s": bare,
-        "stages": stage_times(model, hp, opt, synth, batch, gen),
+        "stages": stage_times(model, hp, opt, synth, batch, gen, train),
         "profile_fused_step": device_profile(
             lambda: one_step(gen), calls=2),
         "peak_memory_bytes_train_step": peak,
+        "capture": {"chunk": chunk.stats, "one_step_chunk": one_step.stats,
+                    "train_step": list(train.stats.values())},
     }
     text = json.dumps(result, indent=1)
     print(text)

@@ -20,8 +20,11 @@ skipped and nonfinite batches left out; the host reads them once per
 epoch.
 
 Random streams: the synthesised chunks draw their batches and dropout
-from a generator keyed by (seed, epoch, chunk index), so a run resumed
-after epoch e equals an uninterrupted one at a fixed SYNTH_CHUNK_STEPS;
+from one generator re-seeded before each chunk with the seed keyed by
+(seed, epoch, chunk index) (``keyed_seed``; one generator, since a
+captured chunk is registered with the generator it draws from), so a run
+resumed after epoch e equals an uninterrupted one at a fixed
+SYNTH_CHUNK_STEPS;
 the dataset path draws its dropout from a generator seeded with `seed`
 at each call of ``train``, as the JAX runner re-seeds its key. torch's
 streams are not JAX's: the two runners draw different batches and masks.
@@ -71,11 +74,16 @@ METRICS = ("loss", "sound_acc", "aoa_mae", "dist_acc")
 STEP_SCALARS = METRICS + ("grad_fb_norm", "grad_backend_norm")
 
 
-def keyed_generator(device, *key: int) -> torch.Generator:
-    """A generator on `device` seeded from the non-negative integers `key`
-    (seed, epoch, chunk index) through numpy's SeedSequence."""
+def keyed_seed(*key: int) -> int:
+    """The seed of the non-negative integers `key` (seed, epoch, chunk
+    index) through numpy's SeedSequence."""
     s = int(np.random.SeedSequence(list(key)).generate_state(1, np.uint64)[0])
-    return torch.Generator(device=device).manual_seed(s >> 1)
+    return s >> 1
+
+
+def keyed_generator(device, *key: int) -> torch.Generator:
+    """A generator on `device` seeded with ``keyed_seed(*key)``."""
+    return torch.Generator(device=device).manual_seed(keyed_seed(*key))
 
 
 def dropout_streams(mesh: Mesh | None, shared: torch.Generator, device,
@@ -350,6 +358,7 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
     sched = PlateauScheduler(factor=0.5, patience=10)
     step_gen = torch.Generator(device=device).manual_seed(seed)
     step_drop = dropout_streams(mesh, step_gen, device, seed) or step_gen
+    chunk_gen = torch.Generator(device=device)
     timings = {"eval_splits_s": None, "checkpoint_s": []}
 
     chunk_runners = {}
@@ -457,7 +466,8 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
 
     def run_train_chunked(name, epoch, steps, chunk):
         """An epoch as ceil(steps / chunk) fused synthesize -> train
-        chunks; chunk i draws from the generator keyed (seed, epoch, i).
+        chunks; chunk i draws from the chunk generator re-seeded with the
+        seed keyed (seed, epoch, i).
         The stream depends on SYNTH_CHUNK_STEPS, so seed-matched runs hold
         it fixed. The HIST_EVERY and PRINT_EVERY marks a chunk crosses are
         logged from its rows, with one host read per chunk."""
@@ -467,11 +477,12 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
         done = chunk_idx = 0
         while done < steps:
             c = min(chunk, steps - done)
-            gen = keyed_generator(device, seed, epoch, chunk_idx)
-            drop = dropout_streams(mesh, gen, device, seed, epoch, chunk_idx)
+            chunk_gen.manual_seed(keyed_seed(seed, epoch, chunk_idx))
+            drop = dropout_streams(mesh, chunk_gen, device, seed, epoch,
+                                   chunk_idx)
             chunk_idx += 1
             gs_before = global_step
-            ms = get_chunk_runner(c)(gen, lr_scale, drop)
+            ms = get_chunk_runner(c)(chunk_gen, lr_scale, drop)
             _accumulate(sums, ms, rc.batch_size)
             done += c
             global_step += c

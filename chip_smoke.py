@@ -181,13 +181,36 @@ Phases, each of which raises on failure (the exit code is then not 0):
      flagship forward (tests/test_precision.py's config, controllers
      perturbed so Q moves) at PRECISION_BATCH on the card against
      "highest" within PRECISION_TOL, the TF32 flags and CUDA autocast of
-     the name inside the block and restored after it; (c) one train step
-     of bench.py's flagship, AuralNet (phase 13's width) and the passive
-     model at PRECISION_STEP_BATCH under "tensorfloat32" and one under
-     "bfloat16": finite loss and gradient norms, nothing skipped; (d) ``probe_dft_matmul.probe`` at the production shape
+     the name inside the block and restored after it; (c) one captured
+     train step of bench.py's flagship, AuralNet (phase 13's width) and
+     the passive model at PRECISION_STEP_BATCH under "tensorfloat32" and
+     one under "bfloat16" (captured under the name: bf16 autocast without
+     its cast cache): finite loss and gradient norms, nothing skipped;
+     (d) ``probe_dft_matmul.probe`` at the production shape
      (batch 1024), DFT_PROBE_ITERS chained calls: each product's spectra
      against cuFFT's within DFT_PROBE_TOL of the spectrum's largest
      value, and the times.
+
+ 18. capture: the train chunk as a captured CUDA graph (``train/graph.py``,
+     the path every training entry point on the card takes) against the
+     eager loop (``capture=False``) from one state and seed: (a) the
+     flagship at TRAIN_BATCH under the bf16 and the f32 policy,
+     CAPTURE_CHUNKS chunks of CAPTURE_STEPS steps, the generator
+     re-seeded before each chunk as the runner does: the synthesised
+     waveforms, CC features and labels and the generator state equal bit
+     for bit, losses and parameters within CAPTURE_WITNESS times the
+     spread of two eager runs, one mix (or window gather) and one CC
+     launch per replay; a replay at lr_scale 0 leaves the parameters, a
+     parameter given new storage is refused; (b) single, passive,
+     AuralNet and the spirit scene, one chunk of CAPTURE_FAMILY_STEPS
+     steps each, the same checks; (c) both paths side by side per policy:
+     fused and bare-step utt/s, device busy ms, kernels per step, idle
+     share and host launches per chunk of CAPTURE_PROFILED_STEPS steps
+     (torch.profiler), the capture's ms and its memory pool.
+
+Every train chunk and step above runs captured; the first call of each
+captures it after WARMUP_STEPS eager steps, which launch the kernels
+too, so a first call counts WARMUP_STEPS launches more.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -283,10 +306,27 @@ PRECISION_STEP_BATCH = 64
 DFT_PROBE_ITERS = 5
 DFT_PROBE_TOL = {"dft_f32": 1e-5, "dft_f32_flat": 1e-5, "dft_tf32": 2e-3,
                  "dft_bf16_operands": 2e-3, "dft_bf16": 5e-3}
+# phase 18: the captured train chunk (train/graph.py) against the eager
+# one from one state and seed. The synthesised batches and the generator
+# state are held bit for bit (the same Philox offsets step for step); the
+# losses and parameters within CAPTURE_WITNESS times the spread of two
+# eager runs of the same chunks (the witness: the backward's atomic sums
+# differ from run to run), and exactly where the two eager runs agree
+CAPTURE_CHUNKS, CAPTURE_STEPS = 3, 16
+CAPTURE_FAMILY_STEPS = 4
+CAPTURE_PROFILED_STEPS = 4     # steps of (c)'s profiled chunk, both paths
+CAPTURE_BARE_STEPS = 8        # per window of (c)'s bare-step rate
+CAPTURE_WITNESS = 3.0
+CAPTURE_SEED = 1000
+
+
+_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One line of the run's log, with the seconds since the start."""
+    print(f"[chip_smoke {time.perf_counter() - _START:.1f}s] {msg}",
+          flush=True)
 
 
 def cuda_ms(fn, reps: int = 7, inner: int = 10) -> float:
@@ -382,13 +422,16 @@ def cc_timing(torch, lf, rf, K):
 
 def predict_plain_cc(torch, model, wavL, wavR):
     """predict's composition with the plain CC in place of the kernel."""
-    from biear_tpu_torch.ops.xcorr import (cc_kept_lags_plain, interp_to_lags,
+    from biear_tpu_torch.ops.xcorr import (cc_kept_lags_plain,
+                                           device_lag_plan, interp_to_lags,
                                            lag_plan)
     from biear_tpu_torch.train.losses import sanitize_wav, sanitize_x3
     cfg = model.cfg
     with torch.inference_mode():
         wavL, wavR = sanitize_wav(wavL, wavR)
-        kept, j0, w = lag_plan(wavL.shape[1], cfg.fs, cfg.n_bands, 3.0)
+        kept = lag_plan(wavL.shape[1], cfg.fs, cfg.n_bands, 3.0)[0]
+        j0, w, _ = device_lag_plan(wavL.shape[1], cfg.fs, cfg.n_bands, 3.0,
+                                   wavL.device)
         lf = wavL - wavL.mean(-1, keepdim=True)
         rf = wavR - wavR.mean(-1, keepdim=True)
         cc = cc_kept_lags_plain(lf, rf, int(np.abs(kept).max()))
@@ -805,7 +848,8 @@ def train_chunk_phase(torch, synth, label: str, steps: int):
     bare-step rates. Returns the chunk's launch counts."""
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
-    from biear_tpu_torch.train.loop import make_train_chunk, train_step
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.serve.profile_serve import GEOMETRY
     from biear_tpu_torch.train.profile_train import fixed_batch, rate_windows
@@ -828,9 +872,11 @@ def train_chunk_phase(torch, synth, label: str, steps: int):
     log(f"{label} train chunk ({steps} steps, B={TRAIN_BATCH}, bf16) "
         f"launches: {launches}")
     for k in ("gather_mix_kb", "cc_lags"):
-        if launches.get(k, 0) != steps:
+        # the first call captures: WARMUP_STEPS eager steps, then replays
+        if launches.get(k, 0) != steps + WARMUP_STEPS:
             raise RuntimeError(f"{label}: {k} launched {launches.get(k, 0)} "
-                               f"times in {steps} train steps")
+                               f"times in {WARMUP_STEPS} warm-up and {steps} "
+                               "train steps")
     losses = ms["loss"].tolist()
     log(f"{label} train losses {losses!r}, skipped {ms['skipped'].tolist()}")
     log(f"{label} grad norms: frontend {ms['grad_fb_norm'].tolist()!r}, "
@@ -857,9 +903,10 @@ def train_chunk_phase(torch, synth, label: str, steps: int):
 
     fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * steps, 3)
     fb = fixed_batch(TRAIN_BATCH, cfg.n_bands, 0, "cuda")
-    bare = rate_windows(
-        lambda: [train_step(model, hp, opt, fb, gen) for _ in range(steps)],
-        TRAIN_BATCH * steps, 3)
+    step = make_train_step(model, hp, opt)
+    step(fb, gen)
+    bare = rate_windows(lambda: [step(fb, gen) for _ in range(steps)],
+                        TRAIN_BATCH * steps, 3)
     log(f"{label} train B={TRAIN_BATCH} bf16: fused pipeline "
         f"{fused['median']!r} utterances/s [{fused['min']!r}-"
         f"{fused['max']!r}], bare step {bare['median']!r} utterances/s "
@@ -870,6 +917,7 @@ def train_chunk_phase(torch, synth, label: str, steps: int):
 def phase_train(torch, synth):
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.serve.profile_serve import GEOMETRY
@@ -892,7 +940,7 @@ def phase_train(torch, synth):
     launches["train_f32"] = dict(LAUNCHES)
     log(f"train step (B=64, f32) launches: {launches['train_f32']}, loss "
         f"{float(ms32['loss'][0])!r}")
-    if (LAUNCHES.get("gather_windows", 0) != 1
+    if (LAUNCHES.get("gather_windows", 0) != 1 + WARMUP_STEPS
             or LAUNCHES.get("gather_mix_kb", 0) != 0
             or not bool(torch.isfinite(ms32["loss"]).all())
             or float(ms32["skipped"].sum()) != 0):
@@ -1156,6 +1204,7 @@ def phase_runner(torch):
     from biear_tpu_torch.train import state as ckpt
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import make_optimizer
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
     from biear_tpu_torch.train.profile_train import rate_windows
     from biear_tpu_torch.train.runner import train
 
@@ -1182,7 +1231,8 @@ def phase_runner(torch):
         run = out["run_dir"]
         log(f"runner launches (2 epochs and a resume): {launches}")
         val_b, test_b = synth_eval_batches(RUNNER_EVAL, B)
-        want = 3 * RUNNER_STEPS + 2 * (1 + val_b + test_b)
+        # each train call captures its chunk: WARMUP_STEPS eager steps
+        want = 3 * RUNNER_STEPS + 2 * (1 + val_b + test_b + WARMUP_STEPS)
         for k in ("cc_lags", "gather_windows"):
             if launches.get(k, 0) != want:
                 raise RuntimeError(f"runner: {k} launched "
@@ -1301,6 +1351,7 @@ def runner_phase(torch, name: str, epochs: int, label: str,
     from biear_tpu_torch import train_biear
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.config import is_passive
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
     from biear_tpu_torch.train.runner import train
 
     rc = synthesised_run_config(name, epochs)
@@ -1325,7 +1376,7 @@ def runner_phase(torch, name: str, epochs: int, label: str,
         launches = dict(LAUNCHES)
         hist = check_run_tree(out["run_dir"], label)
     val_b, test_b = synth_eval_batches(RUNNER_EVAL, B)
-    want = epochs * RUNNER_STEPS + 1 + val_b + test_b
+    want = epochs * RUNNER_STEPS + 1 + val_b + test_b + WARMUP_STEPS
     log(f"{label} launches ({epochs} epochs): {launches}; expected {want} "
         f"of cc_lags{' and gather_windows' if fast else ''}")
     if (launches.get("cc_lags", 0) != want
@@ -1386,7 +1437,8 @@ def phase_passive(torch, synth_bf16):
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_passive
     from biear_tpu_torch.ops.features import passive_features
-    from biear_tpu_torch.train.loop import make_train_chunk, train_step
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.train.profile_train import rate_windows
 
@@ -1427,8 +1479,8 @@ def phase_passive(torch, synth_bf16):
     log(f"passive train chunk ({TRAIN_STEPS} steps, B={TRAIN_BATCH}, bf16 "
         f"mix) launches: {launches['passive_train_bf16']}; losses "
         f"{losses!r}, skipped {ms['skipped'].tolist()}")
-    if (LAUNCHES.get("gather_mix_kb", 0) != TRAIN_STEPS
-            or LAUNCHES.get("cc_lags", 0) != TRAIN_STEPS
+    if (LAUNCHES.get("gather_mix_kb", 0) != TRAIN_STEPS + WARMUP_STEPS
+            or LAUNCHES.get("cc_lags", 0) != TRAIN_STEPS + WARMUP_STEPS
             or LAUNCHES.get("gather_windows", 0)
             or not all(np.isfinite(losses))
             or float(ms["skipped"].sum()) != 0):
@@ -1440,9 +1492,10 @@ def phase_passive(torch, synth_bf16):
         raise RuntimeError("passive train chunk: the parameters did not move")
     fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * TRAIN_STEPS, 3)
     fb = psynth.sample_batch(gen, TRAIN_BATCH)
-    bare = rate_windows(
-        lambda: [train_step(model, hp, opt, fb, gen)
-                 for _ in range(TRAIN_STEPS)], TRAIN_BATCH * TRAIN_STEPS, 3)
+    step = make_train_step(model, hp, opt)
+    step(fb, gen)
+    bare = rate_windows(lambda: [step(fb, gen) for _ in range(TRAIN_STEPS)],
+                        TRAIN_BATCH * TRAIN_STEPS, 3)
     log(f"passive train B={TRAIN_BATCH}: fused pipeline {fused['median']!r} "
         f"utterances/s [{fused['min']!r}-{fused['max']!r}], bare step "
         f"{bare['median']!r} utterances/s [{bare['min']!r}-{bare['max']!r}] "
@@ -1472,6 +1525,7 @@ def phase_reverb(torch):
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.serve.profile_serve import GEOMETRY
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.train.profile_train import rate_windows
@@ -1541,7 +1595,7 @@ def phase_reverb(torch):
         f"26 offsets): launches {launches['general_train']}; losses "
         f"{losses!r}, skipped {ms['skipped'].tolist()}; "
         f"{rate['median']!r} utterances/s [{rate['min']!r}-{rate['max']!r}]")
-    if (got_l.get("cc_lags", 0) != RUNNER_CHUNK
+    if (got_l.get("cc_lags", 0) != RUNNER_CHUNK + WARMUP_STEPS
             or got_l.get("gather_mix_kb", 0)
             or got_l.get("gather_windows", 0)
             or not all(np.isfinite(losses))
@@ -1620,7 +1674,8 @@ def phase_auralnet(torch, rng, synth):
     from biear_tpu_torch.models import BiEARConfig, build_auralnet
     from biear_tpu_torch.serve.profile_serve import AURALNET
     from biear_tpu_torch.serve.streaming import stream_init
-    from biear_tpu_torch.train.loop import make_train_chunk, train_step
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.train.profile_train import fixed_batch, rate_windows
 
@@ -1651,8 +1706,8 @@ def phase_auralnet(torch, rng, synth):
         f"{ms['skipped'].tolist()}; backend grad norms "
         f"{ms['grad_backend_norm'].tolist()!r}; max parameter change by "
         f"part {parts!r}")
-    if (got.get("gather_mix_kb", 0) != TRAIN_STEPS
-            or got.get("cc_lags", 0) != TRAIN_STEPS
+    if (got.get("gather_mix_kb", 0) != TRAIN_STEPS + WARMUP_STEPS
+            or got.get("cc_lags", 0) != TRAIN_STEPS + WARMUP_STEPS
             or got.get("gather_windows", 0)
             or not all(np.isfinite(losses))
             or float(ms["skipped"].sum()) != 0
@@ -1661,9 +1716,10 @@ def phase_auralnet(torch, rng, synth):
                            "loss, skipped step or a part that did not move")
     fused = rate_windows(lambda: chunk(gen), TRAIN_BATCH * TRAIN_STEPS, 3)
     fb = fixed_batch(TRAIN_BATCH, cfg.n_bands, 0, "cuda")
-    bare = rate_windows(
-        lambda: [train_step(model, hp, opt, fb, gen)
-                 for _ in range(TRAIN_STEPS)], TRAIN_BATCH * TRAIN_STEPS, 3)
+    step = make_train_step(model, hp, opt)
+    step(fb, gen)
+    bare = rate_windows(lambda: [step(fb, gen) for _ in range(TRAIN_STEPS)],
+                        TRAIN_BATCH * TRAIN_STEPS, 3)
     log(f"auralnet train B={TRAIN_BATCH} bf16: fused pipeline "
         f"{fused['median']!r} utterances/s [{fused['min']!r}-"
         f"{fused['max']!r}], bare step {bare['median']!r} utterances/s "
@@ -1682,7 +1738,8 @@ def phase_auralnet(torch, rng, synth):
     launches["auralnet_train_f32"] = got = dict(LAUNCHES)
     log(f"auralnet train step (B=64, f32) launches: {got}, loss "
         f"{float(ms32['loss'][0])!r}")
-    if (got.get("gather_windows", 0) != 1 or got.get("cc_lags", 0) != 1
+    if (got.get("gather_windows", 0) != 1 + WARMUP_STEPS
+            or got.get("cc_lags", 0) != 1 + WARMUP_STEPS
             or got.get("gather_mix_kb", 0)
             or not bool(torch.isfinite(ms32["loss"]).all())
             or float(ms32["skipped"].sum()) != 0):
@@ -1748,6 +1805,7 @@ def phase_protocol(torch, tmp: str):
     for phase 15; returns (launches, {label: run directory})."""
     from biear_tpu_torch import eval_by_snr, protocol_eval, run_full_protocol
     from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
 
     here = os.path.dirname(os.path.abspath(__file__))
     pool, train_size, eval_size = PROTOCOL_SIZES
@@ -1768,9 +1826,10 @@ def phase_protocol(torch, tmp: str):
         launches[f"protocol_{label}"] = got = dict(LAUNCHES)
         val_b, test_b = synth_eval_batches(eval_size, 64)
         steps = train_size // 64
-        # training steps, the sanity batch, the runner's val and test
-        # splits, then test1 and test2
-        want = steps + 1 + val_b + 3 * test_b
+        # training steps (the chunk's capture: WARMUP_STEPS more), the
+        # sanity batch, the runner's val and test splits, then test1 and
+        # test2
+        want = steps + WARMUP_STEPS + 1 + val_b + 3 * test_b
         tr = res["history"]["train"][0]
         log(f"protocol {label}: launches {got} (expected {want} of "
             f"cc_lags and gather_windows); pools {res['pool_s']!r} s, "
@@ -2465,7 +2524,7 @@ def phase_precision(torch, rng):
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import (BiEARConfig, build_active,
                                         build_passive)
-    from biear_tpu_torch.train.loop import train_step
+    from biear_tpu_torch.train.loop import make_train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.train.profile_train import fixed_batch
 
@@ -2533,10 +2592,10 @@ def phase_precision(torch, rng):
     for (label, (build, batch)), name in itertools.product(
             models.items(), ("tensorfloat32", "bfloat16")):
         m = build()
-        opt = make_optimizer(m, hp)
+        step = make_train_step(m, hp, make_optimizer(m, hp))
         gen = torch.Generator(device="cuda").manual_seed(0)
-        with matmul_precision(name):
-            got = train_step(m, hp, opt, batch, gen)
+        with matmul_precision(name):       # captured under the name
+            got = step(batch, gen)
         got = {k: float(got[k]) for k in ("loss", "grad_fb_norm",
                                           "grad_backend_norm", "skipped")}
         log(f"precision (c) {label} {name}: train step at B={B}: {got}")
@@ -2557,6 +2616,254 @@ def phase_precision(torch, rng):
         if not worst <= tol:
             raise RuntimeError(f"DFT probe {name}: {acc}")
     log(f"phase 17 in {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def recording_batch_fn(torch, fn, steps: int):
+    """fn (gen -> batch) wrapped to also copy batch i of a chunk into row
+    i of (steps, ...) buffers (a device counter advanced by the call
+    modulo `steps`, so a captured chunk's replays record as the eager
+    calls do). Returns (the wrapper, the buffers, the counter, which the
+    caller zeroes before each chunk)."""
+    probe = fn(torch.Generator(device="cuda").manual_seed(12345))
+    bufs = [torch.empty((steps, *t.shape), dtype=t.dtype, device=t.device)
+            for t in probe]
+    row = torch.zeros(1, dtype=torch.long, device="cuda")
+
+    def run(gen):
+        batch = fn(gen)
+        for buf, t in zip(bufs, batch):
+            buf.index_copy_(0, row, t[None])
+        row.add_(1).remainder_(steps)
+        return batch
+    return run, bufs, row
+
+
+def max_abs(torch, a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def capture_witness(torch, label: str, build, batch_fn, steps: int,
+                    chunks: int, batch: int) -> dict:
+    """Three copies of one seeded model: two eager chunks (capture=False,
+    the witness pair) and one captured, each drawing from a generator
+    re-seeded with CAPTURE_SEED + c before chunk c. After every chunk the
+    captured run's batches and generator state equal the eager run's bit
+    for bit; its losses and parameters lie within CAPTURE_WITNESS times
+    the two eager runs' spread. Then a replay at lr_scale 0 leaves the
+    parameters as they were, and a parameter given new storage makes the
+    next call raise. Returns the launch counts of the captured chunks,
+    their utt/s against the eager ones' and the capture's stats."""
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+
+    hp = TrainHyper()
+    runs = {}
+    for name, capture in (("eager", False), ("witness", False),
+                          ("captured", True)):
+        model = build()
+        fn, bufs, row = recording_batch_fn(torch, batch_fn, steps)
+        runs[name] = {"model": model, "bufs": bufs, "row": row,
+                      "gen": torch.Generator(device="cuda"), "rates": [],
+                      "chunk": make_train_chunk(model, hp,
+                                                make_optimizer(model, hp),
+                                                fn, steps, capture=capture)}
+    cap = runs["captured"]
+    cap["gen"].manual_seed(CAPTURE_SEED)
+    cap["chunk"].capture(cap["gen"])
+    stats = cap["chunk"].stats
+    log(f"{label}: captured one synthesize -> step iteration at B={batch}: "
+        f"warm-up {stats['warmup_ms']!r} ms, capture {stats['capture_ms']!r}"
+        f" ms, pool {stats['pool_bytes'] / 1e9!r} GB")
+    launches = {}
+    worst = {"loss": (0.0, 0.0), "params": (0.0, 0.0)}
+    for c in range(chunks):
+        ms = {}
+        for name, r in runs.items():
+            r["gen"].manual_seed(CAPTURE_SEED + c)
+            r["row"].zero_()
+            torch.cuda.synchronize()
+            if name == "captured":
+                LAUNCHES.clear()
+            t0 = time.perf_counter()
+            ms[name] = r["chunk"](r["gen"])
+            torch.cuda.synchronize()
+            r["rates"].append(batch * steps / (time.perf_counter() - t0))
+            if name == "captured":
+                got = dict(LAUNCHES)
+                for k, v in got.items():
+                    launches[k] = launches.get(k, 0) + v
+                if got.get("cc_lags", 0) != steps:
+                    raise RuntimeError(f"{label} chunk {c}: cc_lags launched "
+                                       f"{got.get('cc_lags', 0)} times in "
+                                       f"{steps} replays")
+        e, w, g = runs["eager"], runs["witness"], runs["captured"]
+        for name in ("witness", "captured"):
+            r = runs[name]
+            if not all(torch.equal(a, b) for a, b in zip(r["bufs"],
+                                                         e["bufs"])):
+                raise RuntimeError(f"{label} chunk {c}: the {name} run's "
+                                   "synthesised batches differ from the "
+                                   "eager run's")
+            if not torch.equal(r["gen"].get_state(), e["gen"].get_state()):
+                raise RuntimeError(f"{label} chunk {c}: the {name} run's "
+                                   "generator state differs")
+        for key, got, want, wit in (
+                ("loss", {"l": ms["captured"]["loss"]},
+                 {"l": ms["eager"]["loss"]}, {"l": ms["witness"]["loss"]}),
+                ("params", snapshot(g["model"]), snapshot(e["model"]),
+                 snapshot(w["model"]))):
+            err, spread = max_abs(torch, got, want), max_abs(torch, wit, want)
+            worst[key] = (max(worst[key][0], err), max(worst[key][1], spread))
+            if err > CAPTURE_WITNESS * spread:
+                raise RuntimeError(
+                    f"{label} chunk {c}: captured {key} off the eager run by "
+                    f"{err!r}, {CAPTURE_WITNESS!r} x the witness spread "
+                    f"{spread!r}")
+        if not (bool(torch.isfinite(ms["captured"]["loss"]).all())
+                and float(ms["captured"]["skipped"].sum()) == 0):
+            raise RuntimeError(f"{label} chunk {c}: nonfinite loss or a "
+                               "skipped step")
+    log(f"{label}: {chunks} chunks of {steps} steps, batches and generator "
+        f"bit for bit; captured vs eager (witness spread): losses "
+        f"{worst['loss'][0]!r} ({worst['loss'][1]!r}), parameters "
+        f"{worst['params'][0]!r} ({worst['params'][1]!r})")
+
+    gen, chunk, model = cap["gen"], cap["chunk"], cap["model"]
+    before = snapshot(model)
+    chunk(gen, 0.0)
+    if max_abs(torch, snapshot(model), before) != 0.0:
+        raise RuntimeError(f"{label}: a replay at lr_scale 0 moved the "
+                           "parameters")
+    chunk(gen, 1.0)
+    if max_abs(torch, snapshot(model), before) == 0.0:
+        raise RuntimeError(f"{label}: a replay at lr_scale 1 after 0 left "
+                           "the parameters")
+    p = next(model.parameters())
+    kept = p.data
+    p.data = kept.clone()
+    try:
+        chunk(gen)
+    except RuntimeError as err:
+        if "new storage" not in str(err):
+            raise
+        log(f"{label}: a parameter with new storage is refused: "
+            f"{str(err)[:80]}...")
+    else:
+        raise RuntimeError(f"{label}: a replay after a storage swap ran")
+    finally:
+        p.data = kept
+    rate = {k: statistics.median(runs[k]["rates"][1:] or runs[k]["rates"])
+            for k in ("eager", "captured")}
+    return {"launches": launches, "fused_utt_s": rate, "stats": stats,
+            "loss_err": worst["loss"], "param_err": worst["params"],
+            "batch_fn": batch_fn}
+
+
+def capture_side_by_side(torch, label: str, res: dict, cfg, batch: int,
+                         steps: int) -> dict:
+    """(c): the captured and the eager path of one policy side by side in
+    this call: fused utt/s (from the witness chunks), bare-step utt/s
+    (two windows of CAPTURE_BARE_STEPS steps on bench.py's fixed batch),
+    and torch.profiler over one chunk of CAPTURE_PROFILED_STEPS steps of
+    each path (the profiler's cost per event makes a whole chunk slow to
+    trace): device busy ms and kernels per step, idle share (under the
+    profiler), host launches per chunk of those steps."""
+    from biear_tpu_torch.models import build_active
+    from biear_tpu_torch.serve.profile_serve import device_profile
+    from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import fixed_batch, rate_windows
+
+    hp = TrainHyper()
+    fb = fixed_batch(batch, cfg.n_bands, 0, "cuda")
+    out = {"fused_utt_s": res["fused_utt_s"]}
+    for name, capture in (("captured", True), ("eager", False)):
+        model = build_active(cfg, seed=0)
+        step_opt = make_optimizer(model, hp)
+        step = make_train_step(model, hp, step_opt, capture=capture)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step(fb, gen)
+        bare = rate_windows(
+            lambda: [step(fb, gen) for _ in range(CAPTURE_BARE_STEPS)],
+            batch * CAPTURE_BARE_STEPS, 2)
+        n = CAPTURE_PROFILED_STEPS
+        chunk = make_train_chunk(model, hp, step_opt, res["batch_fn"], n,
+                                 capture=capture)
+        prof = device_profile(lambda: chunk(gen), calls=1)
+        out[name] = {
+            "bare_utt_s": bare["median"], "bare_windows": bare["windows"],
+            "profiled_steps": n,
+            "step_wall_ms": prof["wall_ms_per_call"] / n,
+            "busy_ms_per_step": prof["device_busy_ms_per_call"] / n,
+            "idle_share": prof["device_idle_share"],
+            "kernels_per_step": prof["kernels_per_call"] / n,
+            "host_launches_per_chunk": prof["host_launches_per_call"]}
+        if capture:
+            out[name]["step_capture"] = list(step.stats.values())
+            out[name]["profiled_chunk_capture"] = chunk.stats
+    out["chunk_capture"] = res["stats"]
+    log(f"{label} captured vs eager: {json.dumps(out)}")
+    return out
+
+
+def phase_capture(torch, synth, smi: str) -> dict:
+    """18: the train chunk as a captured CUDA graph against the eager
+    loop. (a) the flagship at TRAIN_BATCH, bf16 and f32 policies,
+    CAPTURE_CHUNKS chunks of CAPTURE_STEPS steps (``capture_witness``);
+    (b) single, passive, AuralNet and the spirit scene, one chunk of
+    CAPTURE_FAMILY_STEPS steps each; (c) both paths measured side by
+    side, per policy (``capture_side_by_side``). Returns the captured
+    chunks' launch counts."""
+    from biear_tpu_torch.bench import flagship_config
+    from biear_tpu_torch.data.passive_synth import PassiveFeatureSynth
+    from biear_tpu_torch.data.synth import build_synthesizer, make_test_segments
+    from biear_tpu_torch.models import (BiEARConfig, build_active,
+                                        build_auralnet, build_passive)
+    from biear_tpu_torch.serve.profile_serve import AURALNET, GEOMETRY
+
+    launches, report = {}, {}
+    synths = {"bfloat16": synth, "float32": training_synth(torch, "float32")}
+    for policy, kernel in (("bfloat16", "gather_mix_kb"),
+                           ("float32", "gather_windows")):
+        cfg = flagship_config(policy)
+        res = capture_witness(
+            torch, f"capture flagship {policy}",
+            lambda: build_active(cfg, seed=0),
+            synths[policy].batch_fn(TRAIN_BATCH), CAPTURE_STEPS,
+            CAPTURE_CHUNKS, TRAIN_BATCH)
+        got = res["launches"]
+        want = CAPTURE_CHUNKS * CAPTURE_STEPS
+        if got.get(kernel, 0) != want or got.get("cc_lags", 0) != want:
+            raise RuntimeError(f"capture {policy}: launches {got}, expected "
+                               f"{want} of {kernel} and cc_lags")
+        launches[f"capture_{policy}"] = got
+        report[policy] = capture_side_by_side(torch, f"flagship {policy}",
+                                              res, cfg, TRAIN_BATCH,
+                                              CAPTURE_STEPS)
+    single = BiEARConfig(**GEOMETRY["single"], fb_w_dtype="bfloat16")
+    auralnet = BiEARConfig(**AURALNET, fb_w_dtype="bfloat16")
+    passive = BiEARConfig(fb_w_dtype="bfloat16")
+    spirit = build_synthesizer("spirit", None, make_test_segments(64), 16000,
+                               num_lags=100)
+    for label, build, fn, B in (
+            ("single", lambda: build_active(single, seed=0),
+             synth.batch_fn(TRAIN_BATCH), TRAIN_BATCH),
+            ("passive", lambda: build_passive(passive, seed=0),
+             PassiveFeatureSynth(synth).batch_fn(TRAIN_BATCH), TRAIN_BATCH),
+            ("auralnet", lambda: build_auralnet(auralnet, seed=0),
+             synth.batch_fn(TRAIN_BATCH), TRAIN_BATCH),
+            ("spirit", lambda: build_active(flagship_config(), seed=0),
+             spirit.batch_fn(REVERB_BATCH), REVERB_BATCH)):
+        res = capture_witness(torch, f"capture {label}", build, fn,
+                              CAPTURE_FAMILY_STEPS, 1, B)
+        launches[f"capture_{label}"] = res["launches"]
+        report[label] = {"fused_utt_s": res["fused_utt_s"],
+                         "capture": res["stats"],
+                         "loss_err": res["loss_err"],
+                         "param_err": res["param_err"]}
+    log(f"capture report ({smi}): {json.dumps(report)}")
     return launches
 
 
@@ -2612,6 +2919,7 @@ def main() -> int:
                                       runner_metrics))
     launches.update(phase_distributed(torch, smi))
     launches["bench"] = phase_precision(torch, rng)
+    launches.update(phase_capture(torch, synth, smi))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())

@@ -628,13 +628,16 @@ def test_mix_kernel_ragged_shapes_on_card(X, nf, ncol, M, wild):
 
 @pytest.mark.cuda
 def test_train_chunk_on_card_launches_the_kernels():
-    """Two fused synthesize -> train steps on the card: one mix and one CC
-    launch per step, finite losses, nothing skipped."""
+    """Two fused synthesize -> train steps on the card, captured: one mix
+    and one CC launch per step (per replay; the first call adds the
+    capture's WARMUP_STEPS eager steps), finite losses, nothing
+    skipped."""
     _need_card()
     from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
                                             make_test_hrir_bank,
                                             make_test_segments)
     from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
@@ -648,8 +651,13 @@ def test_train_chunk_on_card_launches_the_kernels():
     hp = TrainHyper()
     chunk = make_train_chunk(model, hp, make_optimizer(model, hp),
                              synth.batch_fn(8), 2)
+    gen = torch.Generator(device="cuda").manual_seed(0)
     LAUNCHES.clear()
-    ms = chunk(torch.Generator(device="cuda").manual_seed(0))
+    chunk(gen)
+    assert LAUNCHES["gather_mix_kb"] == 2 + WARMUP_STEPS
+    assert LAUNCHES["cc_lags"] == 2 + WARMUP_STEPS
+    LAUNCHES.clear()
+    ms = chunk(gen)
     assert LAUNCHES["gather_mix_kb"] == 2 and LAUNCHES["cc_lags"] == 2
     assert bool(torch.isfinite(ms["loss"]).all())
     assert float(ms["skipped"].sum()) == 0.0
@@ -665,6 +673,7 @@ def test_auralnet_on_card_launches_the_kernels():
                                             make_test_hrir_bank,
                                             make_test_segments)
     from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
     from biear_tpu_torch.models import BiEARConfig, build_auralnet
     from biear_tpu_torch.serve.infer import predict
     from biear_tpu_torch.serve.profile_serve import AURALNET
@@ -690,7 +699,8 @@ def test_auralnet_on_card_launches_the_kernels():
                              synth.batch_fn(8), 1)
     LAUNCHES.clear()
     ms = chunk(torch.Generator(device="cuda").manual_seed(0))
-    assert LAUNCHES["gather_mix_kb"] == 1 and LAUNCHES["cc_lags"] == 1
+    assert LAUNCHES["gather_mix_kb"] == 1 + WARMUP_STEPS
+    assert LAUNCHES["cc_lags"] == 1 + WARMUP_STEPS
     assert bool(torch.isfinite(ms["loss"]).all())
     assert float(ms["skipped"].sum()) == 0.0
 
@@ -708,6 +718,7 @@ def test_passive_chunk_on_card_launches_the_kernels():
                                             make_test_hrir_bank,
                                             make_test_segments)
     from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
     from biear_tpu_torch.models import BiEARConfig, build_passive
     from biear_tpu_torch.ops.features import passive_features
     from biear_tpu_torch.train.loop import make_train_chunk
@@ -722,7 +733,8 @@ def test_passive_chunk_on_card_launches_the_kernels():
                              synth.batch_fn(8), 2)
     LAUNCHES.clear()
     ms = chunk(torch.Generator(device="cuda").manual_seed(0))
-    assert LAUNCHES["gather_mix_kb"] == 2 and LAUNCHES["cc_lags"] == 2
+    assert LAUNCHES["gather_mix_kb"] == 2 + WARMUP_STEPS
+    assert LAUNCHES["cc_lags"] == 2 + WARMUP_STEPS
     assert bool(torch.isfinite(ms["loss"]).all())
     assert float(ms["skipped"].sum()) == 0.0
     wav = synth.inner.sample_batch(torch.Generator(device="cuda")
@@ -1040,6 +1052,7 @@ def test_bench_measure_on_card_at_reduced_windows():
     import ast
     from biear_tpu_torch import bench
     from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.train.graph import WARMUP_STEPS
 
     tree = ast.parse(open(os.path.join(REPO, "bench.py")).read())
     keys = next([k.value for k in n.keys] for n in ast.walk(tree)
@@ -1049,7 +1062,10 @@ def test_bench_measure_on_card_at_reduced_windows():
     LAUNCHES.clear()
     out = bench.measure(batch=64, chunk=2, steps=2, chunk_dispatches=1,
                         windows=1)
-    assert LAUNCHES["gather_mix_kb"] == 4 and LAUNCHES["cc_lags"] == 4
+    # the warm-up chunk (the capture's WARMUP_STEPS eager steps, then 2
+    # replays) and one timed chunk
+    assert LAUNCHES["gather_mix_kb"] == 4 + WARMUP_STEPS
+    assert LAUNCHES["cc_lags"] == 4 + WARMUP_STEPS
     assert list(out) == keys + ["power_limit", "flops_by_op"]
     assert out["device"] == torch.cuda.get_device_name()
     assert out["power_limit"].endswith("W")
