@@ -85,6 +85,16 @@ def matmul_precision_name() -> str:
     return _policy
 
 
+def precision_key() -> tuple:
+    """Everything of the precision policy that changes what a forward
+    computes: the process-wide name, the TF32 flags and CUDA autocast (on,
+    at which dtype). A captured graph replays the surface it was captured
+    under, so its cache key holds this."""
+    return (_policy, torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32, torch.is_autocast_enabled("cuda"),
+            torch.get_autocast_dtype("cuda"))
+
+
 @contextlib.contextmanager
 def _tf32(on: bool):
     mm = torch.backends.cuda.matmul.allow_tf32

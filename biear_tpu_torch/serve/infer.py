@@ -5,7 +5,9 @@ Counterpart of ``tools/infer.py``. ``predict`` is its composition:
 sanitize the waveforms, compute the CC feature (the CUDA lag kernel on the
 card), sanitize it, run the model's eval forward (the active model or
 AuralNet, by the settings' MODEL_KIND), then a sigmoid on the presence
-logits and a softmax on the distance logits.
+logits and a softmax on the distance logits. On the card the whole
+composition is one captured CUDA graph per batch shape and precision, as
+``tools/infer.py``'s is one ``jax.jit``.
 
 Command line (a reference-format ``.pth`` with its ``meta/settings.json``
 in the same directory or up to two levels above):
@@ -34,6 +36,7 @@ from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.config import BiEARConfig
 from ..ops.xcorr import cross_correlation_feature
+from ..graph import captured_forward, host_input, use_capture
 from ..train.losses import sanitize_wav, sanitize_x3
 
 DIST_NAMES = ["none", "0.5m", "1m", "2m", "3m"]
@@ -41,20 +44,34 @@ MODELS = {"active": ActiveBiEAR, "auralnet": AuralNet,
           "passive": PassiveBiEAR}
 
 
-@torch.inference_mode()
-def predict(model: ActiveBiEAR | AuralNet, wavL, wavR):
-    """(B, Nsamp) x2 (numpy or tensors) -> (presence probabilities (B, S),
-    AoA in [0, 1] (B, S), distance probabilities (B, S, C)), on the
-    model's device."""
-    device = next(model.parameters()).device
-    wavL = torch.as_tensor(wavL, device=device)
-    wavR = torch.as_tensor(wavR, device=device)
+def _predict(model: ActiveBiEAR | AuralNet, wavL, wavR):
     cfg = model.cfg
     wavL, wavR = sanitize_wav(wavL, wavR)
     x3 = sanitize_x3(cross_correlation_feature(wavL, wavR, cfg.fs,
                                                num_lags=cfg.n_bands))
     sound, aoa, dist, _ = model(wavL, wavR, x3)
     return torch.sigmoid(sound), aoa, torch.softmax(dist, dim=-1)
+
+
+@torch.inference_mode()
+def predict(model: ActiveBiEAR | AuralNet, wavL, wavR, *,
+            capture: bool | None = None):
+    """(B, Nsamp) x2 (numpy or tensors) -> (presence probabilities (B, S),
+    AoA in [0, 1] (B, S), distance probabilities (B, S, C)), on the
+    model's device.
+
+    On a CUDA device the whole composition (the CC kernel included)
+    replays the model's captured graph for the inputs' shapes and the
+    precision policy (``graph.captured_forward``; JAX's one
+    ``jax.jit``), numpy inputs copied from pinned memory; the CPU and
+    ``capture=False`` run it eagerly."""
+    if use_capture(model, None, capture):
+        fwd = captured_forward(model, "predict",
+                               lambda l, r: _predict(model, l, r))
+        return fwd((host_input(wavL), host_input(wavR)))
+    device = next(model.parameters()).device
+    return _predict(model, torch.as_tensor(wavL, device=device),
+                    torch.as_tensor(wavR, device=device))
 
 
 # ---------------- checkpoint ----------------

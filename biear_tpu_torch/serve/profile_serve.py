@@ -19,8 +19,10 @@ filterbank and controllers, AuralNet's fixed filterbank and log), the
 backend (the active model's encoders, or AuralNet's three attention
 blocks; then body and heads) and the whole ``predict``. Then
 ``torch.profiler`` traces a few ``predict`` calls: the device time summed
-by kernel name, and the device's idle share of the traced wall time.
-Seeded random weights; needs a CUDA card.
+by kernel name, the device's idle share of the traced wall time and the
+host's launches per call. ``predict`` is the path users get, one captured
+CUDA graph per call (its warm-up and capture ms and pool bytes are
+reported under "graphs"). Seeded random weights; needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import precision_highest
+from ..graph import pool_stats
 from ..models import AuralNet, BiEARConfig, build_active, build_auralnet
 from ..models.backend import ild_features, ipd_features
 from ..models.frontend import auralnet_fb, device_constants, spectra
@@ -213,7 +216,8 @@ def main(argv=None):
     result = {"card": smi, "batch": args.batch, "policy": args.policy,
               "model": args.model, "controller_mode": args.controller_mode,
               "stages": stage_times(model, wavL, wavR),
-              "profile": kernel_breakdown(model, wavL, wavR)}
+              "profile": kernel_breakdown(model, wavL, wavR),
+              "graphs": pool_stats(model)}
     runs = sorted(result["stages"]["predict_host_ms_runs"])
     result["predict_host_ms_median"] = statistics.median(runs)
     result["utterances_per_s"] = args.batch * 1e3 / statistics.median(runs)

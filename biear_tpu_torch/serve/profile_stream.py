@@ -15,15 +15,20 @@ streams: BATCHES for each mode of MODES, under the bf16 policy. Per
   * event_ms_per_hop: CUDA events around chains of K and 2K hops issued
     back to back, (T(2K) - T(K)) / K with K = CHAIN, median of 3 (K
     doubles while the difference is not positive);
-  * launches per hop, device-busy ms per hop and the idle share of the
-    traced wall time (torch.profiler over a few hops);
+  * kernels per hop (``launches_per_hop``), the host's launches per hop
+    (kernel and graph launches, async copies and fills), device-busy ms
+    per hop and the idle share of the traced wall time (torch.profiler
+    over a few hops);
   * real-time factor = hop duration / ms per hop (host p50 and chained),
     and streams per card = batch x the chained real-time factor.
 
 Churn: each stream ends with probability 1/19 per hop (one 1 s utterance
-on average) and ``stream_reset`` re-initialises its slot before the next
-``stream_step``. Seeded random weights (geometries as
-``profile_serve.GEOMETRY``); needs a CUDA card.
+on average) and ``stream_reset`` (a masked fill) re-initialises its slot
+before the next ``stream_step``: the counterpart of the soak's jitted
+``stream_reset`` + ``stream_step``. The hop is the path users get, the
+model's captured graph per batch (its capture ms and the pool's bytes
+are reported per model under "graphs"). Seeded random weights
+(geometries as ``profile_serve.GEOMETRY``); needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import time
 
 import torch
 
+from ..graph import pool_stats
 from ..models import BiEARConfig, build_active
 from .profile_serve import GEOMETRY, device_profile
 from .streaming import stream_init, stream_plan, stream_reset, stream_step
@@ -52,8 +58,9 @@ class Streams:
     """Concurrent streams on the card: a state, one hop of audio per
     stream, and a generator for the churn draws."""
 
-    def __init__(self, model, batch: int, churn: bool, seed: int = 0):
-        self.model, self.churn = model, churn
+    def __init__(self, model, batch: int, churn: bool, seed: int = 0,
+                 capture=None):
+        self.model, self.churn, self.capture = model, churn, capture
         self.state = stream_init(model, batch)
         hop = stream_plan(model.cfg)["hop"]
         gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -67,7 +74,8 @@ class Streams:
             ended = torch.rand(self.batch, generator=self.gen,
                                device="cuda") < CHURN_P
             self.state = stream_reset(self.model, self.state, ended)
-        self.state = stream_step(self.model, self.state, *self.chunks)
+        self.state = stream_step(self.model, self.state, *self.chunks,
+                                 capture=self.capture)
 
 
 def host_ms(streams: Streams, reps: int) -> list:
@@ -118,6 +126,7 @@ def profile(model, batch: int, churn: bool, hop_ms: float) -> dict:
             "host_ms_p95": statistics.quantiles(host, n=20)[18],
             "event_ms_per_hop": ev, "chain": K,
             "launches_per_hop": prof["kernels_per_call"],
+            "host_launches_per_hop": prof["host_launches_per_call"],
             "device_busy_ms_per_hop": prof["device_busy_ms_per_call"],
             "device_idle_share": prof["device_idle_share"],
             "rtf_host": hop_ms / p50, "rtf_chained": hop_ms / ev,
@@ -136,7 +145,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    rows = []
+    rows, graphs = [], {}
     for mode in MODES:
         cfg = BiEARConfig(**GEOMETRY[mode], fb_w_dtype=POLICY)
         plan = stream_plan(cfg)
@@ -149,8 +158,9 @@ def main(argv=None):
                 rows.append(row)
                 print(json.dumps({k: v for k, v in row.items()
                                   if k != "top_kernels"}), flush=True)
+        graphs[mode] = pool_stats(model)
     result = {"card": smi, "policy": POLICY, "hop_ms": hop_ms,
-              "churn_p": CHURN_P, "rows": rows}
+              "churn_p": CHURN_P, "rows": rows, "graphs": graphs}
     if args.out:
         with open(args.out, "w") as f:
             f.write(json.dumps(result, indent=1) + "\n")

@@ -11,9 +11,12 @@ one frame, instead of re-running a whole 1 s forward per hop:
 
 The functions take the model (an ``ActiveBiEAR``), run under
 ``torch.inference_mode()`` with TF32 off, and keep their state as a dict
-of tensors on the model's device; the batch axis is the concurrent-streams
-axis, and ``stream_reset`` re-initialises slots when streams end. Dual,
-single and fixed-Q frontends stream.
+of tensors on the model's device (views of one flat buffer,
+``StreamLayout``); the batch axis is the concurrent-streams axis, and
+``stream_reset`` re-initialises slots when streams end (a masked fill).
+On the card ``stream_step`` replays a captured CUDA graph of the hop per
+(model, batch, precision), as JAX jits it; a state once returned is never
+changed by a later hop. Dual, single and fixed-Q frontends stream.
 
 Equivalence with the model's forward on the same 1 s crop (T hop-chunks,
 then the fs - T * hop residual samples to ``stream_readout``):
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import precision_highest
+from ..device import constant_cache, precision_highest
 from ..models.backend import ild_features, ipd_features
 from ..models.biear import ActiveBiEAR
 from ..models.config import BiEARConfig
@@ -52,6 +55,7 @@ from ..models.frontend import device_constants, fixed_forward, frame_spectra
 from ..ops.filterbank import stack_rhs
 from ..ops.framing import frame_params
 from ..ops.xcorr import device_lag_plan, interp_to_lags, lag_plan
+from ..graph import captured_forward, host_input, use_capture
 
 GRU1_HIDDEN = 200
 
@@ -83,14 +87,7 @@ def _device(model: ActiveBiEAR) -> torch.device:
 
 # ---------------- state ----------------
 
-@torch.inference_mode()
-def stream_init(model: ActiveBiEAR, batch: int) -> dict:
-    """Fresh state for `batch` concurrent streams, on the model's device.
-
-    ``fe`` is the frontend's carry: () for fixed Q, (Q, h, memL, memR) for
-    the single controller, the ear-stacked (Q, h) of shape (2, B, ...) for
-    the dual one. ``t`` and ``cc.n`` count frames and samples per stream.
-    AuralNet is refused: it is not streamable."""
+def _fresh_state(model: ActiveBiEAR, batch: int) -> dict:
     if not isinstance(model, ActiveBiEAR):
         raise NotImplementedError(
             f"{type(model).__name__} is not streamable: only the active "
@@ -118,34 +115,111 @@ def stream_init(model: ActiveBiEAR, batch: int) -> dict:
     return state
 
 
-def _tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    if isinstance(first, tuple):
-        return tuple(_tree_map(fn, *xs) for xs in zip(*trees))
-    return fn(*trees)
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _rebuild(like, leaves):
+    """The tree of `like`'s structure with the next items of the iterator
+    `leaves` as its leaves."""
+    if isinstance(like, dict):
+        return {k: _rebuild(v, leaves) for k, v in like.items()}
+    if isinstance(like, tuple):
+        return tuple(_rebuild(v, leaves) for v in like)
+    return next(leaves)
+
+
+# each leaf's span starts at a multiple of ALIGN int32 elements (256
+# bytes), as a separately allocated leaf would: cuBLAS picks its kernels
+# by the operands' alignment, up to 256 bytes
+ALIGN = 64
+
+
+class StreamLayout:
+    """The state of `batch` streams laid out in one flat int32 buffer:
+    each leaf (4-byte float32 or int32) a reinterpreted view of its span,
+    zero padding to the next multiple of ALIGN after it, so copying a
+    state in or out is one launch. ``fresh`` is a fresh state's buffer,
+    ``slot`` each element's stream (the frontend carry's streams axis is
+    the frontend's ``STREAM_AXIS``, 1 for the ear-stacked dual carry; 0
+    elsewhere; padding counts as stream 0)."""
+
+    def __init__(self, model: ActiveBiEAR, batch: int):
+        fresh = _fresh_state(model, batch)
+        self.like = fresh
+        leaves = _leaves(fresh)
+        if any(x.element_size() != 4 for x in leaves):
+            raise TypeError("stream state leaves must be 4-byte tensors")
+        self.specs = [(x.shape, x.dtype) for x in leaves]
+        self.pads = [-x.numel() % ALIGN for x in leaves]
+        dev = leaves[0].device
+        self.zeros = torch.zeros(ALIGN, dtype=torch.int32, device=dev)
+        self.fresh = self.flatten(fresh)
+        axes = [model.bifb.STREAM_AXIS if k == "fe" else 0
+                for k, sub in fresh.items() for _ in _leaves(sub)]
+        slots = []
+        for x, axis, pad in zip(leaves, axes, self.pads):
+            shape = [1] * x.ndim
+            shape[axis] = batch
+            slots += [torch.arange(batch, device=dev).reshape(shape)
+                      .expand(x.shape).reshape(-1), self.zeros[:pad].long()]
+        self.slot = torch.cat(slots)
+
+    def flatten(self, state: dict) -> torch.Tensor:
+        """The state's leaves, in order and padded, as one int32 buffer (a
+        copy)."""
+        parts = []
+        for x, pad in zip(_leaves(state), self.pads):
+            parts += [x.reshape(-1).view(torch.int32), self.zeros[:pad]]
+        return torch.cat(parts)
+
+    def unflatten(self, flat: torch.Tensor) -> dict:
+        """The state whose leaves are views of `flat`."""
+        views, o = [], 0
+        for (shape, dtype), pad in zip(self.specs, self.pads):
+            n = shape.numel()
+            views.append(flat[o:o + n].view(dtype).view(shape))
+            o += n + pad
+        return _rebuild(self.like, iter(views))
+
+
+def stream_layout(model: ActiveBiEAR, batch: int) -> StreamLayout:
+    """The model's ``StreamLayout`` for `batch` streams, made once (outside
+    inference mode) and kept on the model."""
+    cache = model.__dict__.setdefault("_stream_layouts", {})
+    if batch not in cache:
+        with torch.inference_mode(False):
+            cache[batch] = StreamLayout(model, batch)
+    return cache[batch]
+
+
+@torch.inference_mode()
+def stream_init(model: ActiveBiEAR, batch: int) -> dict:
+    """Fresh state for `batch` concurrent streams, on the model's device
+    (views of one new buffer, ``StreamLayout``).
+
+    ``fe`` is the frontend's carry: () for fixed Q, (Q, h, memL, memR) for
+    the single controller, the ear-stacked (Q, h) of shape (2, B, ...) for
+    the dual one. ``t`` and ``cc.n`` count frames and samples per stream.
+    AuralNet is refused: it is not streamable."""
+    layout = stream_layout(model, batch)
+    return layout.unflatten(layout.fresh.clone())
 
 
 @torch.inference_mode()
 def stream_reset(model: ActiveBiEAR, state: dict, mask) -> dict:
     """Re-initialise the slots where `mask` (B,) is true (a stream ended and
-    a new one takes its slot). Reset slots equal a ``stream_init`` slot bit
-    for bit; the others are untouched. The frontend carry's streams axis
-    is the frontend's ``STREAM_AXIS`` (1 for the ear-stacked dual carry)."""
+    a new one takes its slot): one masked fill of the flat state against
+    the cached fresh state. Reset slots equal a ``stream_init`` slot bit
+    for bit; the others are untouched."""
     mask = torch.as_tensor(mask, device=_device(model)).bool()
-    B = mask.shape[0]
-    fresh = stream_init(model, B)
-
-    def sel(axis):
-        def f(s0, s):
-            m = mask.reshape((1,) * axis + (B,) + (1,) * (s.ndim - axis - 1))
-            return torch.where(m, s0, s)
-        return f
-
-    fe_axis = model.bifb.STREAM_AXIS
-    return {k: _tree_map(sel(fe_axis if k == "fe" else 0), fresh[k],
-                         state[k]) for k in state}
+    layout = stream_layout(model, mask.shape[0])
+    return layout.unflatten(torch.where(mask[layout.slot], layout.fresh,
+                                        layout.flatten(state)))
 
 
 # ---------------- CC accumulator ----------------
@@ -204,6 +278,14 @@ def _cc_accumulate(cc: dict, chunkL: torch.Tensor, chunkR: torch.Tensor,
             "tailR": tail(cc["tailR"], chunkR)}
 
 
+@constant_cache
+def _readout_consts(K: int, device: torch.device) -> tuple:
+    """|l| and the mask l >= 0 over the lags -K..K, on `device`."""
+    ls = np.arange(-K, K + 1)
+    return (torch.as_tensor(np.abs(ls), device=device),
+            torch.as_tensor(ls >= 0, device=device)[None, :])
+
+
 def _cc_readout(cc: dict, plan: dict) -> torch.Tensor:
     """Accumulated raw lags -> the x3 feature (B, num_lags).
 
@@ -217,9 +299,7 @@ def _cc_readout(cc: dict, plan: dict) -> torch.Tensor:
     muL = cc["sumL"] / n
     muR = cc["sumR"] / n
     dev = n.device
-    ls = np.arange(-K, K + 1)
-    a = torch.as_tensor(np.abs(ls), device=dev)
-    pos = torch.as_tensor(ls >= 0, device=dev)[None, :]
+    a, pos = _readout_consts(K, dev)
     cum = lambda b: F.pad(torch.cumsum(b, dim=1), (1, 0))
     headL, headR = cum(cc["headL"])[:, a], cum(cc["headR"])[:, a]
     tailL = cum(cc["tailL"].flip(1))[:, a]
@@ -260,16 +340,11 @@ def _enc_step(enc, st: dict, x: torch.Tensor) -> dict:
     return {"h1": h1, "h2": h2, "sum": st["sum"] + h2}
 
 
-@torch.inference_mode()
-def stream_step(model: ActiveBiEAR, state: dict, chunkL, chunkR) -> dict:
-    """Advance every stream by one frame: chunkL / chunkR (B, hop) new
-    samples per ear, on the model's device (numpy is moved there)."""
+def _stream_step(model: ActiveBiEAR, state: dict, chunkL, chunkR) -> dict:
     cfg = model.cfg
-    dev = _device(model)
     plan = stream_plan(cfg)
-    chunkL = torch.as_tensor(chunkL, device=dev).float()
-    chunkR = torch.as_tensor(chunkR, device=dev).float()
-    c = device_constants(cfg, dev)
+    chunkL, chunkR = chunkL.float(), chunkR.float()
+    c = device_constants(cfg, chunkL.device)
     with precision_highest():
         xsL = frame_spectra(cfg, chunkL, c)
         xsR = frame_spectra(cfg, chunkR, c)
@@ -285,6 +360,36 @@ def stream_step(model: ActiveBiEAR, state: dict, chunkL, chunkR) -> dict:
             out["cc"] = _cc_accumulate(state["cc"], chunkL, chunkR,
                                        plan["K"])
     return out
+
+
+def _hop(model: ActiveBiEAR, flat: torch.Tensor, chunkL, chunkR):
+    """One hop on a flat state (``StreamLayout``), to a flat state."""
+    layout = stream_layout(model, chunkL.shape[0])
+    return layout.flatten(_stream_step(model, layout.unflatten(flat),
+                                       chunkL, chunkR))
+
+
+@torch.inference_mode()
+def stream_step(model: ActiveBiEAR, state: dict, chunkL, chunkR, *,
+                capture: bool | None = None) -> dict:
+    """Advance every stream by one frame: chunkL / chunkR (B, hop) new
+    samples per ear (tensors, or numpy moved to the model's device).
+    Returns a new state; `state` is left as it was.
+
+    On a CUDA device the hop replays the model's captured graph for the
+    batch and the precision policy (``graph.captured_forward``; JAX's
+    ``jax.jit(stream_step)``): the flat state and the chunks are copied
+    into its static buffers and the new state is a copy of its output;
+    the CPU and ``capture=False`` run it eagerly."""
+    if use_capture(model, None, capture):
+        layout = stream_layout(model, chunkL.shape[0])
+        fwd = captured_forward(model, "stream_step",
+                               lambda f, l, r: _hop(model, f, l, r))
+        return layout.unflatten(fwd((layout.flatten(state),
+                                     host_input(chunkL), host_input(chunkR))))
+    dev = _device(model)
+    return _stream_step(model, state, torch.as_tensor(chunkL, device=dev),
+                        torch.as_tensor(chunkR, device=dev))
 
 
 @torch.inference_mode()

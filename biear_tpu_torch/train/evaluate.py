@@ -45,6 +45,7 @@ from ..device import matmul_precision
 from ..data.shard import ShardDataset, shard_shapes
 from ..serve.infer import load_model
 from ..models.biear import PassiveBiEAR
+from ..graph import captured_forward, host_input, use_capture
 from .losses import sanitize_wav, sanitize_x3
 
 N_SECTORS = 8
@@ -64,27 +65,40 @@ def find_settings(checkpoint_path: str) -> dict | None:
     return None
 
 
-def eval_forward(model, x):
-    """(sound_logits, aoa, dist_logits) of the eval forward on the input
-    fields `x` of one batch (tensors on the model's device): the five
-    feature planes of the passive model, or (wavL, wavR, x3), sanitised."""
+def _eval_forward(model, *x):
     if isinstance(model, PassiveBiEAR):
         return model(*(f.float() for f in x))[:3]
     wl, wr = sanitize_wav(x[0], x[1])
     return model(wl, wr, sanitize_x3(x[2]))[:3]
 
 
-@torch.inference_mode()
-def collect_predictions(model, ds, batch_size: int):
-    """(sound_logits, aoa, dist_logits, y) over the whole split, as numpy,
-    from the eval forward on the model's device."""
+def eval_forward(model, x, *, capture: bool | None = None):
+    """(sound_logits, aoa, dist_logits) of the eval forward (the model in
+    eval mode) on the input fields `x` of one batch (tensors or numpy
+    arrays): the five feature planes of the passive model, or (wavL,
+    wavR, x3), sanitised. On a CUDA device it replays the model's
+    captured forward per batch signature (JAX's jitted ``step_active`` /
+    ``step_passive``); the CPU and ``capture=False`` run it eagerly."""
+    if use_capture(model, None, capture):
+        fwd = captured_forward(model, "eval_forward",
+                               lambda *f: _eval_forward(model, *f))
+        return fwd(host_input(f) for f in x)
     device = next(model.parameters()).device
+    return _eval_forward(model, *(torch.as_tensor(f, device=device)
+                                  for f in x))
+
+
+@torch.inference_mode()
+def collect_predictions(model, ds, batch_size: int, *,
+                        capture: bool | None = None):
+    """(sound_logits, aoa, dist_logits, y) over the whole split, as numpy,
+    from ``eval_forward`` on the model's device (every batch padded to
+    full, so one captured graph serves the split)."""
     model.eval()
     outs = []
     for batch in batch_iterator(ds, batch_size, shuffle=False):
         *x, y, w = batch
-        s, a, d = eval_forward(model, [torch.as_tensor(f, device=device)
-                                       for f in x])
+        s, a, d = eval_forward(model, x, capture=capture)
         valid = w > 0.5
         outs.append([s.cpu().numpy()[valid], a.cpu().numpy()[valid],
                      d.cpu().numpy()[valid], y[valid]])

@@ -1,5 +1,5 @@
 """Train and eval steps with a masked nonfinite skip, and the fused
-synthesize -> train chunk.
+synthesize -> train chunk and the stacked eval chunk.
 
 Counterpart of ``biear_tpu/train/loop.py`` for the active, AuralNet and
 passive models (the step dispatches on the model's class, as JAX on
@@ -15,9 +15,10 @@ The chunk runs ``chunk_steps`` iterations of synthesize -> step; each
 step's generator draws the synthesis first and the dropout second. The
 whole step, forward and backward, runs under the process-wide
 MATMUL_PRECISION (``device.matmul_precision``). On a CUDA device without a
-mesh, ``make_train_step`` and ``make_train_chunk`` replay captured CUDA
-graphs of these steps (``train/graph.py``), JAX's one-dispatch programs;
-the CPU and a mesh run them eagerly, in a Python loop.
+mesh, ``make_train_step``, ``make_train_chunk``, ``make_eval_step`` and
+``make_eval_chunk`` replay captured CUDA graphs of these steps
+(``train/graph.py``, ``graph.py``), JAX's one-dispatch programs; the CPU
+and a mesh run them eagerly, in a Python loop.
 
 Under a mesh (``parallel.mesh.Mesh``) each rank's loss and gradients are
 means over its rows; one flat all-reduce over the data group turns them
@@ -40,6 +41,7 @@ from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.frontend import device_constants
 from ..parallel.mesh import Mesh, all_reduce_grads, layout_of
 from .losses import q_regularizers, sanitize_wav, sanitize_x3, task_loss
+from ..graph import CapturedEvalChunk, forward, use_capture
 from .graph import CapturedChunk, CapturedStep, train_state
 from .optim import Adam, TrainHyper, is_frontend
 
@@ -239,24 +241,6 @@ def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
     return metrics
 
 
-def use_capture(model: _Model, mesh: Mesh | None,
-                capture: bool | None) -> bool:
-    """Whether the step runs as a captured CUDA graph: by default exactly
-    on a CUDA device without a mesh (gloo cannot be captured, NCCL in a
-    graph needs several cards); ``capture=False`` takes the eager loop on
-    the card; ``capture=True`` on the CPU or under a mesh raises."""
-    on_card = next(model.parameters()).is_cuda
-    if capture is None:
-        return on_card and mesh is None
-    if capture and not on_card:
-        raise ValueError("capture=True needs the model on a CUDA device: "
-                         "the CPU runs the eager step")
-    if capture and mesh is not None:
-        raise ValueError("capture=True under a mesh: its collectives run "
-                         "in the eager step")
-    return bool(capture)
-
-
 def make_train_step(model: _Model, hp: TrainHyper, optimizer: Adam,
                     max_param_log: int = 200, mesh: Mesh | None = None, *,
                     capture: bool | None = None):
@@ -278,13 +262,57 @@ def make_train_step(model: _Model, hp: TrainHyper, optimizer: Adam,
     return step
 
 
-def make_eval_step(model: _Model, hp: TrainHyper):
-    """batch -> metrics, in eval mode without gradients."""
+def make_eval_step(model: _Model, hp: TrainHyper, *,
+                   mesh: Mesh | None = None, capture: bool | None = None):
+    """batch -> metrics, in eval mode without gradients (JAX's jitted
+    ``make_eval_step``).
+
+    On a CUDA device without a mesh the forward replays a captured CUDA
+    graph per batch signature and precision (``graph.forward``); the
+    CPU, a mesh and ``capture=False`` run it eagerly (``use_capture``)."""
+    if use_capture(model, mesh, capture):
+        fwd = forward(model, "eval_step",
+                      lambda *batch: model_loss(model, hp, batch, None)[1])
+
+        def captured(batch) -> dict:
+            model.eval()
+            return fwd(batch)
+        return captured
+
     @torch.no_grad()
     def step(batch) -> dict:
         model.eval()
         return model_loss(model, hp, batch, None)[1]
     return step
+
+
+def make_eval_chunk(model: _Model, hp: TrainHyper, *,
+                    mesh: Mesh | None = None, capture: bool | None = None):
+    """Evaluate a whole stack of same-shape batches in one dispatch (JAX's
+    ``make_eval_chunk``): stacks, a tuple of tensors with a leading
+    (n_batches,) axis (a ``SynthEvalDataset`` stacked group) -> the eval
+    metrics stacked on that axis.
+
+    On a CUDA device without a mesh the eval of one stack row is a
+    captured CUDA graph replayed once per row, reading the stacks in place
+    (``graph.CapturedEvalChunk``); the CPU, a mesh and ``capture=False``
+    loop over the rows eagerly (``use_capture``)."""
+    if use_capture(model, mesh, capture):
+        chunk = CapturedEvalChunk(
+            lambda batch: model_loss(model, hp, batch, None)[1], model)
+
+        def captured(stacks) -> dict:
+            model.eval()
+            return chunk(stacks)
+        return captured
+
+    @torch.no_grad()
+    def eval_chunk(stacks) -> dict:
+        model.eval()
+        ms = [model_loss(model, hp, tuple(s[r] for s in stacks), None)[1]
+              for r in range(stacks[0].shape[0])]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+    return eval_chunk
 
 
 def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,

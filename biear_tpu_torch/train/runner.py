@@ -14,10 +14,12 @@ objects with ``rows()`` / ``len()``) through
 ``Prefetcher(batch_iterator(...))`` and the train step, or, with SYNTH_ON_DEVICE,
 from the on-device synthesizer through ``make_train_chunk`` (a chunk of
 one step included); then the validation and test splits are materialised
-once on the device (``SynthEvalDataset``). Every split is evaluated batch
-by batch through the eval step. Metric sums stay on the device, with
-skipped and nonfinite batches left out; the host reads them once per
-epoch.
+once on the device (``SynthEvalDataset``) as stacks of same-shape
+batches, each evaluated in one dispatch (``make_eval_chunk``, one graph
+replay per batch on the card); a split spilled to host memory and the
+dataset splits are evaluated batch by batch through the eval step.
+Metric sums stay on the device, with skipped and nonfinite batches left
+out; the host reads them once per epoch.
 
 Random streams: the synthesised chunks draw their batches and dropout
 from one generator re-seeded before each chunk with the seed keyed by
@@ -67,7 +69,8 @@ from ..utils.logging import MetricLogger, NullLogger
 from ..utils.qvis import visualize_Q_LR
 from . import state as ckpt
 from .loop import (GRAD_HIST_EDGES, grad_hist_names, is_better_tuple,
-                   make_eval_step, make_train_chunk, make_train_step)
+                   make_eval_chunk, make_eval_step, make_train_chunk,
+                   make_train_step)
 from .optim import PlateauScheduler, make_optimizer
 
 METRICS = ("loss", "sound_acc", "aoa_mae", "dist_acc")
@@ -128,13 +131,19 @@ class SynthEvalDataset:
     """A fixed evaluation split made once by a synthesizer, the
     counterpart of the reference's pre-generated val / test H5s.
 
-    By default its batches stay on the synthesizer's device. A split whose
-    estimated size exceeds SYNTH_EVAL_HBM_BUDGET_MB (read per instance,
-    default 2048) is spilled to pinned host memory batch by batch and
-    copied back per epoch; keep_on_device=True/False forces either.
+    By default its batches stay on the synthesizer's device, grouped by
+    shape into ``stacked_groups`` (tuples of tensors with a leading
+    (n_batches,) axis; ``make_eval_chunk`` evaluates one in one dispatch)
+    and held only there. A split whose estimated size exceeds
+    SYNTH_EVAL_HBM_BUDGET_MB (read per instance, default 2048) is spilled
+    to pinned host memory batch by batch and copied back per epoch, with
+    no stacked groups; keep_on_device=True/False forces either.
+    ``device_batches()`` yields the split batch by batch (slices of the
+    stacks, group by group, or the spilled batches in order).
     test_thirds makes the split 1/3 one source, 1/3 two, 1/3 three, no
     batch straddling a third. Under a mesh every batch is drawn whole and
-    this data rank keeps its share of its rows (``Mesh.rows``)."""
+    this data rank keeps (and stacks) its share of its rows
+    (``Mesh.rows``)."""
 
     def __init__(self, synth, n: int, seed: int, batch_size: int,
                  test_thirds: bool = False,
@@ -155,10 +164,9 @@ class SynthEvalDataset:
                       "spilling to pinned host memory (set "
                       "SYNTH_EVAL_HBM_BUDGET_MB or keep_on_device to "
                       "override)")
-        self.on_device = keep_on_device
         pin = self.device.type == "cuda"
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self._batches = []
+        batches = []
         made, third = 0, n // 3
         while made < n:
             take = min(batch_size, n - made)
@@ -177,17 +185,27 @@ class SynthEvalDataset:
                 continue
             if not keep_on_device:
                 b = tuple(t.cpu().pin_memory() if pin else t.cpu() for t in b)
-            self._batches.append(b)
+            batches.append(b)
         self.length = made
+        self._batches = None if keep_on_device else batches
+        groups = {}
+        for b in batches if keep_on_device else ():
+            groups.setdefault(b[0].shape[0], []).append(b)
+        self.stacked_groups = [tuple(torch.stack(parts) for parts in zip(*g))
+                               for g in groups.values()]
 
     def __len__(self) -> int:
         return self.length
 
     def device_batches(self):
         """The split batch by batch, on the device."""
-        for b in self._batches:
-            yield b if self.on_device else tuple(
-                t.to(self.device, non_blocking=True) for t in b)
+        if self._batches is not None:
+            for b in self._batches:
+                yield tuple(t.to(self.device, non_blocking=True) for t in b)
+            return
+        for g in self.stacked_groups:
+            for j in range(g[0].shape[0]):
+                yield tuple(a[j] for a in g)
 
 
 def _accumulate(sums: dict, metrics: dict, bs) -> dict:
@@ -353,7 +371,8 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
             and not rc.fixed_frontend_q))
     train_step = make_train_step(model, rc.hyper, optimizer,
                                  rc.max_param_log, mesh)
-    eval_step = make_eval_step(model, rc.hyper)
+    eval_step = make_eval_step(model, rc.hyper, mesh=mesh)
+    eval_chunk = make_eval_chunk(model, rc.hyper, mesh=mesh)
     hist_names = grad_hist_names(model, rc.max_param_log)
     sched = PlateauScheduler(factor=0.5, patience=10)
     step_gen = torch.Generator(device=device).manual_seed(seed)
@@ -513,6 +532,16 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
                     f" | dist_acc={sc['dist_acc'][row]:.3f}")
         return log_split(name, epoch, sums, t0, True)
 
+    def run_eval_stacked(name, epoch, ds):
+        """An eval split as one ``eval_chunk`` dispatch per stacked group
+        of same-shape batches (every batch: JAX evaluates the stacks
+        whole)."""
+        sums = {}
+        t0 = time.time()
+        for g in ds.stacked_groups:
+            _accumulate(sums, eval_chunk(g), g[0].shape[1])
+        return log_split(name, epoch, sums, t0, False)
+
     def run_split(name, epoch, training):
         nonlocal global_step
         sums = {}
@@ -523,6 +552,8 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
             chunk = synth_chunk_steps(
                 steps, int(rc.raw.get("SYNTH_CHUNK_STEPS", -1)))
             return run_train_chunked(name, epoch, steps, chunk)
+        if not training and getattr(datasets[name], "stacked_groups", None):
+            return run_eval_stacked(name, epoch, datasets[name])
         if hasattr(datasets[name], "device_batches"):
             it = datasets[name].device_batches()
         else:

@@ -208,9 +208,34 @@ Phases, each of which raises on failure (the exit code is then not 0):
      share and host launches per chunk of CAPTURE_PROFILED_STEPS steps
      (torch.profiler), the capture's ms and its memory pool.
 
-Every train chunk and step above runs captured; the first call of each
-captures it after WARMUP_STEPS eager steps, which launch the kernels
-too, so a first call counts WARMUP_STEPS launches more.
+ 19. inference capture: the inference programs as captured CUDA graphs
+     (``graph.py``: ``Captured``, ``CapturedEvalChunk``, the path every
+     serving, streaming and evaluation entry point on the card takes)
+     against their eager paths (``capture=False``) from one state,
+     within CAPTURE_WITNESS times the spread of two eager runs (bit for
+     bit where those agree; each row says whether it was bitwise): (a)
+     ``predict`` for INFER_FAMILIES at SERVE_BATCHES, one cc_lags launch
+     per replay (WARMUP_STEPS more in the first call), tensor and numpy
+     inputs giving the same bits, ms per call both ways, busy ms, idle
+     share, kernels and host launches per call at batch 512
+     (torch.profiler), the graphs' capture ms and pool bytes, and a call
+     under MATMUL_PRECISION "bfloat16" capturing a new graph; (b)
+     ``stream_step`` for STREAM_MODES at STREAM_BATCHES, T hops and the
+     readout with its tail, the state checked hop by hop, a state held
+     from hop 4 unchanged by the later hops, churn through the masked
+     ``stream_reset`` checked as phase 8's, ms, host launches, busy ms and
+     idle share per hop both ways (churn: captured), real-time factor;
+     (c) a runner val split (INFER_EVAL_ROWS rows, stacked) through the
+     captured eval chunk against the eager eval step batch by batch
+     (per-batch metrics, the split's means, seconds both ways; the bytes
+     held after the first eval beyond its graph's pool under half the
+     split's: the split is read in place, not copied), and
+     ``collect_predictions`` of the active, AuralNet and passive models.
+
+Every train chunk and step above runs captured, and so do phases 4, 6,
+8, 9 and 13's serving, streaming and evaluation; the first call of each
+captures it after WARMUP_STEPS eager runs, which launch the kernels too,
+so a first call counts WARMUP_STEPS launches more.
 
 Prints, before the last line, the card line of nvidia-smi and one JSON
 line {"kernels": [...]}; the last line is
@@ -318,6 +343,16 @@ CAPTURE_PROFILED_STEPS = 4     # steps of (c)'s profiled chunk, both paths
 CAPTURE_BARE_STEPS = 8        # per window of (c)'s bare-step rate
 CAPTURE_WITNESS = 3.0
 CAPTURE_SEED = 1000
+# phase 19: the captured inference programs (predict, the stream hop, the
+# eval chunk and forward) against capture=False from one state, within
+# CAPTURE_WITNESS times the spread of two eager runs (exactly where they
+# agree); per-call times the median of INFER_REPS synchronised calls
+INFER_FAMILIES = ("dual", "single", "auralnet")
+STREAM_MODES = (("dual", False), ("single", False), ("dual", True))
+STREAM_BATCHES = (1, 64, 512)
+INFER_REPS = 7
+INFER_EVAL_ROWS = 1024         # SYNTH_EVAL_SAMPLES' default: 16 batches
+INFER_PREDICT_ROWS = 256       # collect_predictions' split per family
 
 
 _START = time.perf_counter()
@@ -484,6 +519,7 @@ def phase_serve(torch, rng, label="dual"):
     timed."""
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.serve.infer import predict
+    from biear_tpu_torch.graph import WARMUP_STEPS
 
     models = {dt: serve_model(torch, label, dt)
               for dt in ("bfloat16", "float32")}
@@ -496,9 +532,13 @@ def phase_serve(torch, rng, label="dual"):
     torch.cuda.synchronize()
     launches = dict(LAUNCHES)
     log(f"{label} serving path launches: {launches}")
-    if launches.get("cc_lags", 0) != len(SERVE_BATCHES):
+    # each served batch is a first call: its capture's WARMUP_STEPS eager
+    # runs launch the kernel too, then one replay
+    want = len(SERVE_BATCHES) * (1 + WARMUP_STEPS)
+    if launches.get("cc_lags", 0) != want:
         raise RuntimeError(f"cc_lags launched {launches.get('cc_lags', 0)} "
-                           f"times for {len(SERVE_BATCHES)} served batches")
+                           f"times for {len(SERVE_BATCHES)} served batches "
+                           f"(expected {want})")
 
     for (B, dt), out in outs.items():
         check_outputs(torch, out, B)
@@ -848,7 +888,7 @@ def train_chunk_phase(torch, synth, label: str, steps: int):
     bare-step rates. Returns the chunk's launch counts."""
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
     from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.serve.profile_serve import GEOMETRY
@@ -917,7 +957,7 @@ def train_chunk_phase(torch, synth, label: str, steps: int):
 def phase_train(torch, synth):
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.serve.profile_serve import GEOMETRY
@@ -1204,7 +1244,7 @@ def phase_runner(torch):
     from biear_tpu_torch.train import state as ckpt
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import make_optimizer
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
     from biear_tpu_torch.train.profile_train import rate_windows
     from biear_tpu_torch.train.runner import train
 
@@ -1351,7 +1391,7 @@ def runner_phase(torch, name: str, epochs: int, label: str,
     from biear_tpu_torch import train_biear
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.config import is_passive
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
     from biear_tpu_torch.train.runner import train
 
     rc = synthesised_run_config(name, epochs)
@@ -1437,7 +1477,7 @@ def phase_passive(torch, synth_bf16):
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_passive
     from biear_tpu_torch.ops.features import passive_features
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
     from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.train.profile_train import rate_windows
@@ -1525,7 +1565,7 @@ def phase_reverb(torch):
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.serve.profile_serve import GEOMETRY
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.train.profile_train import rate_windows
@@ -1674,7 +1714,7 @@ def phase_auralnet(torch, rng, synth):
     from biear_tpu_torch.models import BiEARConfig, build_auralnet
     from biear_tpu_torch.serve.profile_serve import AURALNET
     from biear_tpu_torch.serve.streaming import stream_init
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
     from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
     from biear_tpu_torch.train.profile_train import fixed_batch, rate_windows
@@ -1805,7 +1845,7 @@ def phase_protocol(torch, tmp: str):
     for phase 15; returns (launches, {label: run directory})."""
     from biear_tpu_torch import eval_by_snr, protocol_eval, run_full_protocol
     from biear_tpu_torch.kernels import LAUNCHES
-    from biear_tpu_torch.train.graph import WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
 
     here = os.path.dirname(os.path.abspath(__file__))
     pool, train_size, eval_size = PROTOCOL_SIZES
@@ -2867,6 +2907,339 @@ def phase_capture(torch, synth, smi: str) -> dict:
     return launches
 
 
+def witness_check(torch, label: str, got, eager, witness) -> tuple:
+    """(max |captured - eager|, max |eager - eager|) over matching
+    tensors; raises past CAPTURE_WITNESS times the witness spread."""
+    dev = lambda a, b: max(float((x.float() - y.float()).abs().max())
+                           for x, y in zip(a, b))
+    err, spread = dev(got, eager), dev(witness, eager)
+    if err > CAPTURE_WITNESS * spread:
+        raise RuntimeError(f"{label}: captured off the eager path by "
+                           f"{err!r}, {CAPTURE_WITNESS!r} x the witness "
+                           f"spread {spread!r}")
+    return err, spread
+
+
+def synced_ms(torch, fn, reps: int = INFER_REPS) -> float:
+    """Median host ms of `reps` synchronised calls of fn (after one)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def infer_predict(torch, rng) -> tuple:
+    """19 (a): predict captured against capture=False for each of
+    INFER_FAMILIES at SERVE_BATCHES. Returns (the captured calls' launch
+    counts, the report)."""
+    from biear_tpu_torch.device import matmul_precision
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.serve.infer import predict
+    from biear_tpu_torch.serve.profile_serve import device_profile
+    from biear_tpu_torch.graph import WARMUP_STEPS, pool_stats
+
+    launches, report = {}, {}
+    wav = {B: [torch.tensor(rng.uniform(-1, 1, (B, 16000)),
+                            dtype=torch.float32, device="cuda")
+               for _ in range(2)] for B in (1, 64, 512)}
+    for label in INFER_FAMILIES:
+        models = {dt: serve_model(torch, label, dt)
+                  for dt in ("bfloat16", "float32")}
+        for B, dt in SERVE_BATCHES:
+            model, (wl, wr) = models[dt], wav[B]
+            eager = predict(model, wl, wr, capture=False)
+            witness = predict(model, wl, wr, capture=False)
+            LAUNCHES.clear()
+            first = predict(model, wl, wr)
+            torch.cuda.synchronize()
+            n_first = LAUNCHES.get("cc_lags", 0)
+            LAUNCHES.clear()
+            again = predict(model, wl.cpu().numpy(), wr.cpu().numpy())
+            torch.cuda.synchronize()
+            n_again = LAUNCHES.get("cc_lags", 0)
+            for k, v in LAUNCHES.items():
+                launches[k] = launches.get(k, 0) + v
+            if (n_first, n_again) != (1 + WARMUP_STEPS, 1):
+                raise RuntimeError(f"predict {label} B={B} {dt}: cc_lags "
+                                   f"launched {n_first} times in the first "
+                                   f"call, {n_again} in a replay")
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise RuntimeError(f"predict {label} B={B} {dt}: two "
+                                   "replays (tensor and numpy inputs) differ")
+            err, spread = witness_check(torch, f"predict {label} B={B} {dt}",
+                                        again, eager, witness)
+            check_outputs(torch, again, B)
+            row = {"max_abs_vs_eager": err, "eager_spread": spread,
+                   "bitwise": err == 0.0,
+                   "captured_ms": synced_ms(torch, lambda: predict(
+                       model, wl, wr)),
+                   "eager_ms": synced_ms(torch, lambda: predict(
+                       model, wl, wr, capture=False))}
+            if B == 512:
+                for name, cap in (("captured", None), ("eager", False)):
+                    prof = device_profile(lambda: predict(
+                        model, wl, wr, capture=cap), calls=3, top=3)
+                    row[name + "_profile"] = {
+                        k: prof[k] for k in (
+                            "wall_ms_per_call", "device_busy_ms_per_call",
+                            "device_idle_share", "kernels_per_call",
+                            "host_launches_per_call")}
+            report[f"{label} B={B} {dt}"] = row
+            log(f"predict {label} B={B} {dt}: {json.dumps(row)}")
+        model = models["bfloat16"]
+        n = len(pool_stats(model)["predict"])
+        with matmul_precision("bfloat16"):
+            got = predict(model, *wav[64])
+            want = predict(model, *wav[64], capture=False)
+        n_new = len(pool_stats(model)["predict"]) - n
+        d = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        log(f"predict {label} B=64 under MATMUL_PRECISION bfloat16: "
+            f"{n_new} new graph, max |captured - eager| {d!r}")
+        if n_new != 1 or not d <= SERVE_TOL["bfloat16"]:
+            raise RuntimeError(f"predict {label}: a new precision did not "
+                               "capture a new graph, or differs")
+        check_outputs(torch, got, 64)
+        report[f"{label} graphs"] = pool_stats(model)
+        report[f"{label} f32 graphs"] = pool_stats(models["float32"])
+    return launches, report
+
+
+def infer_stream(torch, rng) -> dict:
+    """19 (b): stream_step captured against capture=False for each of
+    STREAM_MODES at STREAM_BATCHES, T hops and the readout with its tail,
+    the state checked hop by hop; a state held from hop 4 unchanged after
+    the rest; churn through the masked reset checked as phase 8's; ms and
+    host launches per hop both ways, real-time factor."""
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY, device_profile
+    from biear_tpu_torch.serve.profile_stream import Streams
+    from biear_tpu_torch.serve.streaming import (_leaves, stream_init,
+                                                 stream_plan, stream_readout,
+                                                 stream_reset, stream_step)
+    from biear_tpu_torch.graph import pool_stats
+
+    report = {}
+    for mode, fixed in STREAM_MODES:
+        cfg = BiEARConfig(**GEOMETRY[mode], fixed_frontend_q=fixed,
+                          fb_w_dtype="bfloat16")
+        model = build_active(cfg, seed=0)
+        perturb_controllers(torch, model, seed=1)
+        plan = stream_plan(cfg)
+        hop, T = plan["hop"], cfg.timesteps
+        hop_ms = 1e3 * hop / cfg.fs
+        label = f"{mode}{' fixed-Q' if fixed else ''}"
+        for B in STREAM_BATCHES:
+            wl, wr = (torch.tensor(rng.uniform(-1, 1, (B, cfg.fs)),
+                                   dtype=torch.float32, device="cuda")
+                      for _ in range(2))
+            # each hop's chunks in their own (aligned) memory: the eager
+            # hop on a view at a sample offset may take other cuBLAS and
+            # cuFFT kernels than on the graph's static buffers
+            chunks = [tuple(w[:, t * hop:(t + 1) * hop].clone()
+                            for w in (wl, wr)) for t in range(T)]
+            cap = eag = wit = stream_init(model, B)
+            worst = (0.0, 0.0)
+            for t, (cl, cr) in enumerate(chunks):
+                cap = stream_step(model, cap, cl, cr)
+                eag = stream_step(model, eag, cl, cr, capture=False)
+                wit = stream_step(model, wit, cl, cr, capture=False)
+                e = witness_check(torch, f"stream {label} B={B} hop {t}",
+                                  _leaves(cap), _leaves(eag), _leaves(wit))
+                worst = (max(worst[0], e[0]), max(worst[1], e[1]))
+                if t == 4:
+                    held, snap = cap, [x.clone() for x in _leaves(cap)]
+            if not all(torch.equal(a, b) for a, b in zip(_leaves(held),
+                                                         snap)):
+                raise RuntimeError(f"stream {label} B={B}: a held state "
+                                   "changed under later hops")
+            tail = slice(T * hop, T * hop + plan["tail_len"])
+            outs = [stream_readout(model, s, wl[:, tail], wr[:, tail])
+                    for s in (cap, eag, wit)]
+            r_err = witness_check(torch, f"stream {label} B={B} readout",
+                                  *outs)
+            row = {"state_max_abs_vs_eager": worst[0],
+                   "state_eager_spread": worst[1],
+                   "readout_max_abs_vs_eager": r_err[0]}
+            for name, capture in (("captured", None), ("eager", False)):
+                streams = Streams(model, B, False, capture=capture)
+                ms = synced_ms(torch, streams.hop)
+                prof = device_profile(streams.hop, calls=4, top=3)
+                row[name] = {"ms_per_hop": ms, "rtf": hop_ms / ms,
+                             "host_launches_per_hop":
+                                 prof["host_launches_per_call"],
+                             "kernels_per_hop": prof["kernels_per_call"],
+                             "busy_ms_per_hop":
+                                 prof["device_busy_ms_per_call"],
+                             "idle_share": prof["device_idle_share"]}
+            churn = Streams(model, B, True)
+            row["captured_churn_ms_per_hop"] = synced_ms(torch, churn.hop)
+            row["captured_churn_host_launches_per_hop"] = device_profile(
+                churn.hop, calls=4, top=1)["host_launches_per_call"]
+            report[f"{label} B={B}"] = row
+            log(f"stream {label} B={B}: {json.dumps(row)}")
+        # churn: half the slots reset after 9 hops equal fresh streams fed
+        # the same audio, bit for bit (phase 8's check, captured hops)
+        B = 64
+        wl, wr = (torch.tensor(rng.uniform(-1, 1, (B, cfg.fs)),
+                               dtype=torch.float32, device="cuda")
+                  for _ in range(2))
+
+        def hops(state, t0, n):
+            for t in range(t0, t0 + n):
+                sl = slice(t * hop, (t + 1) * hop)
+                state = stream_step(model, state, wl[:, sl], wr[:, sl])
+            return state
+
+        mask = torch.arange(B, device="cuda") % 2 == 0
+        churned = stream_reset(model, hops(stream_init(model, B), 0, 9), mask)
+        got = stream_readout(model, hops(churned, 9, 10))
+        ref = stream_readout(model, hops(stream_init(model, B), 9, 10))
+        if not all(torch.equal(g[mask], r[mask]) for g, r in zip(got, ref)):
+            raise RuntimeError(f"stream churn {label}: reset slots differ "
+                               "from fresh streams")
+        report[f"{label} graphs"] = pool_stats(model)
+        log(f"stream churn {label}: {int(mask.sum())} reset slots equal "
+            "fresh streams bit for bit (captured hops, masked reset)")
+    return report
+
+
+class ArrayRows:
+    """numpy arrays as a dataset with rows() / len()."""
+
+    def __init__(self, arrays):
+        self.arrays = arrays
+
+    def __len__(self):
+        return len(self.arrays[0])
+
+    def rows(self, idx):
+        return tuple(a[idx] for a in self.arrays)
+
+
+def infer_eval(torch, synth) -> dict:
+    """19 (c): the runner's val split (INFER_EVAL_ROWS synthesised rows,
+    batch 64, stacked) through the captured eval chunk against the eager
+    eval step batch by batch (per-batch metrics within the witness, the
+    split's means, seconds both ways); collect_predictions for the active,
+    AuralNet and passive models, captured against capture=False."""
+    from biear_tpu_torch.bench import flagship_config
+    from biear_tpu_torch.data.passive_synth import PassiveFeatureSynth
+    from biear_tpu_torch.graph import pool_stats
+    from biear_tpu_torch.models import (BiEARConfig, build_active,
+                                        build_auralnet, build_passive)
+    from biear_tpu_torch.serve.profile_serve import AURALNET
+    from biear_tpu_torch.train import evaluate as ev
+    from biear_tpu_torch.train.loop import make_eval_chunk, make_eval_step
+    from biear_tpu_torch.train.optim import TrainHyper
+    from biear_tpu_torch.train.runner import (SynthEvalDataset, _accumulate,
+                                              _finalize)
+
+    report = {}
+    hp = TrainHyper()
+    model = build_active(flagship_config("float32"), seed=0)
+    ds = SynthEvalDataset(synth, INFER_EVAL_ROWS, 101, 64)
+    chunk = make_eval_chunk(model, hp)
+    steps = {"eager": make_eval_step(model, hp, capture=False),
+             "witness": make_eval_step(model, hp, capture=False)}
+    res, secs = {}, {}
+    split_bytes = sum(t.numel() * t.element_size()
+                      for g in ds.stacked_groups for t in g)
+    torch.cuda.synchronize()
+    base, held = torch.cuda.memory_allocated(), None
+    for name in ("captured", "captured", "eager", "witness"):
+        sums, per = {}, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "captured":
+            for g in ds.stacked_groups:
+                ms = chunk(g)
+                per.append(ms)
+                _accumulate(sums, ms, g[0].shape[1])
+        else:
+            for b in ds.device_batches():
+                ms = steps[name](b)
+                per.append(ms)
+                _accumulate(sums, ms, b[0].shape[0])
+        out = _finalize(sums)
+        secs.setdefault(name, []).append(time.perf_counter() - t0)
+        if held is None:
+            # after the capturing eval: the split is read in place, so the
+            # card holds it once, plus the eval graph's pool (no copy into
+            # static buffers)
+            held = torch.cuda.memory_allocated() - base
+        res[name] = (out, {k: torch.cat([m[k].reshape(-1) for m in per])
+                           for k in per[0]})
+    err = witness_check(torch, "eval chunk", *(
+        [v[1][k] for k in sorted(v[1])]
+        for v in (res["captured"], res["eager"], res["witness"])))
+    means = {k: (res["captured"][0][k], res["eager"][0][k])
+             for k in res["eager"][0]}
+    pool = pool_stats(model)["pool_bytes"]
+    report["val_split"] = {"rows": INFER_EVAL_ROWS,
+                           "groups": len(ds.stacked_groups),
+                           "split_bytes": split_bytes,
+                           "bytes_held_after_first_eval": held,
+                           "eval_pool_bytes": pool,
+                           "per_batch_max_abs": err[0],
+                           "eager_spread": err[1], "means": means,
+                           "captured_sec_first_and_second":
+                               secs["captured"],
+                           "eager_sec": secs["eager"][0]}
+    log(f"eval chunk: {json.dumps(report['val_split'])}")
+    if not all(abs(a - b) <= 1e-5 * max(1.0, abs(b))
+               for a, b in means.values()):
+        raise RuntimeError(f"eval chunk: split metrics {means}")
+    if not held - pool < split_bytes // 2:
+        raise RuntimeError(f"eval chunk: {held} bytes held after the first "
+                           f"eval, beyond its pool's {pool}: the "
+                           f"{split_bytes}-byte split was copied")
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    wave = synth.sample_batch(gen, INFER_PREDICT_ROWS)
+    feats = PassiveFeatureSynth(synth).sample_batch(gen, INFER_PREDICT_ROWS)
+    for label, model, batch in (
+            ("active", build_active(flagship_config(), seed=0), wave),
+            ("auralnet", build_auralnet(BiEARConfig(
+                **AURALNET, fb_w_dtype="bfloat16"), seed=0), wave),
+            ("passive", build_passive(BiEARConfig(fb_w_dtype="bfloat16"),
+                                      seed=0), feats)):
+        rows = ArrayRows([t.cpu().numpy() for t in batch])
+        t0 = time.perf_counter()
+        got = ev.collect_predictions(model, rows, 64)
+        cap_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = ev.collect_predictions(model, rows, 64, capture=False)
+        eager_s = time.perf_counter() - t0
+        wit = ev.collect_predictions(model, rows, 64, capture=False)
+        err = witness_check(torch, f"collect_predictions {label}",
+                            *([torch.as_tensor(a) for a in p[:3]]
+                              for p in (got, want, wit)))
+        report[f"collect_predictions {label}"] = {
+            "max_abs_vs_eager": err[0], "eager_spread": err[1],
+            "captured_s_first_call": cap_s, "eager_s": eager_s}
+        log(f"collect_predictions {label}: "
+            f"{json.dumps(report[f'collect_predictions {label}'])}")
+    return report
+
+
+def phase_infer_capture(torch, rng, synth, smi: str) -> dict:
+    """19: the inference programs as captured CUDA graphs against their
+    eager paths: (a) ``infer_predict``, (b) ``infer_stream``, (c)
+    ``infer_eval``. Returns the captured predict calls' launch counts."""
+    t0 = time.perf_counter()
+    launches, report = infer_predict(torch, rng)
+    report["stream"] = infer_stream(torch, rng)
+    report["eval"] = infer_eval(torch, synth)
+    report["seconds"] = time.perf_counter() - t0
+    log(f"inference capture report ({smi}): {json.dumps(report)}")
+    return {"infer_predict": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2920,6 +3293,7 @@ def main() -> int:
     launches.update(phase_distributed(torch, smi))
     launches["bench"] = phase_precision(torch, rng)
     launches.update(phase_capture(torch, synth, smi))
+    launches.update(phase_infer_capture(torch, rng, synth, smi))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
         "included)")
     total = lambda k: sum(p.get(k, 0) for p in launches.values())
@@ -2951,6 +3325,7 @@ def main() -> int:
                       for e in ptxas if e["kernel"] == k["name"]]
         if k["launches"] <= 0:
             raise RuntimeError(f"{k['name']} never launched on a main path")
+    print(f"chip_smoke total seconds: {time.perf_counter() - _START:.1f}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -42,8 +42,10 @@ from biear_tpu.models.biear import init_active
 from biear_tpu.train import loop as jloop
 from biear_tpu.train import optim as jopt
 
+from biear_tpu_torch import graph as cgraph
 from biear_tpu_torch import kernels
 from biear_tpu_torch.data.passive_synth import PassiveFeatureSynth
+from biear_tpu_torch.device import matmul_precision
 from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
                                         build_synthesizer,
                                         make_test_hrir_bank,
@@ -387,7 +389,7 @@ def test_graph_replay_counts_and_refuses_new_storage():
     adds the recorded launches; a state tensor given new storage makes it
     raise before the graph runs."""
     p = torch.nn.Parameter(torch.ones(4))
-    g = object.__new__(tgraph.Graph)
+    g = object.__new__(cgraph.Graph)
     g.graph, g.state = _FakeCUDAGraph(), [p]
     g.launches = collections.Counter(cc_lags=1, gather_windows=1)
     g._ptrs = [p.data_ptr()]
@@ -411,7 +413,7 @@ class _StandInGraph:
     the state and generators back (a capture runs nothing); each replay
     runs fn again, writing its output into the first run's tensors."""
 
-    def __init__(self, fn, state, generators):
+    def __init__(self, fn, state, generators, pool=None):
         saved = [t.detach().clone() for t in state]
         gen_states = [g.get_state() for g in generators]
         with recording_launches() as rec:
@@ -440,7 +442,7 @@ class _NoStream:
 @pytest.fixture
 def stand_in_cuda(monkeypatch):
     """graph.py's CUDA calls as CPU stand-ins."""
-    monkeypatch.setattr(tgraph, "Graph", _StandInGraph)
+    monkeypatch.setattr(cgraph, "Graph", _StandInGraph)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _NoStream())
     monkeypatch.setattr(torch.cuda, "Stream", lambda *a: _NoStream())
     monkeypatch.setattr(torch.cuda, "stream",
@@ -496,3 +498,23 @@ def test_captured_chunk_and_step_replay_like_the_eager_loop(stand_in_cuda):
         for k in a:
             assert a[k].shape == b[k].shape and torch.equal(a[k], b[k]), k
     assert m_c[0]["loss"].shape == (3,)
+
+
+def test_captured_step_captures_anew_under_a_new_precision(stand_in_cuda):
+    """The train step's key holds the MATMUL_PRECISION surface, as the
+    forwards' does: a step under "bfloat16" after one under "default"
+    captures a new graph; back under "default" the first graph replays."""
+    cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative", **SMALL)
+    hp = topt.TrainHyper()
+    batch = _anechoic().sample_batch(torch.Generator().manual_seed(3), 2)
+    model = ActiveBiEAR(cfg).init_weights_(1)
+    opt = topt.make_optimizer(model, hp)
+    step = tgraph.CapturedStep(
+        lambda b, g, lr: tloop.train_step(model, hp, opt, b, g, lr),
+        tgraph.train_state(model, opt))
+    gen = torch.Generator().manual_seed(0)
+    for policy, graphs in (("default", 1), ("bfloat16", 2), ("default", 2)):
+        with matmul_precision(policy):
+            assert bool(torch.isfinite(step(batch, gen)["loss"]))
+        assert len(step.graphs) == len(step.stats) == graphs
+    assert {k[1][0] for k in step.graphs} == {"default", "bfloat16"}

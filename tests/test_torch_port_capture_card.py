@@ -60,7 +60,8 @@ def _max_abs(a, b):
 @pytest.mark.cuda
 def test_captured_chunk_matches_the_eager_loop_on_card():
     _need_card()
-    from biear_tpu_torch.train.graph import CapturedChunk, WARMUP_STEPS
+    from biear_tpu_torch.graph import WARMUP_STEPS
+    from biear_tpu_torch.train.graph import CapturedChunk
     from biear_tpu_torch.kernels import LAUNCHES
 
     runs, _ = _setup()
