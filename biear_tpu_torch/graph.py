@@ -1,8 +1,9 @@
 """Captured CUDA graphs: the port's counterpart of a jitted JAX program.
 
 A JAX entry point that is ``jax.jit`` (or a ``lax.scan`` inside one) runs
-as one dispatch; on a CUDA device with no mesh (``use_capture``) the
-port's entry points replay CUDA graphs built here:
+as one dispatch; on a CUDA device with no mesh or a mesh without a model
+axis (``use_capture``) the port's entry points replay CUDA graphs built
+here:
 
   * ``Captured``: fn(inputs, generator) replayed from one graph per key
     (``Captured.key``: the inputs' shapes and dtypes, the MATMUL_PRECISION
@@ -15,6 +16,12 @@ port's entry points replay CUDA graphs built here:
     (``train/graph.py::CapturedStep``) and the inference forwards
     (``predict``, the eval step and eval forward, the stream hop) are
     ``Captured``.
+  * ``SplitGraph``: a step as two graphs around an eager call, the train
+    step over D > 1 data ranks (``train/graph.py::CapturedMeshStep`` and
+    ``CapturedMeshChunk``): graph A the forward, backward and the packing
+    of the gradients into a static flat buffer, then the data group's
+    all-reduce of that buffer (NCCL or gloo, eagerly), then graph B the
+    update.
   * ``CapturedEvalChunk``: the eval of row r of a stack of same-shape
     batches (r a device counter the graph advances), captured once per
     stack and replayed once per row into preallocated metric stacks (JAX's
@@ -44,6 +51,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .device import precision_key
 from .kernels import count_replay, recording_launches
@@ -51,21 +59,30 @@ from .kernels import count_replay, recording_launches
 WARMUP_STEPS = 2     # eager runs on a side stream before a capture
 
 
+def on_card(model) -> bool:
+    """Whether `model` lives on a CUDA device."""
+    return next(model.parameters()).is_cuda
+
+
 def use_capture(model, mesh, capture: bool | None) -> bool:
-    """Whether an entry point replays a captured CUDA graph: by default
-    exactly on a CUDA device without a mesh (gloo cannot be captured,
-    NCCL in a graph needs several cards); ``capture=False`` takes the
-    eager path on the card; ``capture=True`` on the CPU or under a mesh
-    raises."""
-    on_card = next(model.parameters()).is_cuda
-    if capture is None:
-        return on_card and mesh is None
-    if capture and not on_card:
+    """Whether an entry point replays captured CUDA graphs: by default
+    exactly on a CUDA device without a mesh or under a mesh without a
+    model axis (MESH_MODEL 1), whose one collective, the train step's
+    flat all-reduce over 'data', runs eagerly between two graphs;
+    ``capture=False`` takes the eager path on the card; ``capture=True``
+    under a model axis (its collectives run inside autograd's forward and
+    backward, which no graph splits around) or on the CPU raises."""
+    model_axis = mesh is not None and mesh.model > 1
+    if capture and model_axis:
+        raise ValueError("capture=True under a model axis (MESH_MODEL > 1): "
+                         "its collectives run inside autograd's forward and "
+                         "backward (parallel/mesh.py), so the step runs "
+                         "eagerly")
+    if capture and not on_card(model):
         raise ValueError("capture=True needs the model on a CUDA device: "
                          "the CPU runs the eager path")
-    if capture and mesh is not None:
-        raise ValueError("capture=True under a mesh: its collectives run "
-                         "in the eager path")
+    if capture is None:
+        return on_card(model) and not model_axis
     return bool(capture)
 
 
@@ -108,8 +125,12 @@ class Graph:
         self.graph = torch.cuda.CUDAGraph()
         for g in generators:
             self.graph.register_generator_state(g)
-        with recording_launches() as rec, torch.cuda.graph(self.graph,
-                                                           pool=pool):
+        # in a process group, the collectives' watchdog thread queries
+        # their events while this thread captures: only this thread's
+        # unsafe calls may end the capture
+        mode = "thread_local" if dist.is_initialized() else "global"
+        with recording_launches() as rec, torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode=mode):
             self.out = fn()
         torch.cuda.synchronize(device)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
@@ -128,6 +149,45 @@ class Graph:
                 "train step or eval step")
         self.graph.replay()
         count_replay(self.launches)
+
+
+class SplitGraph:
+    """A step captured as two CUDA graphs around an eager call: graph A
+    runs before(), which returns a static buffer (the same tensor at every
+    call), graph B runs after(buffer); a replay is A, between(buffer), B.
+    `between` is what a graph cannot hold, such as a gloo or NCCL
+    collective over several processes. ``out`` is B's output;
+    ``launches``, ``capture_ms`` and ``pool_bytes`` are the pair's."""
+
+    def __init__(self, before, between, after, state: list,
+                 generators: list):
+        a = Graph(lambda: {"sent": before()}, state, generators)
+        sent = a.out["sent"]
+        b = Graph(lambda: after(sent), state, generators)
+        self.graphs, self.between, self.sent = (a, b), between, sent
+        self.out = b.out
+        self.launches = a.launches + b.launches
+        self.capture_ms = a.capture_ms + b.capture_ms
+        self.pool_bytes = a.pool_bytes + b.pool_bytes
+
+    def replay(self) -> None:
+        a, b = self.graphs
+        a.replay()
+        self.between(self.sent)
+        b.replay()
+
+
+def generators_of(*gens) -> list:
+    """The distinct torch.Generators behind `gens` (each None, a generator
+    or a mesh rank's ``RankGenerators``), in order: those a graph
+    registers and a warm-up puts back."""
+    out = []
+    for g in gens:
+        for x in ([] if g is None else [g] if isinstance(g, torch.Generator)
+                  else g.generators()):
+            if not any(x is y for y in out):
+                out.append(x)
+    return out
 
 
 def check_generator(gen, captured) -> None:
@@ -207,11 +267,15 @@ class Captured:
 
     def capture(self, static: tuple, gen):
         """(Graph, its outputs, warm-up ms) of fn on the static inputs."""
-        gens = [] if gen is None else [gen]
+        gens = generators_of(gen)
         run = lambda: self.fn(static, gen)
         _, warm_ms = warm_up(run, self.state, gens, self.device)
-        graph = Graph(run, self.state, gens, self.pool)
+        graph = self.graph_of(run, static, gen, gens)
         return graph, graph.out, warm_ms
+
+    def graph_of(self, run, static: tuple, gen, gens: list):
+        """The graph of run() (fn on the static inputs)."""
+        return Graph(run, self.state, gens, self.pool)
 
     def replay(self, graph: Graph, static: tuple) -> None:
         graph.replay()

@@ -94,6 +94,11 @@ class RankGenerators:
         self.replicated = replicated
         self.sharded = sharded
 
+    def generators(self) -> list:
+        """The generators of the three streams (one may stand for
+        several)."""
+        return [self.shared, self.replicated, self.sharded]
+
     def keep_masks(self, rate: float, shape, sharded: bool) -> torch.Tensor:
         own = self.sharded if sharded else self.replicated
         keep = _keep(self.shared, rate, shape)

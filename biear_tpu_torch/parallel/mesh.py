@@ -5,7 +5,9 @@ with one process per GPU, launched by ``torchrun``:
 
   * the global batch is split over 'data': data rank d holds rows
     [d B / D, (d + 1) B / D) of every batch, and the data ranks' gradients
-    meet in one flat all-reduce per step (``all_reduce_grads``);
+    meet in one flat all-reduce per step (``pack_grads``, then
+    ``Mesh.data_sum_``, then ``unpack_grads``; over one data rank nothing
+    is sent);
   * 'model' cuts the body and the sector heads, Megatron style:
     ``body.0`` is column-parallel (its 512 outputs split), ``body.3``
     row-parallel (its partial outputs all-reduced, its bias added once),
@@ -218,31 +220,37 @@ def gather_heads(x: torch.Tensor, first: int, n_heads: int,
     return _GatherHeads.apply(x, first, n_heads, mesh.model_group)
 
 
-def all_reduce_grads(mesh: Mesh, grads: list, weight: torch.Tensor,
-                     scalars: list):
-    """The global weighted mean of the data ranks' gradients and scalars
-    (loss and metrics): one flat all-reduce over the data group of [W_r g
-    ..., W_r, W_r s ...], divided by W = sum W_r (at least 1e-8, as
-    ``losses.batch_mean``). Rank r's values are means over its rows
-    weighted by weights that sum to W_r, so in exact arithmetic the
-    result is the global batch's weighted mean, ranks holding only padding
-    (W_r = 0) included. Returns (grads, scalars, W). Over one data rank
-    nothing is sent or scaled: the step is the step without a mesh, bit
-    for bit, whatever W."""
-    if mesh.data == 1:
-        return grads, scalars, weight
+def pack_grads(grads: list, weight: torch.Tensor, scalars: list,
+               out: torch.Tensor | None = None) -> torch.Tensor:
+    """The flat buffer a data rank sends, [W_r g ..., W_r, W_r s ...]:
+    its gradients and scalars (loss and metrics), means over its rows
+    weighted by weights that sum to W_r, each times W_r; written into `out`
+    when given (a static buffer a captured graph writes), else new."""
     w = weight.reshape(1).float()
-    flat = torch.cat([*(g.reshape(-1) * w for g in grads), w,
-                      torch.stack(scalars).float() * w])
-    dist.all_reduce(flat, group=mesh.data_group)
-    n = flat.numel() - 1 - len(scalars)
+    parts = [*(g.reshape(-1) * w for g in grads), w,
+             torch.stack(scalars).float() * w]
+    return torch.cat(parts) if out is None else torch.cat(parts, out=out)
+
+
+def unpack_grads(flat: torch.Tensor, like: list, n_scalars: int):
+    """(grads shaped as the tensors `like`, scalars, W) from the data
+    group's sum of ``pack_grads`` buffers: each divided by W = sum W_r (at
+    least 1e-8, as ``losses.batch_mean``), views of `flat` for W. In exact
+    arithmetic that is the global batch's weighted mean, ranks holding
+    only padding (W_r = 0) included."""
+    n = flat.numel() - 1 - n_scalars
     W = flat[n]
     den = torch.clamp(W, min=1e-8)
     out, o = [], 0
-    for g in grads:
-        out.append((flat[o:o + g.numel()] / den).view_as(g))
-        o += g.numel()
+    for t in like:
+        out.append((flat[o:o + t.numel()] / den).view_as(t))
+        o += t.numel()
     return out, list(flat[n + 1:] / den), W
+
+
+def flat_numel(params, n_scalars: int) -> int:
+    """The length of a ``pack_grads`` buffer."""
+    return sum(p.numel() for p in params) + 1 + n_scalars
 
 
 # ---------------- placement ----------------

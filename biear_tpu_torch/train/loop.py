@@ -14,17 +14,20 @@ computed in the same step.
 The chunk runs ``chunk_steps`` iterations of synthesize -> step; each
 step's generator draws the synthesis first and the dropout second. The
 whole step, forward and backward, runs under the process-wide
-MATMUL_PRECISION (``device.matmul_precision``). On a CUDA device without a
-mesh, ``make_train_step``, ``make_train_chunk``, ``make_eval_step`` and
-``make_eval_chunk`` replay captured CUDA graphs of these steps
-(``train/graph.py``, ``graph.py``), JAX's one-dispatch programs; the CPU
-and a mesh run them eagerly, in a Python loop.
+MATMUL_PRECISION (``device.matmul_precision``). On a CUDA device without
+a mesh or under a D x 1 one, ``make_train_step``, ``make_train_chunk``,
+``make_eval_step`` and ``make_eval_chunk`` replay captured CUDA graphs of
+these steps (``train/graph.py``, ``graph.py``), JAX's one-dispatch
+programs; the CPU and a model axis run them eagerly, in a Python loop
+(the model axis's collectives run inside autograd's forward and backward,
+where a graph cannot leave them out).
 
 Under a mesh (``parallel.mesh.Mesh``) each rank's loss and gradients are
 means over its rows; one flat all-reduce over the data group turns them
-into the global batch's weighted mean (``all_reduce_grads``), and ``ok``
-is taken on the reduced values, so every rank skips a nonfinite step
-together. With a model axis M > 1 the group norms (and so the clip), the
+into the global batch's weighted mean, and ``ok`` is taken on the reduced
+values, so every rank skips a nonfinite step together. The step splits
+at that all-reduce (``send_half``, ``receive_half``): a captured step is
+two graphs with the eager all-reduce between them, over NCCL or gloo. With a model axis M > 1 the group norms (and so the clip), the
 finite flags and the histograms are those of the whole tensors: a cut
 tensor's squares and counts are summed over the model group, a
 replicated one counted once.
@@ -39,10 +42,12 @@ from ..device import constant_cache, matmul_precision
 from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
 from ..models.frontend import device_constants
-from ..parallel.mesh import Mesh, all_reduce_grads, layout_of
+from ..parallel.mesh import (Mesh, flat_numel, layout_of, pack_grads,
+                             unpack_grads)
 from .losses import q_regularizers, sanitize_wav, sanitize_x3, task_loss
 from ..graph import CapturedEvalChunk, forward, use_capture
-from .graph import CapturedChunk, CapturedStep, train_state
+from .graph import (CapturedChunk, CapturedMeshChunk, CapturedMeshStep,
+                    CapturedStep, train_state)
 from .optim import Adam, TrainHyper, is_frontend
 
 _Model = ActiveBiEAR | AuralNet | PassiveBiEAR
@@ -201,33 +206,37 @@ def model_loss(model, hp: TrainHyper, batch, gen: torch.Generator | None):
     return fn(model, hp, batch, gen)
 
 
-def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
-               gen, lr_scale=1.0, max_param_log: int = 200,
-               mesh: Mesh | None = None) -> dict:
-    """One training step on `batch`, in place on the model's parameters
-    and the optimizer's state. Returns the metrics as device tensors,
-    with "skipped" (1.0 when the update was masked out), "weight" (the
-    batch's W, global under a mesh) and "grad_hist" (rows in
-    ``grad_hist_names`` order). Under a mesh the metrics are the global
-    batch's; `gen` is then the rank's generator or ``RankGenerators``."""
+def sends(mesh: Mesh | None) -> bool:
+    """Whether a train step under `mesh` sends its gradients: over D > 1
+    data ranks (over one, the step is the step without a mesh)."""
+    return mesh is not None and mesh.data > 1
+
+
+def forward_backward(model: _Model, hp: TrainHyper, batch, gen):
+    """(gradients in parameter order, zeros where unused; the metrics;
+    the batch's weight W) of one training forward and backward."""
     model.train()
-    names, params = zip(*model.named_parameters())
+    params = list(model.parameters())
     with matmul_precision():
         loss, metrics = model_loss(model, hp, batch, gen)
         grads = torch.autograd.grad(loss, params, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
-    weight = batch_weight(batch)
-    if mesh is not None:
-        grads, scalars, weight = all_reduce_grads(
-            mesh, grads, weight, [metrics[k] for k in METRICS])
-        metrics.update(zip(METRICS, scalars))
-        loss = metrics["loss"]
+    return grads, metrics, batch_weight(batch)
+
+
+def apply_update(model: _Model, optimizer: Adam, grads: list, metrics: dict,
+                 weight, lr_scale, max_param_log: int) -> dict:
+    """The optimizer step of `grads` (parameter order) where ``ok`` (the
+    loss and every gradient finite) holds, and the step's telemetry;
+    returns `metrics` with the norms, "skipped", "weight" and
+    "grad_hist"."""
+    names = [n for n, _ in model.named_parameters()]
     named = dict(zip(names, grads))
     layout = layout_of(model)
     norms = group_norms(named, layout)
     # the whole gradient's flags: the model ranks' differ where it is cut
-    ok = (torch.isfinite(loss) & (norms["grad_fb_finite"] > 0)
+    ok = (torch.isfinite(metrics["loss"]) & (norms["grad_fb_finite"] > 0)
           & (norms["grad_backend_finite"] > 0))
     # a cut model's clip norms are the whole gradient's; otherwise the
     # optimizer takes them from `named`
@@ -241,20 +250,81 @@ def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
     return metrics
 
 
+def send_half(model: _Model, hp: TrainHyper, batch, gen,
+              out: torch.Tensor | None = None) -> torch.Tensor:
+    """A data rank's train step up to the data group's all-reduce: the
+    forward and backward, packed into the flat buffer it sends
+    (``pack_grads``; into `out` when given)."""
+    grads, metrics, weight = forward_backward(model, hp, batch, gen)
+    return pack_grads(grads, weight, [metrics[k] for k in METRICS], out)
+
+
+def receive_half(model: _Model, optimizer: Adam, flat: torch.Tensor,
+                 lr_scale, max_param_log: int) -> dict:
+    """A data rank's train step after the all-reduce: the global batch's
+    gradients and metrics from the summed buffer `flat`
+    (``unpack_grads``), then the update and telemetry (``apply_update``),
+    so ``ok`` is taken on the reduced values and every rank skips a
+    nonfinite step together."""
+    grads, scalars, weight = unpack_grads(flat, list(model.parameters()),
+                                          len(METRICS))
+    return apply_update(model, optimizer, grads, dict(zip(METRICS, scalars)),
+                        weight, lr_scale, max_param_log)
+
+
+def train_step(model: _Model, hp: TrainHyper, optimizer: Adam, batch,
+               gen, lr_scale=1.0, max_param_log: int = 200,
+               mesh: Mesh | None = None) -> dict:
+    """One training step on `batch`, in place on the model's parameters
+    and the optimizer's state. Returns the metrics as device tensors,
+    with "skipped" (1.0 when the update was masked out), "weight" (the
+    batch's W, global under a mesh) and "grad_hist" (rows in
+    ``grad_hist_names`` order). Under a mesh the metrics are the global
+    batch's; `gen` is then the rank's generator or ``RankGenerators``.
+    Over D > 1 data ranks the step is ``send_half``, the flat all-reduce,
+    ``receive_half``."""
+    if sends(mesh):
+        flat = mesh.data_sum_(send_half(model, hp, batch, gen))
+        return receive_half(model, optimizer, flat, lr_scale, max_param_log)
+    grads, metrics, weight = forward_backward(model, hp, batch, gen)
+    return apply_update(model, optimizer, grads, metrics, weight, lr_scale,
+                        max_param_log)
+
+
+def step_halves(model: _Model, hp: TrainHyper, optimizer: Adam,
+                max_param_log: int):
+    """(send, receive) of a data rank's captured step: send(batch, gen)
+    packs into one flat buffer made here (the same tensor every call),
+    receive(flat, lr_scale) -> metrics."""
+    params = list(model.parameters())
+    flat = torch.empty(flat_numel(params, len(METRICS)),
+                       device=params[0].device)
+    return (lambda batch, gen: send_half(model, hp, batch, gen, flat),
+            lambda flat, lr: receive_half(model, optimizer, flat, lr,
+                                          max_param_log))
+
+
 def make_train_step(model: _Model, hp: TrainHyper, optimizer: Adam,
                     max_param_log: int = 200, mesh: Mesh | None = None, *,
                     capture: bool | None = None):
     """(batch, gen, lr_scale) -> metrics, training `model` in place.
 
-    On a CUDA device without a mesh the step is a captured CUDA graph per
-    batch signature (``graph.CapturedStep``, JAX's jitted step), drawing
-    from the generator of its first call; the CPU, a mesh and
-    ``capture=False`` run the eager step (``use_capture``)."""
+    On a CUDA device without a mesh or under one without a model axis the
+    step is captured CUDA graphs per batch signature (JAX's jitted step),
+    drawing from the generator of its first call: one graph
+    (``graph.CapturedStep``), or over D > 1 data ranks two around the
+    eager flat all-reduce (``graph.CapturedMeshStep``). The CPU, a model
+    axis and ``capture=False`` run the eager step (``use_capture``)."""
     if use_capture(model, mesh, capture):
+        state = train_state(model, optimizer)
+        if sends(mesh):
+            return CapturedMeshStep(
+                *step_halves(model, hp, optimizer, max_param_log), mesh,
+                state)
         return CapturedStep(
             lambda batch, gen, lr: train_step(model, hp, optimizer, batch,
-                                              gen, lr, max_param_log),
-            train_state(model, optimizer))
+                                              gen, lr, max_param_log, mesh),
+            state)
 
     def step(batch, gen, lr_scale=1.0) -> dict:
         return train_step(model, hp, optimizer, batch, gen, lr_scale,
@@ -267,9 +337,11 @@ def make_eval_step(model: _Model, hp: TrainHyper, *,
     """batch -> metrics, in eval mode without gradients (JAX's jitted
     ``make_eval_step``).
 
-    On a CUDA device without a mesh the forward replays a captured CUDA
+    On a CUDA device without a model axis (a D x 1 mesh has no
+    collective in the eval forward) the forward replays a captured CUDA
     graph per batch signature and precision (``graph.forward``); the
-    CPU, a mesh and ``capture=False`` run it eagerly (``use_capture``)."""
+    CPU, a model axis and ``capture=False`` run it eagerly
+    (``use_capture``)."""
     if use_capture(model, mesh, capture):
         fwd = forward(model, "eval_step",
                       lambda *batch: model_loss(model, hp, batch, None)[1])
@@ -293,10 +365,12 @@ def make_eval_chunk(model: _Model, hp: TrainHyper, *,
     (n_batches,) axis (a ``SynthEvalDataset`` stacked group) -> the eval
     metrics stacked on that axis.
 
-    On a CUDA device without a mesh the eval of one stack row is a
+    On a CUDA device without a model axis the eval of one stack row is a
     captured CUDA graph replayed once per row, reading the stacks in place
-    (``graph.CapturedEvalChunk``); the CPU, a mesh and ``capture=False``
-    loop over the rows eagerly (``use_capture``)."""
+    (``graph.CapturedEvalChunk``); the CPU, a model axis and
+    ``capture=False`` loop over the rows eagerly (``use_capture``). Under
+    a mesh the caller adds the data ranks' sums (the runner's
+    ``_finalize``, once per split)."""
     if use_capture(model, mesh, capture):
         chunk = CapturedEvalChunk(
             lambda batch: model_loss(model, hp, batch, None)[1], model)
@@ -328,17 +402,24 @@ def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
     given (a rank's ``RankGenerators`` over `gen`). (fb_vjp "auto" is
     "custom" at every batch, which the JAX chunk forces.)
 
-    On a CUDA device without a mesh one synthesize -> step iteration is a
-    captured CUDA graph replayed `chunk_steps` times per call
-    (``graph.CapturedChunk``; JAX's scan is one program), drawing from
-    the generator of its first call, which the caller re-seeds between
-    chunks; the CPU, a mesh and ``capture=False`` run the eager loop
-    (``use_capture``)."""
+    On a CUDA device without a model axis one synthesize -> step
+    iteration is captured and replayed `chunk_steps` times per call (JAX's
+    scan is one program): one graph (``graph.CapturedChunk``), or over D >
+    1 data ranks two around the eager flat all-reduce
+    (``graph.CapturedMeshChunk``). It draws from the generators of its
+    first call (`gen` and `dropout_gen`), which the caller re-seeds in
+    place between chunks; the CPU, a model axis and ``capture=False`` run
+    the eager loop (``use_capture``)."""
     if use_capture(model, mesh, capture):
+        state = train_state(model, optimizer)
+        if sends(mesh):
+            return CapturedMeshChunk(
+                *step_halves(model, hp, optimizer, max_param_log), mesh,
+                synth_batch_fn, chunk_steps, state)
         return CapturedChunk(
             lambda batch, gen, lr: train_step(model, hp, optimizer, batch,
-                                              gen, lr, max_param_log),
-            synth_batch_fn, chunk_steps, train_state(model, optimizer))
+                                              gen, lr, max_param_log, mesh),
+            synth_batch_fn, chunk_steps, state)
 
     def run_chunk(gen: torch.Generator, lr_scale=1.0,
                   dropout_gen=None) -> dict:

@@ -24,7 +24,8 @@ out; the host reads them once per epoch.
 Random streams: the synthesised chunks draw their batches and dropout
 from one generator re-seeded before each chunk with the seed keyed by
 (seed, epoch, chunk index) (``keyed_seed``; one generator, since a
-captured chunk is registered with the generator it draws from), so a run
+captured chunk is registered with the generator it draws from; a mesh
+rank's own dropout streams are likewise made once and re-seeded), so a run
 resumed after epoch e equals an uninterrupted one at a fixed
 SYNTH_CHUNK_STEPS;
 the dataset path draws its dropout from a generator seeded with `seed`
@@ -90,19 +91,29 @@ def keyed_generator(device, *key: int) -> torch.Generator:
 
 
 def dropout_streams(mesh: Mesh | None, shared: torch.Generator, device,
-                    *key: int) -> RankGenerators | None:
+                    *key: int, streams: RankGenerators | None = None
+                    ) -> RankGenerators | None:
     """This rank's dropout streams over the generator `shared`: None (draw
     from `shared`) on rank 0 and without a mesh; otherwise data rank d's
     replicated activations draw from a generator keyed (key..., d), or
     from `shared` on data rank 0, and activations cut over the model axis
-    from one keyed (key..., d, model rank)."""
+    from one keyed (key..., d, model rank). Given `streams` (this call's
+    earlier result for the same mesh and `shared`), its generators are
+    re-seeded in place and it is returned: a captured chunk draws from
+    the generators it was captured with, and a re-seeded generator draws
+    what a fresh ``keyed_generator`` draws."""
     if mesh is None or mesh.rank == 0:
         return None
     d = mesh.data_rank
-    rep = shared if d == 0 else keyed_generator(device, *key, d)
-    cut = (rep if mesh.model == 1
-           else keyed_generator(device, *key, d, mesh.model_rank))
-    return RankGenerators(shared, rep, cut)
+    if streams is None:
+        rep = shared if d == 0 else torch.Generator(device=device)
+        cut = rep if mesh.model == 1 else torch.Generator(device=device)
+        streams = RankGenerators(shared, rep, cut)
+    if d:
+        streams.replicated.manual_seed(keyed_seed(*key, d))
+    if mesh.model > 1:
+        streams.sharded.manual_seed(keyed_seed(*key, d, mesh.model_rank))
+    return streams
 
 
 def check_supported(rc: RunConfig) -> tuple:
@@ -378,6 +389,7 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
     step_gen = torch.Generator(device=device).manual_seed(seed)
     step_drop = dropout_streams(mesh, step_gen, device, seed) or step_gen
     chunk_gen = torch.Generator(device=device)
+    chunk_drop = None
     timings = {"eval_splits_s": None, "checkpoint_s": []}
 
     chunk_runners = {}
@@ -490,18 +502,18 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
         The stream depends on SYNTH_CHUNK_STEPS, so seed-matched runs hold
         it fixed. The HIST_EVERY and PRINT_EVERY marks a chunk crosses are
         logged from its rows, with one host read per chunk."""
-        nonlocal global_step
+        nonlocal global_step, chunk_drop
         sums = {}
         t0 = time.time()
         done = chunk_idx = 0
         while done < steps:
             c = min(chunk, steps - done)
             chunk_gen.manual_seed(keyed_seed(seed, epoch, chunk_idx))
-            drop = dropout_streams(mesh, chunk_gen, device, seed, epoch,
-                                   chunk_idx)
+            chunk_drop = dropout_streams(mesh, chunk_gen, device, seed,
+                                         epoch, chunk_idx, streams=chunk_drop)
             chunk_idx += 1
             gs_before = global_step
-            ms = get_chunk_runner(c)(chunk_gen, lr_scale, drop)
+            ms = get_chunk_runner(c)(chunk_gen, lr_scale, chunk_drop)
             _accumulate(sums, ms, rc.batch_size)
             done += c
             global_step += c

@@ -166,13 +166,22 @@ Phases, each of which raises on failure (the exit code is then not 0):
      so they run over gloo on CUDA tensors, as MESH 2x1 and 1x2: per-step
      losses and gradient norms within DIST_RTOL (at DIST_STEPS_HELD),
      one run tree each, rank 0's best.pth loads strictly into a
-     one-device model; (c) the same two ranks run DIST_CHUNK_STEPS steps
-     of the fused bf16 chunk at DIST_RANK_BATCH rows per rank (global
-     batch 512): one mix and one CC launch per step on each rank. Launch
+     one-device model; (c) the same two ranks run the fused bf16 chunk at
+     DIST_RANK_BATCH rows per rank (global batch 512), DIST_CHUNKS chunks
+     of DIST_CHUNK_STEPS steps, captured and with capture=False (twice)
+     from one state and seed: batches and generator states bit for bit,
+     losses and parameters within CAPTURE_WITNESS times the eager pair's
+     spread, one mix and one CC launch per step (per replay) on each
+     rank. The reference runner, (a) and (b)'s 2x1 are captured (each a
+     mesh without a model axis: a step is two graphs around the eager
+     all-reduce, one graph over one data rank; their launch counts,
+     warm-ups included, equal the reference's), 1x2 runs eagerly. Launch
      counts per rank (cleared just before each run, read just after), the
      flat gradient all-reduce's ms (CUDA events, on a buffer of the step's
-     size) and utt/s per rank are printed beside the card's name and
-     power limit; two processes on one card measure no scaling.
+     size), utt/s per rank of both paths and, on rank 0, host launches,
+     busy ms, kernels per step and idle share of both paths are printed
+     beside the card's name and power limit; two processes on one card
+     measure no scaling.
  17. bench and precision: (a) ``biear_tpu_torch.bench.measure`` at full
      width, bf16, one window of one 16-step fused chunk and one window of
      5 bare steps (launch counts zeroed just before and read just after:
@@ -317,7 +326,7 @@ DIST_SCALARS = ("loss", "grad_fb_norm", "grad_backend_norm")
 DIST_RTOL = {"loss": 2e-4, "grad_fb_norm": 1e-4, "grad_backend_norm": 1e-4}
 DIST_STEPS_HELD = {"loss": None, "grad_fb_norm": 1,
                    "grad_backend_norm": None}
-DIST_CHUNK_STEPS, DIST_RANK_BATCH = 4, 256
+DIST_CHUNK_STEPS, DIST_RANK_BATCH, DIST_CHUNKS = 4, 256, 3
 ALLREDUCE_REPS = 20
 # phase 17: each MATMUL_PRECISION name's forward against "highest"
 # (tests/test_precision.py:92-96: Q, AoA, sound and distance logits), the
@@ -2309,41 +2318,125 @@ def allreduce_ms(torch, n: int, device) -> dict:
 
 
 def dist_chunk(torch, device) -> dict:
-    """Phase 16 (c) on one rank of two: DIST_CHUNK_STEPS steps of the fused
-    bf16 chunk of the flagship at DIST_RANK_BATCH rows per rank, this
-    rank's rows of each global batch, over a 2x1 mesh."""
+    """Phase 16 (c) on one rank of two: the fused bf16 chunk of the
+    flagship at DIST_RANK_BATCH rows per rank, this rank's rows of each
+    global batch, over a 2x1 mesh, captured (two graphs a step around the
+    gloo all-reduce) and with capture=False (twice, the witness pair) from
+    one seeded state, DIST_CHUNKS chunks of DIST_CHUNK_STEPS steps, the
+    generators and this rank's dropout streams re-seeded in place per
+    chunk as the runner does. After every chunk the captured run's
+    batches and generator states equal the eager run's bit for bit, its
+    losses and parameters lie within CAPTURE_WITNESS times the eager pair's
+    spread. The mix and CC kernels launch once per replay. Then each path
+    is profiled over one chunk on rank 0 (rank 1 runs the same chunks
+    untraced: their all-reduces pair up)."""
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.parallel.mesh import Mesh
-    from biear_tpu_torch.serve.profile_serve import GEOMETRY
+    from biear_tpu_torch.serve.profile_serve import GEOMETRY, device_profile
+    from biear_tpu_torch.train.graph import CapturedMeshChunk
     from biear_tpu_torch.train.loop import make_train_chunk
     from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
-    from biear_tpu_torch.train.runner import dropout_streams, keyed_generator
+    from biear_tpu_torch.train.runner import dropout_streams, keyed_seed
 
     mesh = Mesh(2, 1, device)
     hp = TrainHyper()
-    model = build_active(BiEARConfig(**GEOMETRY["dual"],
-                                     fb_w_dtype="bfloat16"), seed=0,
-                         device=device)
-    mesh.broadcast_module_(model)
-    B = DIST_RANK_BATCH * mesh.data
-    chunk = make_train_chunk(
-        model, hp, make_optimizer(model, hp),
-        training_synth(torch, "bfloat16").batch_fn(B, rows=mesh.rows(B)),
-        DIST_CHUNK_STEPS, mesh=mesh)
-    gen = keyed_generator(device, 0, 1, 0)
-    drop = dropout_streams(mesh, gen, device, 0, 1, 0)
-    LAUNCHES.clear()
-    ms = chunk(gen, 1.0, drop)
-    torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    t0 = time.perf_counter()
-    chunk(gen, 1.0, drop)
-    torch.cuda.synchronize()
-    sec = time.perf_counter() - t0
-    return {"launches": launches, "losses": ms["loss"].tolist(),
-            "skipped": ms["skipped"].tolist(),
-            "utt_s_per_rank": DIST_RANK_BATCH * DIST_CHUNK_STEPS / sec}
+    B, steps = DIST_RANK_BATCH * mesh.data, DIST_CHUNK_STEPS
+    cfg = BiEARConfig(**GEOMETRY["dual"], fb_w_dtype="bfloat16")
+    synth_fn = training_synth(torch, "bfloat16").batch_fn(B,
+                                                          rows=mesh.rows(B))
+    runs = {}
+    for name, capture in (("eager", False), ("witness", False),
+                          ("captured", None)):
+        model = build_active(cfg, seed=0, device=device)
+        mesh.broadcast_module_(model)
+        fn, bufs, row = recording_batch_fn(torch, synth_fn, steps)
+        runs[name] = {"model": model, "bufs": bufs, "row": row, "rates": [],
+                      "gen": torch.Generator(device=device), "drop": None,
+                      "chunk": make_train_chunk(model, hp,
+                                                make_optimizer(model, hp),
+                                                fn, steps, mesh=mesh,
+                                                capture=capture)}
+    if not isinstance(runs["captured"]["chunk"], CapturedMeshChunk):
+        raise RuntimeError("distributed (c): the default chunk under 2x1 is "
+                           f"{type(runs['captured']['chunk'])}")
+
+    def call(r, c):
+        r["gen"].manual_seed(keyed_seed(0, 1, c))
+        r["drop"] = dropout_streams(mesh, r["gen"], device, 0, 1, c,
+                                    streams=r["drop"])
+        r["row"].zero_()
+        return r["chunk"](r["gen"], 1.0, r["drop"])
+
+    gens = lambda r: [r["gen"]] + ([] if r["drop"] is None
+                                   else r["drop"].generators())
+    # capture before the first chunk, so that the warm-up's recorded
+    # batches (its steps advance the recording row) are overwritten
+    cap = runs["captured"]
+    cap["gen"].manual_seed(keyed_seed(0, 1, 0))
+    cap["drop"] = dropout_streams(mesh, cap["gen"], device, 0, 1, 0)
+    cap["chunk"].capture(cap["gen"], cap["drop"])
+    launches, worst = {}, {"loss": (0.0, 0.0), "params": (0.0, 0.0)}
+    for c in range(DIST_CHUNKS):
+        ms = {}
+        for name, r in runs.items():
+            torch.cuda.synchronize()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            ms[name] = call(r, c)
+            torch.cuda.synchronize()
+            r["rates"].append(DIST_RANK_BATCH * steps
+                              / (time.perf_counter() - t0))
+            if c == DIST_CHUNKS - 1:
+                launches[name] = dict(LAUNCHES)
+        e = runs["eager"]
+        for name in ("witness", "captured"):
+            r = runs[name]
+            if not (all(torch.equal(a, b) for a, b in zip(r["bufs"],
+                                                          e["bufs"]))
+                    and all(torch.equal(a.get_state(), b.get_state())
+                            for a, b in zip(gens(r), gens(e)))):
+                raise RuntimeError(f"distributed (c) chunk {c}: the {name} "
+                                   "run's batches or generator states "
+                                   "differ from the eager run's")
+        for key, got, want, wit in (
+                ("loss", {"l": ms["captured"]["loss"]},
+                 {"l": ms["eager"]["loss"]}, {"l": ms["witness"]["loss"]}),
+                ("params", snapshot(runs["captured"]["model"]),
+                 snapshot(e["model"]), snapshot(runs["witness"]["model"]))):
+            err, spread = max_abs(torch, got, want), max_abs(torch, wit, want)
+            worst[key] = (max(worst[key][0], err), max(worst[key][1], spread))
+            if err > CAPTURE_WITNESS * spread:
+                raise RuntimeError(
+                    f"distributed (c) chunk {c}: captured {key} off the "
+                    f"eager run by {err!r}, {CAPTURE_WITNESS!r} x the "
+                    f"witness spread {spread!r}")
+        if not (bool(torch.isfinite(ms["captured"]["loss"]).all())
+                and float(ms["captured"]["skipped"].sum()) == 0):
+            raise RuntimeError(f"distributed (c) chunk {c}: nonfinite loss "
+                               "or a skipped step")
+    out = {"launches": launches["captured"],
+           "eager_launches": launches["eager"],
+           "losses": ms["captured"]["loss"].tolist(),
+           "loss_err": worst["loss"], "param_err": worst["params"],
+           "stats": runs["captured"]["chunk"].stats, "profile": {}}
+    for name in ("captured", "eager"):
+        r = runs[name]
+        out[f"{name}_utt_s_per_rank"] = statistics.median(r["rates"][1:])
+        if mesh.rank == 0:
+            prof = device_profile(lambda: call(r, DIST_CHUNKS), calls=1)
+            out["profile"][name] = {
+                "step_wall_ms": prof["wall_ms_per_call"] / steps,
+                "busy_ms_per_step": prof["device_busy_ms_per_call"] / steps,
+                "idle_share": prof["device_idle_share"],
+                "kernels_per_step": prof["kernels_per_call"] / steps,
+                "host_launches_per_step":
+                    prof["host_launches_per_call"] / steps}
+        else:
+            for _ in range(2):        # device_profile's warm and traced call
+                call(r, DIST_CHUNKS)
+            torch.cuda.synchronize()
+    return out
 
 
 def dist_worker(spec_path: str) -> int:
@@ -2445,6 +2538,7 @@ def phase_distributed(torch, smi: str) -> dict:
     chunk on the same two ranks. Returns launches by path and rank."""
     import tempfile
     from biear_tpu_torch import train_biear
+    from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import ActiveBiEAR
     from biear_tpu_torch.train.runner import train
 
@@ -2452,12 +2546,20 @@ def phase_distributed(torch, smi: str) -> dict:
     launches = {}
     with tempfile.TemporaryDirectory() as tmp:
         rc = dist_run_config(os.path.join(tmp, "ref"), (-1, 1))
-        ref = train(rc, synth=train_biear.make_synth(rc), run_id="ref",
-                    quiet=True)
+        synth = train_biear.make_synth(rc)
+        LAUNCHES.clear()
+        ref = train(rc, synth=synth, run_id="ref", quiet=True)
+        torch.cuda.synchronize()
+        # captured, as every rank of a mesh without a model axis: each
+        # capture's warm-up adds WARMUP_STEPS calls' launches
+        ref_launches = dict(LAUNCHES)
         want = step_scalars(ref["run_dir"])
-        log(f"distributed: reference runner (no process group), "
+        log(f"distributed: reference runner (no process group, captured), "
             f"{RUNNER_STEPS} steps at batch {rc.batch_size}, dropout 0: "
-            f"per-step losses and gradient norms {json.dumps(want)}")
+            f"per-step losses and gradient norms {json.dumps(want)}; "
+            f"launches {ref_launches}; "
+            f"{RUNNER_STEPS * rc.batch_size / ref['history']['train'][0]['sec']!r}"
+            f" utt/s ({smi})")
         del ref
         torch.cuda.empty_cache()
 
@@ -2470,15 +2572,18 @@ def phase_distributed(torch, smi: str) -> dict:
         run = a["runs"]["nccl-1x1"]
         got = step_scalars(run["run_dir"])
         launches["dist_nccl_1x1"] = run["launches"]
-        log(f"distributed (a) torchrun 1 rank, backend {a['backend']}: "
-            f"per-step losses {got['loss']!r}; losses and gradient norms "
-            f"equal to the reference bit for bit: {got == want}; launches "
-            f"{run['launches']}; "
+        log(f"distributed (a) torchrun 1 rank, backend {a['backend']}, "
+            f"captured: per-step losses {got['loss']!r}; losses and "
+            f"gradient norms equal to the reference bit for bit: "
+            f"{got == want}; launches {run['launches']} (the captured "
+            f"reference's: {run['launches'] == ref_launches}); "
             f"{run['utt_s_per_rank']!r} utt/s; flat all-reduce "
             f"{json.dumps(run['allreduce'])} ({smi})")
-        if a["backend"] != "nccl" or got != want:
+        if (a["backend"] != "nccl" or got != want
+                or run["launches"] != ref_launches):
             raise RuntimeError("distributed (a): the NCCL world of one "
-                               "differs from the runner without a group")
+                               "differs from the captured runner without a "
+                               "group")
 
         # (b) two ranks on one card: NCCL refuses, gloo on CUDA tensors
         for r in torchrun_results(probe, 150):
@@ -2505,10 +2610,15 @@ def phase_distributed(torch, smi: str) -> dict:
             fb_drift = max_rel(got["grad_fb_norm"], want["grad_fb_norm"])
             for r, x in zip(ranks, runs):
                 launches[f"dist_{name}_rank{r['rank']}"] = x["launches"]
+            # 2x1 is captured (the reference's launches, warm-ups
+            # included, on each rank); 1x2 runs eagerly
+            captured = [x["launches"] == ref_launches for x in runs]
             log(f"distributed (b) {name} over {ranks[0]['backend']}: "
                 f"per-step losses {got['loss']!r}, gradient norms (fb, "
                 f"backend) {got['grad_fb_norm']!r}, "
-                f"{got['grad_backend_norm']!r}; max relative differences "
+                f"{got['grad_backend_norm']!r}; captured (launches equal "
+                f"the captured reference's) {captured}; max relative "
+                f"differences "
                 f"from the reference {json.dumps(err)} (limits "
                 f"{json.dumps(DIST_RTOL)}, steps held "
                 f"{json.dumps(DIST_STEPS_HELD)}; the frontend's norm over "
@@ -2521,21 +2631,31 @@ def phase_distributed(torch, smi: str) -> dict:
                     for k in DIST_SCALARS)
                     or len(trees) != 1
                     or any(x["history"] != runs[0]["history"]
-                           for x in runs)):
+                           for x in runs)
+                    or captured != [name == "gloo-2x1"] * len(runs)):
                 raise RuntimeError(f"distributed (b) {name}: {got}, "
                                    f"trees {trees}")
         for r in ranks:
             c = r["chunk"]
             launches[f"dist_chunk_bf16_rank{r['rank']}"] = c["launches"]
             log(f"distributed (c) rank {r['rank']}: bf16 chunk, "
-                f"{DIST_CHUNK_STEPS} steps at {DIST_RANK_BATCH} rows per "
-                f"rank (global {2 * DIST_RANK_BATCH}): launches "
-                f"{c['launches']}, losses "
-                f"{c['losses']!r}, {c['utt_s_per_rank']!r} utt/s {label}")
-            if (any(c["launches"].get(k, 0) != DIST_CHUNK_STEPS
-                    for k in ("gather_mix_kb", "cc_lags"))
-                    or not all(np.isfinite(c["losses"]))
-                    or any(c["skipped"])):
+                f"{DIST_CHUNKS} chunks of {DIST_CHUNK_STEPS} steps at "
+                f"{DIST_RANK_BATCH} rows per rank (global "
+                f"{2 * DIST_RANK_BATCH}), captured (two graphs a step around "
+                f"the gloo all-reduce) against capture=False: batches and "
+                f"generator states bit for bit; losses off by "
+                f"{c['loss_err'][0]!r} (witness spread "
+                f"{c['loss_err'][1]!r}), parameters {c['param_err'][0]!r} "
+                f"({c['param_err'][1]!r}); launches per captured chunk "
+                f"{c['launches']}, per eager chunk {c['eager_launches']}; "
+                f"capture {json.dumps(c['stats'])}; utt/s per rank captured "
+                f"{c['captured_utt_s_per_rank']!r}, eager "
+                f"{c['eager_utt_s_per_rank']!r}; profile of one chunk "
+                f"(rank 0) {json.dumps(c['profile'])}; losses "
+                f"{c['losses']!r} {label}")
+            if any(c[p].get(k, 0) != DIST_CHUNK_STEPS
+                   for k in ("gather_mix_kb", "cc_lags")
+                   for p in ("launches", "eager_launches")):
                 raise RuntimeError(f"distributed (c): {c}")
         if not all(any(c.get(k, 0) for c in launches.values())
                    for k in ("cc_lags", "gather_windows", "gather_mix_kb")):

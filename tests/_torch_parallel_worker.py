@@ -25,6 +25,14 @@ and runs one task:
   * ``dryrun``: one train step of each model family and input path (the
     counterpart of ``__graft_entry__.dryrun_multichip``); each rank writes
     its losses.
+  * ``capture``: the captured mesh programs on the CPU, the CUDA calls of
+    the capture machinery replaced by tests/_torch_graph_stand_in.py and
+    the model taken to be on a card, so the entry points choose their
+    captured path by the real rule (``graph.use_capture``): under 2x1,
+    the two-graph chunk and step against the eager ones, the eval step
+    and chunk, steps on the spec's batches, the split flat all-reduce
+    against the one-call reduction; under 1x2 what each entry point does with
+    ``capture=True`` and by default. Each rank saves its results.
 
 The workers import no JAX.
 """
@@ -268,8 +276,157 @@ def _synth(arm: dict):
     return synth
 
 
+def one_call_reduce(mesh, grads: list, weight, scalars: list):
+    """The data group's weighted mean of gradients and scalars in one call,
+    as the train step reduced before it split at the all-reduce: the
+    reference of ``pack_grads`` -> ``Mesh.data_sum_`` -> ``unpack_grads``."""
+    import torch
+    import torch.distributed as dist
+    w = weight.reshape(1).float()
+    flat = torch.cat([*(g.reshape(-1) * w for g in grads), w,
+                      torch.stack(scalars).float() * w])
+    dist.all_reduce(flat, group=mesh.data_group)
+    n = flat.numel() - 1 - len(scalars)
+    W = flat[n]
+    den = torch.clamp(W, min=1e-8)
+    out, o = [], 0
+    for g in grads:
+        out.append((flat[o:o + g.numel()] / den).view_as(g))
+        o += g.numel()
+    return out, list(flat[n + 1:] / den), W
+
+
+def _split_reduce_equals_one_call(mesh, rank: int) -> bool:
+    """The split reduction, with and without a preallocated buffer,
+    against ``one_call_reduce`` on seeded gradients (rank 1's weight 0)."""
+    import torch
+    from biear_tpu_torch.parallel.mesh import (flat_numel, pack_grads,
+                                               unpack_grads)
+    g = torch.Generator().manual_seed(rank)
+    grads = [torch.randn(s, generator=g) for s in ((3, 5), (7,), (2, 2, 2))]
+    scalars = list(torch.rand(4, generator=g))
+    weight = torch.tensor(3.0 if rank == 0 else 0.0)
+    want = one_call_reduce(mesh, grads, weight, scalars)
+    buf = torch.empty(flat_numel(grads, len(scalars)))
+    same = True
+    for out in (None, buf):
+        flat = mesh.data_sum_(pack_grads(grads, weight, scalars, out))
+        got = unpack_grads(flat, grads, len(scalars))
+        same &= (all(torch.equal(a, b) for a, b in zip(got[0], want[0]))
+                 and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+                 and torch.equal(got[2], want[2]))
+    return bool(same)
+
+
+def task_capture(spec: dict, rank: int) -> None:
+    import numpy as np
+    import torch
+    import _torch_graph_stand_in
+    from biear_tpu_torch import graph as cgraph
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.parallel.mesh import (Mesh, full_state_dict,
+                                               shard_model)
+    from biear_tpu_torch.train import graph as tgraph
+    from biear_tpu_torch.train.loop import (make_eval_chunk, make_eval_step,
+                                            make_train_chunk,
+                                            make_train_step)
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.runner import dropout_streams, keyed_seed
+
+    _torch_graph_stand_in.install(setattr)
+    cgraph.on_card = lambda model: True
+    hp = TrainHyper()
+    mesh = Mesh(2, 1, "cpu")
+    out = {"split_reduce_equal": _split_reduce_equals_one_call(mesh, rank)}
+
+    # the two-graph chunk and step against the eager ones, dropout on
+    ir, az, dist_m = make_test_hrir_bank()
+    synth = AnechoicSynthesizer(ir, az, dist_m, make_test_segments(8),
+                                num_lags=16, mix_dtype="bfloat16",
+                                device="cpu")
+    B, rows = spec["batch"], mesh.rows(spec["batch"])
+    fixed = synth.sample_batch(torch.Generator().manual_seed(3), B,
+                               rows=rows)
+    for path, capture in (("eager", False), ("captured", None)):
+        model = _model("active", spec["cfg"], spec["weights"])
+        opt = make_optimizer(model, hp)
+        chunk = make_train_chunk(model, hp, opt, synth.batch_fn(B, rows=rows),
+                                 spec["chunk_steps"], mesh=mesh,
+                                 capture=capture)
+        step = make_train_step(model, hp, opt, mesh=mesh, capture=capture)
+        kinds = [isinstance(chunk, tgraph.CapturedMeshChunk),
+                 isinstance(step, tgraph.CapturedMeshStep)]
+        gen, drop, ms = torch.Generator(), None, []
+        for c in range(2):
+            gen.manual_seed(keyed_seed(0, 1, c))
+            drop = dropout_streams(mesh, gen, "cpu", 0, 1, c, streams=drop)
+            ms.append(chunk(gen, 1.0, drop))
+        step_gen = torch.Generator().manual_seed(7)
+        ms.append(step(fixed, dropout_streams(mesh, step_gen, "cpu", 7)
+                       or step_gen, 0.5))
+        out[path] = {"metrics": ms, "kinds": kinds,
+                     "params": [p.detach().clone()
+                                for p in model.parameters()],
+                     "gen": gen.get_state()}
+        # the eval step and chunk on the trained model
+        evals = (make_eval_step(model, hp, mesh=mesh, capture=capture),
+                 make_eval_chunk(model, hp, mesh=mesh, capture=capture))
+        kinds += [f.__qualname__.endswith("captured") for f in evals]
+        out[path]["eval_step"] = evals[0](fixed)
+        out[path]["eval_chunk"] = evals[1](
+            tuple(torch.stack([t, t.flip(0)]) for t in fixed))
+
+    # steps on the spec's global batches, captured (dropout 0)
+    model = _model("active", spec["jax_cfg"], spec["jax_weights"])
+    step = make_train_step(model, hp, make_optimizer(model, hp), mesh=mesh)
+    data = np.load(spec["batches"])
+    gen = torch.Generator().manual_seed(0)
+    steps = []
+    for i in range(spec["steps"]):
+        arrays = [data[f"b{i}_{j}"] for j in range(int(data["n"]))]
+        a, z = mesh.rows(len(arrays[0]))
+        m = step(tuple(torch.as_tensor(x[a:z]) for x in arrays), gen)
+        steps.append({k: float(m[k]) for k in ("loss", "skipped",
+                                                "grad_fb_norm",
+                                                "grad_backend_norm")})
+    out["jax_steps"] = {"captured": isinstance(step, tgraph.CapturedMeshStep),
+                        "steps": steps, "params": full_state_dict(model)}
+
+    # a model axis: capture=True raises, the default is eager
+    mesh = Mesh(1, 2, "cpu")
+    model = shard_model(_model("active", spec["cfg"], spec["weights"]), mesh)
+    opt = make_optimizer(model, hp)
+    entries = {
+        "step": lambda c: make_train_step(model, hp, opt, mesh=mesh,
+                                          capture=c),
+        "chunk": lambda c: make_train_chunk(model, hp, opt,
+                                            synth.batch_fn(B), 1, mesh=mesh,
+                                            capture=c),
+        "eval_step": lambda c: make_eval_step(model, hp, mesh=mesh,
+                                              capture=c),
+        "eval_chunk": lambda c: make_eval_chunk(model, hp, mesh=mesh,
+                                                capture=c)}
+    out["model_axis"] = {}
+    for name, build in entries.items():
+        try:
+            build(True)
+            raised = None
+        except ValueError as e:
+            raised = str(e)
+        # the eager entry points return a local function; the captured
+        # ones a Captured* object or a function of another name
+        name_of = lambda f: getattr(f, "__qualname__", type(f).__name__)
+        out["model_axis"][name] = {
+            "raised": raised,
+            "default_eager": name_of(build(None)) == name_of(build(False))}
+    torch.save(out, os.path.join(spec["out"], f"rank{rank}.pt"))
+
+
 TASKS = {"steps": task_steps, "dropout": task_dropout,
-         "runner": task_runner, "dryrun": task_dryrun}
+         "runner": task_runner, "dryrun": task_dryrun,
+         "capture": task_capture}
 
 
 def main():

@@ -42,6 +42,8 @@ from biear_tpu.models.biear import init_active
 from biear_tpu.train import loop as jloop
 from biear_tpu.train import optim as jopt
 
+from _torch_graph_stand_in import install as install_stand_ins
+
 from biear_tpu_torch import graph as cgraph
 from biear_tpu_torch import kernels
 from biear_tpu_torch.data.passive_synth import PassiveFeatureSynth
@@ -408,46 +410,10 @@ def test_graph_replay_counts_and_refuses_new_storage():
     LAUNCHES.clear()
 
 
-class _StandInGraph:
-    """Graph's interface on the CPU: the 'capture' runs fn once and puts
-    the state and generators back (a capture runs nothing); each replay
-    runs fn again, writing its output into the first run's tensors."""
-
-    def __init__(self, fn, state, generators, pool=None):
-        saved = [t.detach().clone() for t in state]
-        gen_states = [g.get_state() for g in generators]
-        with recording_launches() as rec:
-            self.out = fn()
-        with torch.no_grad():
-            for t, s in zip(state, saved):
-                t.copy_(s)
-        for g, s in zip(generators, gen_states):
-            g.set_state(s)
-        self.fn, self.launches = fn, rec
-        self.capture_ms, self.pool_bytes = 0.0, 0
-
-    def replay(self):
-        out = self.fn()
-        if out is not None:
-            for k, v in out.items():
-                self.out[k].copy_(v)
-        count_replay(self.launches)
-
-
-class _NoStream:
-    def wait_stream(self, other):
-        pass
-
-
 @pytest.fixture
 def stand_in_cuda(monkeypatch):
     """graph.py's CUDA calls as CPU stand-ins."""
-    monkeypatch.setattr(cgraph, "Graph", _StandInGraph)
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _NoStream())
-    monkeypatch.setattr(torch.cuda, "Stream", lambda *a: _NoStream())
-    monkeypatch.setattr(torch.cuda, "stream",
-                        lambda s: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    install_stand_ins(monkeypatch.setattr)
 
 
 def test_captured_chunk_and_step_replay_like_the_eager_loop(stand_in_cuda):

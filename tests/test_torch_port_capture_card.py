@@ -13,7 +13,10 @@ backward's atomic sums may differ from run to run; where the two eager
 runs agree, exactly). A replay reads the current lr_scale, refuses a
 parameter given new storage and another generator, and the bf16
 MATMUL_PRECISION (autocast) captures. ``chip_smoke.py`` phase 18 runs the
-same checks at batch 512.
+same checks at batch 512. Under a 1x1 mesh of a world-of-one NCCL group
+(over a ``FileStore``) the captured step and chunk equal the captured
+ones without a group bit for bit (``chip_smoke.py`` phase 16 holds the
+two-rank mesh).
 """
 
 import pytest
@@ -149,3 +152,59 @@ def test_captured_step_matches_the_eager_step_on_card(precision):
         e, w, c = (out[k][i] for k in ("eager", "witness", "captured"))
         assert _max_abs(c, e) <= CAPTURE_WITNESS * _max_abs(w, e)
     assert bool(torch.isfinite(out["captured"][0][0]).all())
+
+
+@pytest.mark.cuda
+def test_world_of_one_mesh_captures_as_the_run_without_a_group(tmp_path):
+    """A 1x1 mesh over a world-of-one NCCL group: the captured step and
+    chunk (over one data rank nothing is sent, one graph each) equal the
+    captured ones without a group bit for bit, in metrics and
+    parameters, over two re-seeded chunks and a step at lr_scale 0.5."""
+    _need_card()
+    import torch.distributed as dist
+    from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
+                                            make_test_hrir_bank,
+                                            make_test_segments)
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.parallel.mesh import Mesh
+    from biear_tpu_torch.train.graph import CapturedChunk, CapturedStep
+    from biear_tpu_torch.train.loop import make_train_chunk, make_train_step
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+
+    cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative",
+                      fb_w_dtype="bfloat16", ctrl_dropout=0.1,
+                      backend_dropout=0.2)
+    ir, az, dist_m = make_test_hrir_bank()
+    synth = AnechoicSynthesizer(ir, az, dist_m, make_test_segments(16),
+                                mix_dtype="bfloat16")
+    batch = synth.sample_batch(torch.Generator(device="cuda").manual_seed(3),
+                               8)
+    hp = TrainHyper()
+    device = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1, device_id=device)
+    try:
+        out = {}
+        for name, mesh in (("no group", None), ("mesh", Mesh(1, 1, device))):
+            model = build_active(cfg, seed=0)
+            opt = make_optimizer(model, hp)
+            chunk = make_train_chunk(model, hp, opt, synth.batch_fn(8), 3,
+                                     mesh=mesh)
+            step = make_train_step(model, hp, opt, mesh=mesh)
+            assert isinstance(chunk, CapturedChunk)
+            assert isinstance(step, CapturedStep)
+            gen, ms = torch.Generator(device="cuda"), []
+            for c in range(2):
+                gen.manual_seed(50 + c)
+                ms.append(chunk(gen))
+            ms.append(step(batch, gen, 0.5))
+            out[name] = (ms, [p.detach().clone()
+                              for p in model.parameters()])
+        (m_n, p_n), (m_m, p_m) = out["no group"], out["mesh"]
+        for a, b in zip(m_n, m_m):
+            assert list(a) == list(b)
+            assert all(torch.equal(a[k], b[k]) for k in a), a.keys()
+        assert all(torch.equal(a, b) for a, b in zip(p_n, p_m))
+        assert float(m_m[0]["skipped"].sum()) == 0.0
+    finally:
+        dist.destroy_process_group()

@@ -46,7 +46,8 @@ from biear_tpu_torch.train import evaluate as tev
 from biear_tpu_torch.train import loop as tloop
 from biear_tpu_torch.train import optim as topt
 
-from test_torch_port_capture import _NoStream, watching_host
+from _torch_graph_stand_in import NoStream as _NoStream
+from test_torch_port_capture import watching_host
 
 SMALL = dict(n_bands=16, latent_dim=16, ctrl_hidden=16, timesteps=3)
 # a streamable geometry (win == hop) at a small width
