@@ -45,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import precision_highest, resolve_device
 from ..ops.window_gather import (WIN, frame_windows, gather_mix_kb,
                                  gather_windows, pad_pool_for_windows)
@@ -223,42 +224,50 @@ class AnechoicSynthesizer:
         kb_bytes = M * (128 + L - 1) * 256 * 4
         self.fast = (self.off_step == 128 and L <= 257 and self.n_q <= 8
                      and self.fs + L - 1 <= WIN and kb_bytes <= 768 * 2**20)
-        dev = self.device
-        self.bank = {
-            "segments": torch.as_tensor(segments, device=dev),
-            "meas_norm": torch.as_tensor(norm.astype(np.float32), device=dev),
-            "meas_dcls": torch.as_tensor(dcls.astype(np.float32), device=dev),
-        }
-        self.sector_table = torch.as_tensor(sector_table, dtype=torch.long,
-                                            device=dev)
-        self.sector_counts = torch.as_tensor([len(g) for g in groups],
-                                             device=dev)
-        if not self.fast:
-            # the general path: the HRIRs' spectra for the FFT product,
-            # numpy's rounded to complex64 as JAX's bank
-            self.fft_len = next_pow2(self.fs + L - 1)
-            self.bank["H"] = torch.as_tensor(
-                np.fft.rfft(ir, n=self.fft_len).astype(np.complex64),
-                device=dev)
-            return
+        # the host bank: numpy tables (the Toeplitz KB on the fast path, the
+        # spectra otherwise) built and copied to the device
+        with trace.span("synth.bank", scene="anechoic"):
+            dev = self.device
+            self.bank = {
+                "segments": torch.as_tensor(segments, device=dev),
+                "meas_norm": torch.as_tensor(norm.astype(np.float32),
+                                             device=dev),
+                "meas_dcls": torch.as_tensor(dcls.astype(np.float32),
+                                             device=dev),
+            }
+            self.sector_table = torch.as_tensor(sector_table,
+                                                dtype=torch.long, device=dev)
+            self.sector_counts = torch.as_tensor([len(g) for g in groups],
+                                                 device=dev)
+            if not self.fast:
+                # the general path: the HRIRs' spectra for the FFT product,
+                # numpy's rounded to complex64 as JAX's bank
+                self.fft_len = next_pow2(self.fs + L - 1)
+                self.bank["H"] = torch.as_tensor(
+                    np.fft.rfft(ir, n=self.fft_len).astype(np.complex64),
+                    device=dev)
+                return
 
-        # pool rows: segment x 128-block offset, zero-guarded for the crop
-        NPn = segments.shape[0]
-        rows = np.zeros((NPn * self.n_q, self.fs), np.float32)
-        for q in range(self.n_q):
-            rows[q::self.n_q] = segments[:, q * 128:q * 128 + self.fs]
-        # block-Toeplitz kernel bank, rows zero-padded to a multiple of 128
-        ir_rev = np.ascontiguousarray(ir[:, :, ::-1])
-        ncol = 128 * (-(-(128 + L - 1) // 128))
-        d = np.arange(ncol)[:, None] - np.arange(128)[None, :]
-        KB = ir_rev[:, :, d.clip(0, L - 1)] * ((d >= 0) & (d < L))
-        KB = KB.transpose(0, 2, 1, 3).reshape(M, ncol, 256).astype(np.float32)
-        kb = torch.as_tensor(KB, device=dev)
-        self.bank["pool3"] = torch.as_tensor(
-            pad_pool_for_windows(rows, L - 1, L - 1), device=dev)
-        # torch's bf16 cast rounds to nearest even, as JAX's astype
-        self.bank["KB"] = (kb.to(torch.bfloat16)
-                           if self.mix_dtype == "bfloat16" else kb)
+            # pool rows: segment x 128-block offset, zero-guarded for the
+            # crop
+            NPn = segments.shape[0]
+            rows = np.zeros((NPn * self.n_q, self.fs), np.float32)
+            for q in range(self.n_q):
+                rows[q::self.n_q] = segments[:, q * 128:q * 128 + self.fs]
+            # block-Toeplitz kernel bank, rows zero-padded to a multiple of
+            # 128
+            ir_rev = np.ascontiguousarray(ir[:, :, ::-1])
+            ncol = 128 * (-(-(128 + L - 1) // 128))
+            d = np.arange(ncol)[:, None] - np.arange(128)[None, :]
+            KB = ir_rev[:, :, d.clip(0, L - 1)] * ((d >= 0) & (d < L))
+            KB = KB.transpose(0, 2, 1, 3).reshape(M, ncol, 256).astype(
+                np.float32)
+            kb = torch.as_tensor(KB, device=dev)
+            self.bank["pool3"] = torch.as_tensor(
+                pad_pool_for_windows(rows, L - 1, L - 1), device=dev)
+            # torch's bf16 cast rounds to nearest even, as JAX's astype
+            self.bank["KB"] = (kb.to(torch.bfloat16)
+                               if self.mix_dtype == "bfloat16" else kb)
 
     # ---------------- batched draws, mixes and labels ----------------
 

@@ -31,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import precision_highest, resolve_device
 from .labels import DIST_CLASSES, N_DIST_CLASSES, N_SECTORS
 from .synth import (finish_batch, host_meta, next_pow2, normalise_peak,
@@ -141,9 +142,11 @@ class ReverbSynthesizer:
         self.fft_len = next_pow2(self.fs + L - 1)
         # the BRIR spectra (M, E, 2, F), one (head, speaker) pick
         # contiguous: numpy's, rounded to complex64 as JAX's bank holds them
-        H = np.fft.rfft(ir.transpose(0, 2, 1, 3), n=self.fft_len)
-        self.bank = {"segments": torch.as_tensor(segments, device=dev),
-                     "H": torch.as_tensor(H.astype(np.complex64), device=dev)}
+        with trace.span("synth.bank", scene="reverb"):
+            H = np.fft.rfft(ir.transpose(0, 2, 1, 3), n=self.fft_len)
+            self.bank = {"segments": torch.as_tensor(segments, device=dev),
+                         "H": torch.as_tensor(H.astype(np.complex64),
+                                              device=dev)}
 
     def scene_batched(self, gen: torch.Generator, batch_size: int,
                       n_src_fixed: int = 0):

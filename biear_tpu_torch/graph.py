@@ -41,18 +41,23 @@ kernel inside a graph counts one launch per replay
 tensor is checked against the capture's: new storage
 (``load_state_dict(..., assign=True)``, ``.to()``, ``p.data = ...``)
 would leave the graph reading stale memory, so it raises. A failed
-capture or replay raises; there is no eager fallback.
+capture or replay raises; there is no eager fallback. Warm-ups and
+captures are spans of the port's recorder (``trace.py``),
+``graph.warm_up`` and ``graph.capture``; so is each replay of a graph
+given a `name` (the train chunk's, whose launches its chunk records
+read): ``graph.launch``, around the replay alone, with the name as
+attribute ``graph``. The serving graphs' replays open no span.
 """
 
 from __future__ import annotations
 
-import time
 import weakref
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import trace
 from .device import precision_key
 from .kernels import count_replay, recording_launches
 
@@ -89,51 +94,58 @@ def use_capture(model, mesh, capture: bool | None) -> bool:
 def warm_up(fn, state: list, generators: list, device):
     """Run fn() WARMUP_STEPS times on a side stream of `device`, then put
     `state` and the generators' states back as they were. Returns (the
-    last run's output, host ms)."""
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        saved = [t.detach().clone() for t in state]
-    gen_states = [g.get_state() for g in generators]
-    main = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        for _ in range(WARMUP_STEPS):
-            out = fn()
-    main.wait_stream(side)
-    with torch.no_grad():
-        for t, s in zip(state, saved):
-            t.copy_(s)
-    for g, s in zip(generators, gen_states):
-        g.set_state(s)
-    torch.cuda.synchronize(device)
-    return out, (time.perf_counter() - t0) * 1e3
+    last run's output, host ms: the duration of its ``graph.warm_up``
+    span)."""
+    with trace.span("graph.warm_up") as span:
+        with torch.no_grad():
+            saved = [t.detach().clone() for t in state]
+        gen_states = [g.get_state() for g in generators]
+        main = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                out = fn()
+        main.wait_stream(side)
+        with torch.no_grad():
+            for t, s in zip(state, saved):
+                t.copy_(s)
+        for g, s in zip(generators, gen_states):
+            g.set_state(s)
+        torch.cuda.synchronize(device)
+    return out, span.ms
 
 
 class Graph:
     """fn() captured as one CUDA graph in a private memory pool (or in
     `pool`, shared), its output in ``out``; `generators` are registered
-    with it. ``capture_ms`` (host ms of the capture) and ``pool_bytes``
-    (the device memory the capture reserved) describe it."""
+    with it. ``capture_ms`` (host ms of the capture, its ``graph.capture``
+    span) and ``pool_bytes`` (the device memory the capture reserved)
+    describe it. With a `name` (its owner's), each replay is a
+    ``graph.launch`` span with attribute ``graph`` = `name`."""
 
-    def __init__(self, fn, state: list, generators: list, pool=None):
+    name = None
+
+    def __init__(self, fn, state: list, generators: list, pool=None,
+                 name: str | None = None):
         device = state[0].device
         self.state = state
+        self.name = name
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(device)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            self.graph.register_generator_state(g)
-        # in a process group, the collectives' watchdog thread queries
-        # their events while this thread captures: only this thread's
-        # unsafe calls may end the capture
-        mode = "thread_local" if dist.is_initialized() else "global"
-        with recording_launches() as rec, torch.cuda.graph(
-                self.graph, pool=pool, capture_error_mode=mode):
-            self.out = fn()
-        torch.cuda.synchronize(device)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        with trace.span("graph.capture") as span:
+            self.graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                self.graph.register_generator_state(g)
+            # in a process group, the collectives' watchdog thread queries
+            # their events while this thread captures: only this thread's
+            # unsafe calls may end the capture
+            mode = "thread_local" if dist.is_initialized() else "global"
+            with recording_launches() as rec, torch.cuda.graph(
+                    self.graph, pool=pool, capture_error_mode=mode):
+                self.out = fn()
+            torch.cuda.synchronize(device)
+        self.capture_ms = span.ms
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
         self.launches = rec
         self._ptrs = [t.data_ptr() for t in state]
@@ -147,7 +159,11 @@ class Graph:
                 ".to(), p.data = ...): the graph would read stale memory; "
                 "copy into the tensors in place, or build a new model, "
                 "train step or eval step")
-        self.graph.replay()
+        if self.name is None:
+            self.graph.replay()
+        else:
+            with trace.span("graph.launch", graph=self.name):
+                self.graph.replay()
         count_replay(self.launches)
 
 
@@ -157,13 +173,14 @@ class SplitGraph:
     call), graph B runs after(buffer); a replay is A, between(buffer), B.
     `between` is what a graph cannot hold, such as a gloo or NCCL
     collective over several processes. ``out`` is B's output;
-    ``launches``, ``capture_ms`` and ``pool_bytes`` are the pair's."""
+    ``launches``, ``capture_ms`` and ``pool_bytes`` are the pair's; both
+    graphs take `name` (``Graph``)."""
 
     def __init__(self, before, between, after, state: list,
-                 generators: list):
-        a = Graph(lambda: {"sent": before()}, state, generators)
+                 generators: list, name: str | None = None):
+        a = Graph(lambda: {"sent": before()}, state, generators, name=name)
         sent = a.out["sent"]
-        b = Graph(lambda: after(sent), state, generators)
+        b = Graph(lambda: after(sent), state, generators, name=name)
         self.graphs, self.between, self.sent = (a, b), between, sent
         self.out = b.out
         self.launches = a.launches + b.launches

@@ -5,8 +5,9 @@ Each kernel is one ``.cu`` file in this directory with a plain C interface
 ``torch.utils.cpp_extension.load`` compiles it for ``sm_90a`` into its own
 directory ``_build/<name>/`` beside this file (git-ignored; ninja skips an
 unchanged source), and ``ctypes`` binds its C functions. One directory per
-kernel lets ``build_all`` run the three builds (``cc_lags``,
-``gather_windows``, ``gather_mix_kb``) at once;
+kernel lets ``build_all`` run the four builds (``cc_lags``,
+``gather_windows``, ``gather_mix_kb`` and the recorder's ``trace_mark``)
+at once;
 ``build_all_with_report`` also returns what ``ptxas -v`` said of each
 entry function (registers, spills, shared memory). Nothing is built at
 import time: the CPU tests import every module of the package on a
@@ -30,7 +31,7 @@ BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 # parsed by ptxas_report
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v"]
-KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb")
+KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb", "trace_mark")
 
 
 def build_dir(name: str) -> str:
@@ -78,6 +79,17 @@ def gather_mix_kb_lib() -> ctypes.CDLL:
                                          + [ctypes.c_int] * 6
                                          + [ctypes.c_void_p])
     lib.gather_mix_kb_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def trace_mark_lib() -> ctypes.CDLL:
+    """The recorder's device-timed stage mark (trace_mark.cu)."""
+    lib = ctypes.CDLL(build("trace_mark"))
+    lib.trace_mark_launch.argtypes = ([ctypes.c_void_p] * 2
+                                      + [ctypes.c_int] * 3
+                                      + [ctypes.c_void_p])
+    lib.trace_mark_launch.restype = ctypes.c_int
     return lib
 
 

@@ -16,7 +16,14 @@ objects of this module, built on the package's capture machinery
   * ``CapturedChunk``: one graph of synthesis -> train step, replayed
     ``chunk_steps`` times per call. Replay i writes its metrics into row i
     of preallocated (chunk_steps, ...) stacks (a row counter on the
-    device, advanced by the graph itself).
+    device, advanced by the graph itself), and the device times of its
+    stage boundaries into row i of a (chunk_steps, 6) mark stack: the
+    recorder's sink (``trace.step_sink``) is active while the chunk
+    captures, so the graph holds six ``trace_mark`` nodes per step
+    (``trace.SLOTS``: start, synthesis, forward, backward, update,
+    recorded). A call is a ``chunk.call`` span; it fills the mark stack
+    with -1, replays, and hands the recorder a clone of the rows
+    (``trace.record_chunk``).
   * ``CapturedMeshStep`` and ``CapturedMeshChunk``: the same over D > 1
     data ranks, each step two graphs (``graph.SplitGraph``) around the
     one collective of a step without a model axis, the flat all-reduce
@@ -46,6 +53,7 @@ from __future__ import annotations
 import torch
 
 from .. import graph as core
+from .. import trace
 
 
 def train_state(model, optimizer) -> list:
@@ -106,7 +114,10 @@ class CapturedChunk:
     synthesize -> train steps: ``step_fn(synth_batch_fn(gen), drop, lr)``
     (drop: `dropout_gen`, else `gen`) captured once, with the generators
     of the first call, and replayed `chunk_steps` times per call.
-    ``stats`` holds the warm-up and capture ms and the pool's bytes."""
+    ``stats`` holds the warm-up and capture ms and the pool's bytes;
+    ``marks`` the last call's stage marks (-1 where none was written)."""
+
+    name = "train_chunk"
 
     def __init__(self, step_fn, synth_batch_fn, chunk_steps: int,
                  state: list):
@@ -117,6 +128,8 @@ class CapturedChunk:
         self.device = state[0].device
         self.lr = torch.ones((), device=self.device)
         self.row = torch.zeros(1, dtype=torch.long, device=self.device)
+        self.marks = torch.full((chunk_steps, len(trace.SLOTS)), -1,
+                                dtype=torch.long, device=self.device)
         self.gen = self.dropout_gen = self.graph = self.stacks = None
         self.stats = {}
 
@@ -126,48 +139,64 @@ class CapturedChunk:
         was not called); trains nothing."""
         drop = gen if dropout_gen is None else dropout_gen
         gens = core.generators_of(gen, dropout_gen)
-        body = lambda: self.step_fn(self.synth_batch_fn(gen), drop, self.lr)
-        warm, warm_ms = core.warm_up(body, self.state, gens, self.device)
-        self.stacks = {k: torch.empty((self.chunk_steps, *v.shape),
-                                      dtype=v.dtype, device=self.device)
-                       for k, v in warm.items()}
-        del warm
-        self.graph = self.graph_of(gen, drop, gens)
+        body = lambda: self.step_fn(self.synthesize(gen), drop, self.lr)
+        with trace.step_sink(self.marks, self.row):
+            warm, warm_ms = core.warm_up(body, self.state, gens, self.device)
+            self.stacks = {k: torch.empty((self.chunk_steps, *v.shape),
+                                          dtype=v.dtype, device=self.device)
+                           for k, v in warm.items()}
+            del warm
+            self.graph = self.graph_of(gen, drop, gens)
         self.gen, self.dropout_gen = gen, dropout_gen
         self.stats = {"warmup_ms": warm_ms,
                       "capture_ms": self.graph.capture_ms,
                       "pool_bytes": self.graph.pool_bytes}
 
+    def synthesize(self, gen):
+        """The step's batch, between the start and synthesis marks."""
+        trace.mark("start")
+        batch = self.synth_batch_fn(gen)
+        trace.mark("synthesis")
+        return batch
+
     def record(self, metrics: dict) -> None:
-        """Write one step's metrics into row ``row`` of the stacks and
-        advance the row (on the device)."""
+        """Write one step's metrics into row ``row`` of the stacks, mark
+        it recorded and advance the row (on the device)."""
         for k, v in metrics.items():
             self.stacks[k].index_copy_(0, self.row, v[None])
+        trace.mark("recorded")
         self.row.add_(1)
 
     def graph_of(self, gen, drop, gens: list):
         """The graph of one synthesize -> step iteration."""
         return core.Graph(lambda: self.record(self.step_fn(
-            self.synth_batch_fn(gen), drop, self.lr)), self.state, gens)
+            self.synthesize(gen), drop, self.lr)), self.state, gens,
+            name=self.name)
 
     def __call__(self, gen, lr_scale=1.0, dropout_gen=None) -> dict:
-        set_scalar(self.lr, lr_scale)
-        if self.graph is None:
-            self.capture(gen, dropout_gen)
-        else:
-            core.check_generator(gen, self.gen)
-            core.check_generator(dropout_gen, self.dropout_gen)
-        self.row.zero_()
-        for _ in range(self.chunk_steps):
-            self.graph.replay()
-        return {k: v.clone() for k, v in self.stacks.items()}
+        with trace.span("chunk.call") as call:
+            set_scalar(self.lr, lr_scale)
+            if self.graph is None:
+                self.capture(gen, dropout_gen)
+            else:
+                core.check_generator(gen, self.gen)
+                core.check_generator(dropout_gen, self.dropout_gen)
+            self.row.zero_()
+            self.marks.fill_(-1)
+            for _ in range(self.chunk_steps):
+                self.graph.replay()
+            trace.record_chunk(self.marks, call, self.chunk_steps,
+                               self.name)
+            return {k: v.clone() for k, v in self.stacks.items()}
 
 
 class CapturedMeshChunk(CapturedChunk):
     """CapturedChunk over D > 1 data ranks: each iteration two graphs
     around the eager flat all-reduce of `mesh`'s data group
     (``graph.SplitGraph``): A the synthesis and send(batch, drop) -> the
-    flat buffer, B receive(flat, lr) and the metric stacks' row."""
+    flat buffer, B receive(flat, lr) and the metric stacks' row (the
+    pack, the all-reduce and the unpack lie between the backward and the
+    update marks)."""
 
     def __init__(self, send, receive, mesh, synth_batch_fn,
                  chunk_steps: int, state: list):
@@ -179,7 +208,7 @@ class CapturedMeshChunk(CapturedChunk):
 
     def graph_of(self, gen, drop, gens: list):
         return core.SplitGraph(
-            lambda: self.send(self.synth_batch_fn(gen), drop),
+            lambda: self.send(self.synthesize(gen), drop),
             self.mesh.data_sum_,
             lambda flat: self.record(self.receive(flat, self.lr)),
-            self.state, gens)
+            self.state, gens, name=self.name)

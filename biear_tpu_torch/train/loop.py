@@ -38,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..device import constant_cache, matmul_precision
 from ..models.auralnet import AuralNet
 from ..models.biear import ActiveBiEAR, PassiveBiEAR
@@ -219,7 +220,9 @@ def forward_backward(model: _Model, hp: TrainHyper, batch, gen):
     params = list(model.parameters())
     with matmul_precision():
         loss, metrics = model_loss(model, hp, batch, gen)
+        trace.mark("forward")
         grads = torch.autograd.grad(loss, params, allow_unused=True)
+        trace.mark("backward")
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(params, grads)]
     return grads, metrics, batch_weight(batch)
@@ -247,6 +250,7 @@ def apply_update(model: _Model, optimizer: Adam, grads: list, metrics: dict,
     metrics["skipped"] = 1.0 - ok.float()
     metrics["weight"] = weight
     metrics["grad_hist"] = grad_histograms(named, max_param_log, layout)
+    trace.mark("update")
     return metrics
 
 
@@ -409,7 +413,10 @@ def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
     (``graph.CapturedMeshChunk``). It draws from the generators of its
     first call (`gen` and `dropout_gen`), which the caller re-seeds in
     place between chunks; the CPU, a model axis and ``capture=False`` run
-    the eager loop (``use_capture``)."""
+    the eager loop (``use_capture``), a ``chunk.call`` span that stamps
+    each step's stage marks (``trace.SLOTS``) into a (chunk_steps, 6)
+    stack of its own and hands it to the recorder, as the captured chunk
+    does."""
     if use_capture(model, mesh, capture):
         state = train_state(model, optimizer)
         if sends(mesh):
@@ -421,14 +428,27 @@ def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
                                               gen, lr, max_param_log, mesh),
             synth_batch_fn, chunk_steps, state)
 
+    device = next(model.parameters()).device
+
     def run_chunk(gen: torch.Generator, lr_scale=1.0,
                   dropout_gen=None) -> dict:
-        ms = []
-        for _ in range(chunk_steps):
-            batch = synth_batch_fn(gen)
-            ms.append(train_step(model, hp, optimizer, batch,
-                                 gen if dropout_gen is None else dropout_gen,
-                                 lr_scale, max_param_log, mesh))
-        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        with trace.span("chunk.call") as call:
+            marks = torch.full((chunk_steps, len(trace.SLOTS)), -1,
+                               dtype=torch.long, device=device)
+            row = torch.zeros(1, dtype=torch.long, device=device)
+            ms = []
+            for _ in range(chunk_steps):
+                with trace.step_sink(marks, row):
+                    trace.mark("start")
+                    batch = synth_batch_fn(gen)
+                    trace.mark("synthesis")
+                    ms.append(train_step(
+                        model, hp, optimizer, batch,
+                        gen if dropout_gen is None else dropout_gen,
+                        lr_scale, max_param_log, mesh))
+                    trace.mark("recorded")
+                row.add_(1)
+            trace.record_chunk(marks, call, chunk_steps)
+            return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     return run_chunk

@@ -29,18 +29,28 @@ Reported:
     ``--chunk`` (synthesize -> step) iterations, each ending in a
     synchronize; median, min and max over the windows;
   * bare step utterances/s: the same on one fixed batch in device memory;
-  * CUDA-event stage times (median of 5): synthesis (whole batch, the mix
-    (the kernel alone on the anechoic fast path), the CC kernel, the
-    passive features of both ears), forward (loss included), backward,
-    optimizer;
+  * stage times of the fused chunk's own replays (``stages["marked"]``),
+    device ms per step between the stage marks its graph holds
+    (``biear_tpu_torch.trace``): synthesis, forward (loss included),
+    backward, update (optimizer, telemetry, metric row), the gap between
+    replays, the host's launch of a replay and the host's time in the
+    chunk call per step (the call returns once its replays are queued),
+    means over the windows' replays (the summary leaves out the warm-up
+    call, whose wall holds the capture);
+  * kernel-alone CUDA-event times (median of 5, eager launches of one
+    kernel or one call, so each holds its own launch): the mix (the kernel
+    alone on the anechoic fast path, the whole mix otherwise), the CC
+    kernel, the passive features of both ears, one replay of the captured
+    bare step;
   * torch.profiler over two fused one-step chunks: device-busy time,
     idle share of the wall time, host launches and the top kernels;
   * peak device memory of the train step's warm-up and capture;
   * each graph's warm-up and capture ms and its memory pool's bytes.
 
 The chunk and the step run as captured CUDA graphs (``train/graph.py``),
-as every training entry point on the card does; the stage times of the
-forward, backward and optimizer are of the eager code.
+as every training entry point on the card does; the stage times are
+those of the graph's replays, not of eager calls (whose launch gaps an
+event pair counts).
 Needs a CUDA card; prints the card's name and power limit.
 """
 
@@ -59,28 +69,26 @@ from ..data.passive_synth import PassiveFeatureSynth
 from ..data.synth import (AnechoicSynthesizer, build_synthesizer,
                           make_test_hrir_bank, make_test_segments)
 from ..data.synth_reverb import ReverbSynthesizer
-from ..device import matmul_precision
 from ..models import BiEARConfig, build_active, build_auralnet, build_passive
 from ..ops.window_gather import cc_kept_lags, gather_mix_kb, gather_windows
 from ..ops.xcorr import lag_plan
+from .. import trace
 from ..serve.profile_serve import AURALNET, GEOMETRY, device_profile
-from .loop import make_train_chunk, make_train_step, model_loss
+from .loop import make_train_chunk, make_train_step
 from .optim import TrainHyper, make_optimizer
 
 POLICIES = {"bf16": "bfloat16", "f32": "float32"}
 
 
-def events_ms(fn, setup=lambda: None, reps: int = 5) -> float:
-    """Median CUDA-event time of fn(setup()), setup untimed, after one
-    warm-up call."""
-    fn(setup())
+def events_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event time of fn(None), after one warm-up call."""
+    fn(None)
     times = []
     for _ in range(reps):
-        arg = setup()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(arg)
+        fn(None)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -141,7 +149,10 @@ def mix_stage(synth, B: int, gen):
                                                      crop.reshape(X))
 
 
-def stage_times(model, hp, opt, synth, batch, gen, train) -> dict:
+def stage_times(synth, batch, gen, train, marked) -> dict:
+    """The fused chunk's marked stage times (`marked`,
+    ``trace.replay_summary`` of its calls) beside the kernel-alone
+    CUDA-event times."""
     B = batch[0].shape[0]
     inner = getattr(synth, "inner", synth)
     mix_name, mix = mix_stage(inner, B, gen)
@@ -149,31 +160,12 @@ def stage_times(model, hp, opt, synth, batch, gen, train) -> dict:
     kept = lag_plan(wl.shape[1], inner.fs, inner.num_lags, 3.0)[0]
     lf = wl - wl.mean(-1, keepdim=True)
     rf = wr - wr.mean(-1, keepdim=True)
-    params = [p for _, p in model.named_parameters()]
-    model.train()
-
-    def forward(_):
-        with matmul_precision():
-            return model_loss(model, hp, batch, gen)[0]
-
-    def backward(loss):
-        with matmul_precision():
-            torch.autograd.grad(loss, params)
-
-    with matmul_precision():
-        grads = dict(zip([n for n, _ in model.named_parameters()],
-                         torch.autograd.grad(forward(None), params)))
-    ok = torch.ones((), dtype=torch.bool, device=wl.device)
     out = {
-        "synthesis_batch_ms": events_ms(
-            lambda _: synth.sample_batch(gen, B)),
+        "marked": marked,
         mix_name: events_ms(mix),
         "mix_policy": getattr(inner, "mix_dtype", "float32"),
         "cc_kernel_ms": events_ms(
             lambda _: cc_kept_lags(lf, rf, int(np.abs(kept).max()))),
-        "forward_ms": events_ms(forward),
-        "backward_ms": events_ms(backward, setup=lambda: forward(None)),
-        "optimizer_ms": events_ms(lambda _: opt.step(grads, ok)),
         "train_step_ms": events_ms(lambda _: train(batch, gen)),
     }
     if synth is not inner:
@@ -230,8 +222,10 @@ def main(argv=None):
     opt = make_optimizer(model, hp)
     chunk = make_train_chunk(model, hp, opt, synth.batch_fn(B), args.chunk)
     one_step = make_train_chunk(model, hp, opt, synth.batch_fn(B), 1)
+    trace.reset()                    # the marks summarised are this chunk's
     chunk(gen)                                       # warm-up
     fused = rate_windows(lambda: chunk(gen), B * args.chunk, args.windows)
+    marked = trace.replay_summary(profiled=False)
 
     batch = (synth.sample_batch(gen, B) if args.model == "passive"
              else fixed_batch(B, cfg.n_bands, args.seed, "cuda"))
@@ -248,7 +242,7 @@ def main(argv=None):
         "scene": args.scene,
         "fused_train_pipeline_utterances_per_sec": fused,
         "model_step_utt_s": bare,
-        "stages": stage_times(model, hp, opt, synth, batch, gen, train),
+        "stages": stage_times(synth, batch, gen, train, marked),
         "profile_fused_step": device_profile(
             lambda: one_step(gen), calls=2),
         "peak_memory_bytes_train_step": peak,

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..config import (RunConfig, data_paths, is_passive, make_exp_name,
                       make_run_dirs, mesh_shape, settings_dict)
 from ..data.pipeline import Prefetcher, batch_iterator
@@ -314,7 +315,8 @@ def train(rc: RunConfig, *, datasets=None, synth=None, seed: int = 0,
     Returns {"run_dir", "exp_name", "history", "test", "best_tuple",
     "global_step", "model" and "optimizer" (in the state that ``last``
     holds; this rank's pieces under a model axis), "timings" (host seconds
-    of the eval splits' materialisation and of each checkpoint write)}.
+    of the eval splits' materialisation and of each checkpoint write: the
+    recorder's ``runner.eval_splits`` and ``runner.checkpoint`` spans)}.
 
     In a process group (``parallel.mesh.init_distributed``) every rank
     calls it with the same arguments and `device` its own; the histories
@@ -403,10 +405,11 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
         return chunk_runners[chunk]
 
     def save(name: str, with_optimizer: bool, meta: dict):
-        t0 = time.perf_counter()
-        ckpt.save_checkpoint(os.path.join(dirs["checkpoints"], name), model,
-                             optimizer if with_optimizer else None, meta)
-        timings["checkpoint_s"].append(time.perf_counter() - t0)
+        with trace.span("runner.checkpoint", checkpoint=name) as span:
+            ckpt.save_checkpoint(os.path.join(dirs["checkpoints"], name),
+                                 model, optimizer if with_optimizer else None,
+                                 meta)
+        timings["checkpoint_s"].append(span.ms / 1e3)
 
     if datasets is None:
         if synthesising:
@@ -415,17 +418,17 @@ def _train(rc: RunConfig, n_data: int, n_model: int, *, datasets, synth,
             on_dev = None if on_dev is None else bool(on_dev)
             say(f"[Synth] materialising val/test splits ({n_eval} samples "
                 f"each, {'auto' if on_dev is None else ('device' if on_dev else 'host')}-resident)")
-            t0 = time.perf_counter()
-            datasets = {
-                "val": SynthEvalDataset(synth, n_eval, seed + 101,
-                                        rc.batch_size, keep_on_device=on_dev,
-                                        mesh=mesh),
-                "test": SynthEvalDataset(synth, n_eval, seed + 202,
-                                         rc.batch_size, test_thirds=True,
-                                         keep_on_device=on_dev, mesh=mesh),
-            }
-            _sync(device)
-            timings["eval_splits_s"] = time.perf_counter() - t0
+            with trace.span("runner.eval_splits") as span:
+                datasets = {
+                    "val": SynthEvalDataset(
+                        synth, n_eval, seed + 101, rc.batch_size,
+                        keep_on_device=on_dev, mesh=mesh),
+                    "test": SynthEvalDataset(
+                        synth, n_eval, seed + 202, rc.batch_size,
+                        test_thirds=True, keep_on_device=on_dev, mesh=mesh),
+                }
+                _sync(device)
+            timings["eval_splits_s"] = span.ms / 1e3
         else:
             datasets = open_datasets(rc)
 

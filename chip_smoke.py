@@ -7,8 +7,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
 
   1. device: a CUDA card is required; its name and power limit are printed.
   2. build: every CUDA kernel of the port is compiled from the sources in
-     this checkout (kernels/cc_lags.cu, gather_windows.cu, gather_mix_kb.cu),
-     one nvcc per source, all started together. The ptxas report of every
+     this checkout (kernels/cc_lags.cu, gather_windows.cu, gather_mix_kb.cu,
+     trace_mark.cu), one nvcc per source, all started together. The
+     ptxas report of every
      entry function (registers, spills, shared memory) is caught and
      logged; a spill in cc_lags.cu or gather_mix_kb.cu fails the run.
   3. kernel vs plain: each kernel is held against its plain PyTorch version
@@ -26,7 +27,16 @@ Phases, each of which raises on failure (the exit code is then not 0):
      a fill and a copy of its output's bytes and the kernel on one pool
      row as floors). Two launches of each kernel on the same inputs must
      give the same bits; a pool view off the 16-byte grid must be refused
-     by the window gather.
+     by the window gather. The recorder's stage mark (kernels/
+     trace_mark.cu, which replaces no TPU kernel) is held against its
+     plain version on (TRACE_MARK_ROWS, 6) int64 stacks filled with -1 on
+     the card and on the CPU: a mark at each row of TRACE_MARK_ROW_CASES
+     (before, at the first and last row, at and past the end) and every
+     slot must write the same cells on both, and the card's stamps must
+     not decrease in stream order; then the recorder's clock calibration,
+     whose bracket width is logged. Its launches on the paths below (six
+     per marked train step, inside the graphs too) are in the kernels
+     line.
   4. serve: the flagship dual-controller adaptive-Q model at full width,
      seeded random weights, through ``serve.infer.predict`` at batch 1, 64
      and 512 under the bf16 policy and at batch 64 under the f32 policy.
@@ -362,6 +372,11 @@ STREAM_BATCHES = (1, 64, 512)
 INFER_REPS = 7
 INFER_EVAL_ROWS = 1024         # SYNTH_EVAL_SAMPLES' default: 16 batches
 INFER_PREDICT_ROWS = 256       # collect_predictions' split per family
+# phase 3: the recorder's stage mark against its plain version, rows
+# before, inside and past a stack of TRACE_MARK_ROWS rows
+TRACE_MARK_ROWS = 5
+TRACE_MARK_ROW_CASES = (-1, 0, TRACE_MARK_ROWS - 1, TRACE_MARK_ROWS,
+                        TRACE_MARK_ROWS + 3)
 
 
 _START = time.perf_counter()
@@ -434,6 +449,47 @@ def phase_kernels(torch, rng):
                     lambda: cc_kept_lags_cuda(lf, rf, K))
                 log(f"cc_lags at batch 1: {timing['batch1_ms']!r} ms")
     return max_err, timing
+
+
+def phase_trace_mark(torch) -> dict:
+    """Hold trace_mark.cu (uncounted launches) against the plain
+    version: the same cells written at every row case and slot, the
+    card's stamps non-decreasing in stream order; then one clock
+    calibration of a fresh recorder."""
+    from biear_tpu_torch import trace
+
+    slots = len(trace.SLOTS)
+    card = torch.full((TRACE_MARK_ROWS, slots), -1, dtype=torch.int64,
+                      device="cuda")
+    plain = torch.full((TRACE_MARK_ROWS, slots), -1, dtype=torch.int64)
+    rows_card = torch.tensor(TRACE_MARK_ROW_CASES, dtype=torch.int64,
+                             device="cuda")
+    rows_plain = torch.tensor(TRACE_MARK_ROW_CASES, dtype=torch.int64)
+    order = []                  # the cells written, in stream order
+    for i, r in enumerate(TRACE_MARK_ROW_CASES):
+        for slot in range(slots):
+            trace.launch_mark(card, rows_card[i:i + 1], slot)
+            trace.write_mark_plain(plain, rows_plain[i:i + 1], slot)
+            if 0 <= r < TRACE_MARK_ROWS:
+                order.append((r, slot))
+    torch.cuda.synchronize()
+    got = card.cpu()
+    written = (got != -1).nonzero().tolist()
+    if written != (plain != -1).nonzero().tolist() or \
+            sorted(map(list, order)) != written:
+        raise RuntimeError(f"trace_mark wrote cells {written}, the plain "
+                           f"version {(plain != -1).nonzero().tolist()}")
+    stamps = [int(got[r, c]) for r, c in order]
+    if min(stamps) <= 0 or any(b < a for a, b in zip(stamps, stamps[1:])):
+        raise RuntimeError(f"trace_mark stamps out of stream order: {stamps}")
+    clock = trace.Recorder().calibrate(torch.device("cuda"))
+    out = {"cells_written": len(written), "stamp_span_ns": stamps[-1]
+           - stamps[0], "calibration_width_us": clock["width_ns"] / 1e3}
+    log(f"trace_mark: rows {list(TRACE_MARK_ROW_CASES)} x {slots} slots "
+        f"wrote the plain version's {len(written)} cells, stamps "
+        f"non-decreasing over {out['stamp_span_ns']} ns; clock calibration "
+        f"bracket {out['calibration_width_us']!r} us")
+    return out
 
 
 def cc_timing(torch, lf, rf, K):
@@ -3391,6 +3447,7 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     max_err, timing = phase_kernels(torch, rng)
+    mark_check = phase_trace_mark(torch)
     synth = training_synth(torch, "bfloat16")
     errs, wtiming = phase_window_kernels(torch, synth)
     launches = {"serve": phase_serve(torch, rng)}
@@ -3438,7 +3495,14 @@ def main() -> int:
                     status="ported", launches=total("gather_windows"),
                     launches_by_path=by_path("gather_windows"),
                     max_abs_err=errs["gather_windows"],
-                    **wtiming["gather_windows"])]
+                    **wtiming["gather_windows"]),
+               dict(name="trace_mark", route="cuda",
+                    source="biear_tpu_torch/kernels/trace_mark.cu",
+                    replaces=None,
+                    status="the port's own: replaces no TPU kernel (the "
+                           "recorder's device-timed stage marks)",
+                    launches=total("trace_mark"),
+                    launches_by_path=by_path("trace_mark"), **mark_check)]
     for k in kernels:
         k["ptxas"] = [{f: e[f] for f in ("registers", "spill_stores",
                                           "spill_loads", "smem")}
