@@ -51,6 +51,7 @@ attribute ``graph``. The serving graphs' replays open no span.
 
 from __future__ import annotations
 
+import gc
 import weakref
 
 import numpy as np
@@ -141,9 +142,19 @@ class Graph:
             # their events while this thread captures: only this thread's
             # unsafe calls may end the capture
             mode = "thread_local" if dist.is_initialized() else "global"
-            with recording_launches() as rec, torch.cuda.graph(
-                    self.graph, pool=pool, capture_error_mode=mode):
-                self.out = fn()
+            # the cyclic collector may destroy unreachable graphs (a
+            # dropped model's captured forwards hold it in a cycle) at any
+            # allocation, and destroying a graph while a stream captures
+            # invalidates the capture: it waits until the capture ends
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with recording_launches() as rec, torch.cuda.graph(
+                        self.graph, pool=pool, capture_error_mode=mode):
+                    self.out = fn()
+            finally:
+                if collecting:
+                    gc.enable()
             torch.cuda.synchronize(device)
         self.capture_ms = span.ms
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved

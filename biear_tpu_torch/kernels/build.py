@@ -5,9 +5,9 @@ Each kernel is one ``.cu`` file in this directory with a plain C interface
 ``torch.utils.cpp_extension.load`` compiles it for ``sm_90a`` into its own
 directory ``_build/<name>/`` beside this file (git-ignored; ninja skips an
 unchanged source), and ``ctypes`` binds its C functions. One directory per
-kernel lets ``build_all`` run the four builds (``cc_lags``,
-``gather_windows``, ``gather_mix_kb`` and the recorder's ``trace_mark``)
-at once;
+kernel lets ``build_all`` run the five builds (``cc_lags``,
+``gather_windows``, ``gather_mix_kb``, the recorder's ``trace_mark`` and
+the optimizer's ``fused_update``) at once;
 ``build_all_with_report`` also returns what ``ptxas -v`` said of each
 entry function (registers, spills, shared memory). Nothing is built at
 import time: the CPU tests import every module of the package on a
@@ -31,7 +31,8 @@ BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 # parsed by ptxas_report
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v"]
-KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb", "trace_mark")
+KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb", "trace_mark",
+           "fused_update")
 
 
 def build_dir(name: str) -> str:
@@ -90,6 +91,24 @@ def trace_mark_lib() -> ctypes.CDLL:
                                       + [ctypes.c_int] * 3
                                       + [ctypes.c_void_p])
     lib.trace_mark_launch.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def fused_update_lib() -> ctypes.CDLL:
+    """The optimizer step and its telemetry (fused_update.cu)."""
+    lib = ctypes.CDLL(build("fused_update"))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fused_update_table_bytes.argtypes = []
+    lib.fused_update_table_bytes.restype = i32
+    lib.fused_update_stats_launch.argtypes = [ptr] * 5
+    lib.fused_update_stats_launch.restype = i32
+    lib.fused_update_finalize_launch.argtypes = (
+        [i32] * 5 + [f32] * 2 + [ptr] * 10)
+    lib.fused_update_finalize_launch.restype = i32
+    lib.fused_update_adam_launch.argtypes = (
+        [ptr] * 3 + [f32] * 7 + [ptr, i32, ptr])
+    lib.fused_update_adam_launch.restype = i32
     return lib
 
 

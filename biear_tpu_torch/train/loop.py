@@ -9,7 +9,9 @@ and every gradient finite) decides whether it lands, so a nonfinite batch
 leaves the parameters and the whole Adam state untouched and counts as
 ``skipped``, with no host sync. Gradient telemetry (per-group global
 norms, absolute maxima, finite flags, per-leaf magnitude histograms) is
-computed in the same step.
+computed in the same step: on a card in three launches of
+``kernels/fused_update.cu`` (``fused_update.py``), on the CPU by the plain
+version (``plain_update``), their contract.
 
 The chunk runs ``chunk_steps`` iterations of synthesize -> step; each
 step's generator draws the synthesis first and the dropout second. The
@@ -228,28 +230,49 @@ def forward_backward(model: _Model, hp: TrainHyper, batch, gen):
     return grads, metrics, batch_weight(batch)
 
 
-def apply_update(model: _Model, optimizer: Adam, grads: list, metrics: dict,
-                 weight, lr_scale, max_param_log: int) -> dict:
-    """The optimizer step of `grads` (parameter order) where ``ok`` (the
-    loss and every gradient finite) holds, and the step's telemetry;
-    returns `metrics` with the norms, "skipped", "weight" and
-    "grad_hist"."""
-    names = [n for n, _ in model.named_parameters()]
-    named = dict(zip(names, grads))
+def plain_update(model: _Model, optimizer: Adam, named: dict, loss,
+                 lr_scale, max_param_log: int) -> tuple:
+    """The plain version of the update and its telemetry, the contract of
+    ``fused_update.cu``: the group norms, ``ok`` (the loss and every
+    gradient finite), the optimizer step of `named` (name -> gradient)
+    where ``ok`` holds, the histograms; returns (norms, skipped,
+    grad_hist)."""
     layout = layout_of(model)
     norms = group_norms(named, layout)
     # the whole gradient's flags: the model ranks' differ where it is cut
-    ok = (torch.isfinite(metrics["loss"]) & (norms["grad_fb_finite"] > 0)
+    ok = (torch.isfinite(loss) & (norms["grad_fb_finite"] > 0)
           & (norms["grad_backend_finite"] > 0))
     # a cut model's clip norms are the whole gradient's; otherwise the
     # optimizer takes them from `named`
     optimizer.step(named, ok, lr_scale, norms=None if layout is None else {
         "frontend": norms["grad_fb_norm"],
         "backend": norms["grad_backend_norm"]})
+    return (norms, 1.0 - ok.float(),
+            grad_histograms(named, max_param_log, layout))
+
+
+def apply_update(model: _Model, optimizer: Adam, grads: list, metrics: dict,
+                 weight, lr_scale, max_param_log: int) -> dict:
+    """The optimizer step of `grads` (parameter order) where ``ok`` (the
+    loss and every gradient finite) holds, and the step's telemetry;
+    returns `metrics` with the norms, "skipped", "weight" and
+    "grad_hist". CUDA gradients take the three launches of
+    ``fused_update.cu`` (``fused_update.fused_update``), CPU ones the
+    plain version (``plain_update``)."""
+    if grads[0].is_cuda:
+        from .fused_update import fused_update
+        norms, skipped, hist = fused_update(model, optimizer, grads,
+                                            metrics["loss"], lr_scale,
+                                            max_param_log)
+    else:
+        names = [n for n, _ in model.named_parameters()]
+        norms, skipped, hist = plain_update(
+            model, optimizer, dict(zip(names, grads)), metrics["loss"],
+            lr_scale, max_param_log)
     metrics.update(norms)
-    metrics["skipped"] = 1.0 - ok.float()
+    metrics["skipped"] = skipped
     metrics["weight"] = weight
-    metrics["grad_hist"] = grad_histograms(named, max_param_log, layout)
+    metrics["grad_hist"] = hist
     trace.mark("update")
     return metrics
 

@@ -17,7 +17,9 @@ Written by hand on tensor lists, not torch.optim.Adam: the step takes a
 device-side ``ok`` flag and, when it is false (a nonfinite loss or
 gradient), leaves the parameters, both moments and the step count exactly
 as they were, with ``torch.where`` and no host sync, as the JAX package's
-masked update does.
+masked update does. On a card, ``fused_update.py`` does the step (and the
+telemetry) in three kernel launches over the same state; ``Adam.step`` is
+its plain version.
 """
 
 from __future__ import annotations

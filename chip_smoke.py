@@ -8,10 +8,9 @@ Phases, each of which raises on failure (the exit code is then not 0):
   1. device: a CUDA card is required; its name and power limit are printed.
   2. build: every CUDA kernel of the port is compiled from the sources in
      this checkout (kernels/cc_lags.cu, gather_windows.cu, gather_mix_kb.cu,
-     trace_mark.cu), one nvcc per source, all started together. The
-     ptxas report of every
-     entry function (registers, spills, shared memory) is caught and
-     logged; a spill in cc_lags.cu or gather_mix_kb.cu fails the run.
+     trace_mark.cu, fused_update.cu), one nvcc per source, all started
+     together. The ptxas report of every entry function (registers,
+     spills, shared memory) is caught and logged; a spill in cc_lags.cu or gather_mix_kb.cu fails the run.
   3. kernel vs plain: each kernel is held against its plain PyTorch version
      on the card (TF32 off) at the shapes of the main paths (the runner's
      too: batches of 64 rows and the test split's 21- and 22-row thirds,
@@ -36,7 +35,16 @@ Phases, each of which raises on failure (the exit code is then not 0):
      not decrease in stream order; then the recorder's clock calibration,
      whose bracket width is logged. Its launches on the paths below (six
      per marked train step, inside the graphs too) are in the kernels
-     line.
+     line. The optimizer's fused update (kernels/fused_update.cu, which
+     replaces no TPU kernel) is held against the plain update on the card
+     at the flagship's and AuralNet's leaf sets (phase 3's FUSED_*
+     limits: grad_hist, flags, maxima and skipped bit for bit; a NaN
+     gradient or an infinite loss leaves the state's bits; two calls give
+     the same bits), timed beside it and its bytes bound, its device
+     kernels per call counted both ways, and the flagship's captured
+     chunk at TRAIN_BATCH run with each (kernels, busy ms and utt/s per
+     step); its launches, three per train step, must show on every train
+     path and on no serving, streaming or evaluation path.
   4. serve: the flagship dual-controller adaptive-Q model at full width,
      seeded random weights, through ``serve.infer.predict`` at batch 1, 64
      and 512 under the bf16 policy and at batch 64 under the f32 policy.
@@ -377,6 +385,19 @@ INFER_PREDICT_ROWS = 256       # collect_predictions' split per family
 TRACE_MARK_ROWS = 5
 TRACE_MARK_ROW_CASES = (-1, 0, TRACE_MARK_ROWS - 1, TRACE_MARK_ROWS,
                         TRACE_MARK_ROWS + 3)
+# phase 3: the optimizer's fused update against the plain update on the
+# card, at the flagship's and AuralNet's leaf sets: gradients normal times
+# 10 to a uniform power over FUSED_USUAL decades (state and telemetry
+# held) and over FUSED_WIDE (every histogram bucket; telemetry held).
+# Bit for bit: grad_hist, the finite flags, the absolute maxima, skipped;
+# the norms to FUSED_NORM_RTOL; each leaf's change of p, m and v to
+# FUSED_STATE_RTOL of the plain one's, give or take two float32 spacings
+# of the stored values. The chunks of the before / after comparison:
+# FUSED_CHUNK_STEPS steps at TRAIN_BATCH
+FUSED_USUAL, FUSED_WIDE = (-5.0, -1.0), (-13.0, 5.0)
+FUSED_NORM_RTOL, FUSED_STATE_RTOL = 2e-6, 1e-5
+FUSED_CHUNK_STEPS = 4
+FUSED_BYTES_PER_PARAM = 32    # g read twice; p, m, v read and written
 
 
 _START = time.perf_counter()
@@ -489,6 +510,228 @@ def phase_trace_mark(torch) -> dict:
         f"wrote the plain version's {len(written)} cells, stamps "
         f"non-decreasing over {out['stamp_span_ns']} ns; clock calibration "
         f"bracket {out['calibration_width_us']!r} us")
+    return out
+
+
+def fused_grads(torch, params, gen, decades):
+    """Seeded float32 gradients: normal times 10 to a uniform power over
+    `decades`, three zeros at the front of each leaf."""
+    lo, hi = decades
+    out = []
+    for p in params:
+        g = torch.randn(p.shape, generator=gen, device="cuda") * 10.0 ** (
+            lo + (hi - lo) * torch.rand(p.shape, generator=gen,
+                                        device="cuda"))
+        g.view(-1)[:3] = 0.0
+        out.append(g)
+    return out
+
+
+def fused_state(model, opt) -> list:
+    """Clones of every tensor the update writes."""
+    from biear_tpu_torch.train.graph import train_state
+    return [t.detach().clone() for t in train_state(model, opt)]
+
+
+def fused_compare(torch, label, got, want, before, after, after_plain,
+                  state: bool) -> dict:
+    """The fused update against the plain one (phase 3's limits); returns
+    the worst norm error and leaf change error."""
+    (gn, gs, gh), (wn, ws, wh) = got, want
+
+    def same_bits(a, b):
+        nan = torch.isnan(a)
+        return torch.equal(nan, torch.isnan(b)) and torch.equal(
+            a.masked_fill(nan, 0).view(torch.int32),
+            b.masked_fill(nan, 0).view(torch.int32))
+    norm_err = 0.0
+    for k in gn:
+        if k.endswith("_norm"):
+            a, b = float(gn[k]), float(wn[k])
+            err = 0.0 if a == b else abs(a - b) / abs(b)
+            norm_err = max(norm_err, err)
+            if err > FUSED_NORM_RTOL:
+                raise RuntimeError(f"fused_update {label}: {k} off by {err!r}")
+        elif not same_bits(gn[k], wn[k]):
+            raise RuntimeError(f"fused_update {label}: {k} {gn[k]} against "
+                               f"{wn[k]}")
+    if not (same_bits(gs, ws) and same_bits(gh, wh)):
+        raise RuntimeError(f"fused_update {label}: skipped or grad_hist "
+                           "differ from the plain update")
+    change_err = 0.0
+    for b, g, w in zip(before, after, after_plain) if state else ():
+        if b.dtype == torch.int32:
+            if not torch.equal(g, w):
+                raise RuntimeError(f"fused_update {label}: counts differ")
+            continue
+        a = w.abs()
+        floor = 2 * float((torch.nextafter(a, torch.full_like(
+            a, float("inf"))) - a).double().norm())
+        g, w, b = g.double(), w.double(), b.double()
+        d, c = float((g - w).norm()), float((w - b).norm())
+        change_err = max(change_err, d / max(c, 1e-30))
+        if d > FUSED_STATE_RTOL * c + floor:
+            raise RuntimeError(f"fused_update {label}: a leaf's change off "
+                               f"by {d!r} of {c!r} (floor {floor!r})")
+    return {"norm_rel_err": norm_err, "change_rel_err": change_err}
+
+
+def fused_chunks_side_by_side(torch, synth) -> dict:
+    """The flagship's captured train chunk at TRAIN_BATCH with the plain
+    update on the card (before) and with the fused update (after), in
+    turns in this process: device kernels and busy ms per step
+    (torch.profiler over one call) and utt/s (3 windows each)."""
+    from biear_tpu_torch.bench import flagship_config
+    from biear_tpu_torch.models import build_active
+    from biear_tpu_torch.serve.profile_serve import device_profile
+    from biear_tpu_torch.train.graph import CapturedChunk, train_state
+    from biear_tpu_torch.train.loop import (forward_backward,
+                                            make_train_chunk, plain_update)
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import rate_windows
+
+    hp, steps = TrainHyper(), FUSED_CHUNK_STEPS
+    model = build_active(flagship_config(), seed=0)
+    opt = make_optimizer(model, hp)
+    names = [n for n, _ in model.named_parameters()]
+
+    def plain_step(batch, gen, lr):
+        grads, metrics, weight = forward_backward(model, hp, batch, gen)
+        norms, skipped, hist = plain_update(model, opt,
+                                            dict(zip(names, grads)),
+                                            metrics["loss"], lr, 200)
+        metrics.update(norms)
+        metrics.update(skipped=skipped, weight=weight, grad_hist=hist)
+        return metrics
+    chunks = {
+        "before": CapturedChunk(plain_step, synth.batch_fn(TRAIN_BATCH),
+                                steps, train_state(model, opt)),
+        "after": make_train_chunk(model, hp, opt,
+                                  synth.batch_fn(TRAIN_BATCH), steps)}
+    gens = {k: torch.Generator(device="cuda").manual_seed(i)
+            for i, k in enumerate(chunks)}
+    out = {k: {"windows": []} for k in chunks}
+    for k, chunk in chunks.items():
+        chunk(gens[k])
+        prof = device_profile(lambda: chunk(gens[k]), calls=1)
+        out[k].update(kernels_per_step=prof["kernels_per_call"] / steps,
+                      busy_ms_per_step=prof["device_busy_ms_per_call"]
+                      / steps, idle_share=prof["device_idle_share"])
+    for k in ("before", "after", "after", "before"):
+        out[k]["windows"] += rate_windows(lambda: chunks[k](gens[k]),
+                                          TRAIN_BATCH * steps, 3)["windows"]
+    for k in chunks:
+        out[k]["utt_s"] = statistics.median(out[k]["windows"])
+    return out
+
+
+def graph_ms(torch, fn) -> float:
+    """cuda_ms of one replay of fn captured in a CUDA graph (after a
+    warm-up call on a side stream): the device's time without the host's
+    launches, as inside the captured train step."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay)
+
+
+def phase_fused_update(torch, synth) -> dict:
+    """Hold fused_update.cu against the plain update at the flagship's
+    and AuralNet's leaf sets (phase 3's limits; a NaN gradient and an
+    infinite loss leave the state's bits; two calls give the same bits);
+    time both (CUDA events: ``ms`` one call replayed from a CUDA graph,
+    ``eager_ms`` an eager call with its host work), count their device
+    kernels per call (torch.profiler) and the wrapper's launches; then
+    the captured chunk before / after (``fused_chunks_side_by_side``)."""
+    import copy
+    from biear_tpu_torch.bench import flagship_config
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active, \
+        build_auralnet
+    from biear_tpu_torch.serve.profile_serve import AURALNET, device_profile
+    from biear_tpu_torch.train.fused_update import fused_update
+    from biear_tpu_torch.train.loop import plain_update
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+
+    hp = TrainHyper()
+    out = {}
+    for label, build in (
+            ("dual", lambda: build_active(flagship_config(), seed=0)),
+            ("auralnet", lambda: build_auralnet(BiEARConfig(**AURALNET),
+                                                seed=0))):
+        model = build()
+        opt = make_optimizer(model, hp)
+        params = list(model.parameters())
+        names = [n for n, _ in model.named_parameters()]
+        loss = torch.tensor(1.0, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(3)
+
+        def fused(m, o, g, lo=loss):
+            return fused_update(m, o, g, lo, 1.0, 200)
+
+        def plain(m, o, g, lo=loss):
+            return plain_update(m, o, dict(zip(names, g)), lo, 1.0, 200)
+        row = {"leaves": len(params),
+               "params": sum(p.numel() for p in params)}
+        for name, decades in (("usual", FUSED_USUAL), ("wide", FUSED_WIDE),
+                              ("usual_2", FUSED_USUAL)):
+            g = fused_grads(torch, params, gen, decades)
+            twin = copy.deepcopy((model, opt))
+            before = fused_state(model, opt)
+            n0 = LAUNCHES["fused_update"]
+            got = fused(model, opt, g)
+            torch.cuda.synchronize()
+            row["launches_per_call"] = LAUNCHES["fused_update"] - n0
+            want = plain(*twin, g)
+            row[name] = fused_compare(
+                torch, f"{label} {name}", got, want, before,
+                fused_state(model, opt), fused_state(*twin),
+                state=decades == FUSED_USUAL)
+        # a NaN in one leaf, an infinite loss: the state keeps its bits
+        for poison in ("nan_gradient", "inf_loss"):
+            g = fused_grads(torch, params, gen, FUSED_USUAL)
+            lo = loss
+            if poison == "nan_gradient":
+                g[len(g) // 2].view(-1)[1] = float("nan")
+            else:
+                lo = torch.tensor(float("inf"), device="cuda")
+            before = fused_state(model, opt)
+            _, skipped, _ = fused(model, opt, g, lo)
+            if float(skipped) != 1.0 or not all(
+                    torch.equal(a, b) for a, b in
+                    zip(before, fused_state(model, opt))):
+                raise RuntimeError(f"fused_update {label} {poison}: the "
+                                   "state moved")
+        # two calls from one state: the same bits
+        g = fused_grads(torch, params, gen, FUSED_WIDE)
+        ends = []
+        for _ in range(2):
+            m, o = copy.deepcopy((model, opt))
+            n, s, h = fused(m, o, g)
+            ends.append([*n.values(), s, h, *fused_state(m, o)])
+        if not all(torch.equal(a, b) for a, b in zip(*ends)):
+            raise RuntimeError(f"fused_update {label}: two calls differ")
+        g = fused_grads(torch, params, gen, FUSED_USUAL)
+        row["ms"] = graph_ms(torch, lambda: fused(model, opt, g))
+        row["plain_ms"] = graph_ms(torch, lambda: plain(model, opt, g))
+        row["eager_ms"] = cuda_ms(lambda: fused(model, opt, g))
+        row["plain_eager_ms"] = cuda_ms(lambda: plain(model, opt, g))
+        row["bound_ms"] = (FUSED_BYTES_PER_PARAM * row["params"]
+                           / H100_HBM_BYTES_S * 1e3)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        for k, fn in (("kernels_per_call", lambda: fused(model, opt, g)),
+                      ("plain_kernels_per_call",
+                       lambda: plain(model, opt, g))):
+            row[k] = device_profile(fn, calls=3)["kernels_per_call"]
+        out[label] = row
+        log(f"fused_update {label}: {json.dumps(row)}")
+    out["chunk"] = fused_chunks_side_by_side(torch, synth)
+    log(f"fused_update chunk before / after: {json.dumps(out['chunk'])}")
     return out
 
 
@@ -3449,6 +3692,7 @@ def main() -> int:
     max_err, timing = phase_kernels(torch, rng)
     mark_check = phase_trace_mark(torch)
     synth = training_synth(torch, "bfloat16")
+    fused_check = phase_fused_update(torch, synth)
     errs, wtiming = phase_window_kernels(torch, synth)
     launches = {"serve": phase_serve(torch, rng)}
     launches.update(phase_train(torch, synth))
@@ -3502,7 +3746,24 @@ def main() -> int:
                     status="the port's own: replaces no TPU kernel (the "
                            "recorder's device-timed stage marks)",
                     launches=total("trace_mark"),
-                    launches_by_path=by_path("trace_mark"), **mark_check)]
+                    launches_by_path=by_path("trace_mark"), **mark_check),
+               dict(name="fused_update", route="cuda",
+                    source="biear_tpu_torch/kernels/fused_update.cu",
+                    replaces=None,
+                    status="the port's own: replaces no TPU kernel (the "
+                           "counterpart of XLA's fusion of the optax update "
+                           "and the telemetry in the jitted train step)",
+                    launches=total("fused_update"),
+                    launches_by_path=by_path("fused_update"), **fused_check)]
+    # the optimizer's kernels run on every train path, on no serving,
+    # streaming or evaluation path
+    for path, got in by_path("fused_update").items():
+        if any(w in path for w in ("serve", "stream", "eval", "infer",
+                                   "predict", "scoring")) and got:
+            raise RuntimeError(f"fused_update launched on {path}")
+        if any(w in path for w in ("train", "runner", "capture")) \
+                and not got:
+            raise RuntimeError(f"fused_update never launched on {path}")
     for k in kernels:
         k["ptxas"] = [{f: e[f] for f in ("registers", "spill_stores",
                                           "spill_loads", "smem")}

@@ -484,3 +484,40 @@ def test_captured_step_captures_anew_under_a_new_precision(stand_in_cuda):
             assert bool(torch.isfinite(step(batch, gen)["loss"]))
         assert len(step.graphs) == len(step.stats) == graphs
     assert {k[1][0] for k in step.graphs} == {"default", "bfloat16"}
+
+
+def test_a_capture_runs_with_the_cyclic_collector_off(monkeypatch):
+    """graph.Graph captures with Python's cyclic garbage collector off (a
+    graph that it destroyed mid-capture would invalidate the capture) and
+    turns it back on after, also when the capture raises."""
+    import gc
+
+    class StubGraph:
+        def register_generator_state(self, gen):
+            pass
+
+    @contextlib.contextmanager
+    def stub_capture(graph, pool=None, capture_error_mode="global"):
+        yield
+
+    for name, value in (("CUDAGraph", StubGraph), ("graph", stub_capture),
+                        ("empty_cache", lambda: None),
+                        ("memory_reserved", lambda *a: 0),
+                        ("synchronize", lambda *a: None)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    seen, state = [], [torch.zeros(3)]
+
+    def fn():
+        seen.append(gc.isenabled())
+        return {}
+
+    def failing():
+        seen.append(gc.isenabled())
+        raise RuntimeError("capture failed")
+
+    assert gc.isenabled()
+    cgraph.Graph(fn, state, [])
+    assert seen == [False] and gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        cgraph.Graph(failing, state, [])
+    assert seen == [False, False] and gc.isenabled()

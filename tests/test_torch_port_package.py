@@ -407,10 +407,10 @@ def test_cpu_tensors_take_the_plain_mix_and_gather_and_count_no_launch(
 def test_kernel_sources_ship_with_the_package():
     """The build reads only repository sources, into a git-ignored dir;
     each source names the TPU kernel it replaces, or (the recorder's
-    mark) that it replaces none."""
+    mark, the optimizer's fused update) that it replaces none."""
     from biear_tpu_torch.kernels import build
     assert build.KERNELS == ("cc_lags", "gather_windows", "gather_mix_kb",
-                             "trace_mark")
+                             "trace_mark", "fused_update")
     assert build.BUILD_DIR.startswith(PORT)
     assert "sm_90a" in " ".join(build.CUDA_FLAGS)
     gitignore = open(os.path.join(REPO, ".gitignore")).read().split()
@@ -421,7 +421,8 @@ def test_kernel_sources_ship_with_the_package():
         src = open(path).read()
         for lib in ("cublas", "cudnn", "cufft", "torch/"):
             assert lib not in src.lower()
-        assert ("replaces no tpu kernel" if name == "trace_mark"
+        assert ("replaces no tpu kernel"
+                if name in ("trace_mark", "fused_update")
                 else "replaces the tpu kernel") in src.lower()
         assert 'extern "C"' in src
         assert build.build_dir(name).startswith(build.BUILD_DIR)
