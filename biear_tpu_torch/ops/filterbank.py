@@ -28,13 +28,26 @@ Precision policies:
     would round the result too).
 Every product is pinned to full f32 with TF32 off on the card, forward
 and backward, whatever MATMUL_PRECISION says (JAX pins them to HIGHEST).
+
+Under the bf16 policy the forward's build and contraction go through one
+contract, ``gauss_contract``: on a CUDA tensor one launch of
+``kernels/fb_gauss.cu`` (the Gaussian built in registers, its bf16 values
+bit for bit the plain path's, the contraction on the tensor cores with f32
+sums, the normalisation), on a CPU tensor ``gauss_contract_plain``, the
+plain ops above. ``FilterbankFn``'s forward (both bf16 modes) and
+``fb_forward`` without a gradient to take (predict, evaluation,
+streaming) call it; the f32 policy, ``fb_forward`` under autograd and the
+recomputing backward of the "bf16" mode stay plain.
 """
 
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from ..device import precision_highest
+from ..kernels import count_launch
 
 EPS_Q = 1e-8
 EPS_BW = 1e-8
@@ -118,11 +131,98 @@ def _normalise(out: torch.Tensor):
     return Y, out[..., 1] / den, out[..., 2] / den, den, torch.isfinite(Y_raw)
 
 
+# (rows, bands, bins, with_t) of every fb_gauss.cu launch made or captured
+# in this process, counted (the benchmark's roofline reader takes the
+# kernel's shape from here)
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
+
+
+def gauss_contract_plain(Q: torch.Tensor, rhs: torch.Tensor,
+                         fc: torch.Tensor, f_fft: torch.Tensor,
+                         with_t: bool) -> tuple:
+    """The bf16 forward of one frame in plain ops: Q (R, N), rhs (R, 4, F)
+    -> (Y, Zre, Zim, den, finite, bw, T), each (R, N) but T (R, N, 4), or
+    None without `with_t`."""
+    bw, t, G = _gauss_fast(Q, fc, f_fft)
+    out = _dot(G, rhs, True, "bnf,bcf->bnc")
+    T = (_dot(G * (-2.0 * t), rhs, True, "bnf,bcf->bnc") if with_t
+         else None)
+    return (*_normalise(out), bw[..., 0], T)
+
+
+def gauss_contract_cuda(Q: torch.Tensor, rhs: torch.Tensor,
+                        fc: torch.Tensor, f_fft: torch.Tensor,
+                        with_t: bool) -> tuple:
+    """gauss_contract_plain as one launch of ``fb_gauss.cu`` on the current
+    stream. rhs is bf16 with contiguous bins and any row and channel
+    strides (a frame of the frontend's (T, 2B, 4, F) stack is read in
+    place); Q float32 with contiguous bands and any row stride."""
+    from ..kernels.build import check_launch, fb_gauss_lib
+
+    shapes = [tuple(x.shape) for x in (Q, rhs, fc, f_fft)]
+    if not ([len(x) for x in shapes] == [2, 3, 1, 1]
+            and shapes[1][:2] == (shapes[0][0], 4)
+            and shapes[2][0] == shapes[0][1]
+            and shapes[3][0] == shapes[1][2] and min(shapes[1]) > 0
+            and shapes[0][1] > 0):
+        raise ValueError("fb_gauss needs Q (R, N), rhs (R, 4, F), fc (N) "
+                         f"and f_fft (F), got {shapes}")
+    dev = Q.device
+    if not (Q.is_cuda and all(x.device == dev for x in (rhs, fc, f_fft))):
+        raise ValueError("gauss_contract_cuda needs every input on one CUDA "
+                         "device")
+    if rhs.dtype != torch.bfloat16 or any(
+            x.dtype != torch.float32 for x in (Q, fc, f_fft)):
+        raise TypeError("fb_gauss takes bf16 rhs and float32 Q, fc, f_fft; "
+                        f"got {rhs.dtype}, {Q.dtype}, {fc.dtype}, "
+                        f"{f_fft.dtype}")
+    if Q.stride(1) != 1:
+        Q = Q.contiguous()
+    if rhs.stride(2) != 1:
+        rhs = rhs.contiguous()
+    fc, f_fft = fc.contiguous(), f_fft.contiguous()
+    R, N = Q.shape
+    F = rhs.shape[2]
+    if max(Q.stride(0), rhs.stride(0), rhs.stride(1)) >= 2 ** 31:
+        raise ValueError("fb_gauss needs strides below 2**31 elements")
+    Y, Zre, Zim, den, bw = (torch.empty((R, N), dtype=torch.float32,
+                                        device=dev) for _ in range(5))
+    finite = torch.empty((R, N), dtype=torch.bool, device=dev)
+    T = (torch.empty((R, N, 4), dtype=torch.float32, device=dev) if with_t
+         else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fb_gauss_lib().fb_gauss_launch(
+            Q.data_ptr(), Q.stride(0), rhs.data_ptr(), rhs.stride(0),
+            rhs.stride(1), fc.data_ptr(), f_fft.data_ptr(), Y.data_ptr(),
+            Zre.data_ptr(), Zim.data_ptr(), den.data_ptr(), bw.data_ptr(),
+            finite.data_ptr(), None if T is None else T.data_ptr(), R, N, F,
+            stream)
+    check_launch(err, "fb_gauss")
+    count_launch("fb_gauss")
+    LAUNCH_SHAPES[(R, N, F, bool(with_t))] += 1
+    return Y, Zre, Zim, den, finite, bw, T
+
+
+def gauss_contract(Q: torch.Tensor, rhs: torch.Tensor, fc: torch.Tensor,
+                   f_fft: torch.Tensor, with_t: bool) -> tuple:
+    """The bf16 forward of one frame, (Y, Zre, Zim, den, finite, bw, T):
+    the kernel for a CUDA tensor (a build or launch failure raises), the
+    plain ops for a CPU tensor. No autograd."""
+    if Q.is_cuda:
+        return gauss_contract_cuda(Q, rhs, fc, f_fft, with_t)
+    return gauss_contract_plain(Q, rhs, fc, f_fft, with_t)
+
+
 def fb_forward(Q: torch.Tensor, fc: torch.Tensor, f_fft: torch.Tensor,
                rhs: torch.Tensor, bf16: bool = False):
     """Divide-after filterbank for one frame: Q (B, N), rhs (B, 4, F) ->
     (Y, Zre, Zim), each (B, N). nan_to_num applies to Y only. Plain
-    autograd differentiates it (the "autodiff" VJP)."""
+    autograd differentiates it (the "autodiff" VJP); under bf16 with no
+    gradient to take it is ``gauss_contract``."""
+    if bf16 and not (torch.is_grad_enabled()
+                     and (Q.requires_grad or rhs.requires_grad)):
+        return gauss_contract(Q, rhs, fc, f_fft, False)[:3]
     G = (_gauss_fast if bf16 else _gauss)(Q, fc, f_fft)[2]
     return _normalise(_dot(G, rhs, bf16, "bnf,bcf->bnc"))[:3]
 
@@ -139,17 +239,15 @@ class FilterbankFn(torch.autograd.Function):
         bf16 = mode.startswith("bf16")
         x_grad = not mode.endswith("|noxg")
         fwd_T = bf16 and not x_grad
-        if fwd_T:
-            bw, t, G = _gauss_fast(Q, fc, f_fft)
-            out = _dot(G, rhs, True, "bnf,bcf->bnc")
-            T = _dot(G * (-2.0 * t), rhs, True, "bnf,bcf->bnc")
+        if bf16:
+            Y, Zre, Zim, den, finite, bw, T = gauss_contract(Q, rhs, fc,
+                                                             f_fft, fwd_T)
         else:
-            G = (_gauss_fast if bf16 else _gauss)(Q, fc, f_fft)[2]
-            out = _dot(G, rhs, bf16, "bnf,bcf->bnc")
-        Y, Zre, Zim, den, finite = _normalise(out)
+            G = _gauss(Q, fc, f_fft)[2]
+            Y, Zre, Zim, den, finite = _normalise(
+                _dot(G, rhs, False, "bnf,bcf->bnc"))
         if fwd_T:
-            ctx.save_for_backward(Q, fc, bw[..., 0], T, Y, Zre, Zim, den,
-                                  finite)
+            ctx.save_for_backward(Q, fc, bw, T, Y, Zre, Zim, den, finite)
             ctx.rhs_meta = (rhs.shape, rhs.dtype)
         else:
             ctx.save_for_backward(Q, fc, f_fft, rhs, Y, Zre, Zim, den, finite)

@@ -398,6 +398,18 @@ FUSED_USUAL, FUSED_WIDE = (-5.0, -1.0), (-13.0, 5.0)
 FUSED_NORM_RTOL, FUSED_STATE_RTOL = 2e-6, 1e-5
 FUSED_CHUNK_STEPS = 4
 FUSED_BYTES_PER_PARAM = 32    # g read twice; p, m, v read and written
+# phase 3: the adaptive filterbank's fb_gauss.cu against its plain version
+# (rows, bands, bins): the flagship's training frame (2B = 1,024), the
+# spirit cell's (128), one row, a ragged geometry. bw and the finite mask
+# bit for bit; the sums within FB_SUM_BOUND F u sum_f |term| (u = 2^-24:
+# each of the two f32 sums of F terms is off by at most F u sum |term|);
+# at the flagship's frame every bf16 G and Gz2 bit for bit by one-hot
+# probes. FB_EXPS_S: one MUFU.EX2 per expf, 16 a clock on each of 132 SMs
+# (CUDA Programming Guide, compute capability 9.0) at 1,980 MHz
+FB_SHAPES = ((1024, 100, 513), (128, 100, 513), (1, 100, 513), (3, 7, 33))
+FB_SUM_BOUND = 2.0
+FB_EXPS_S = 132 * 16 * 1.98e9
+FB_TIMESTEPS = 19             # frames, so launches, per adaptive forward
 
 
 _START = time.perf_counter()
@@ -732,6 +744,219 @@ def phase_fused_update(torch, synth) -> dict:
         log(f"fused_update {label}: {json.dumps(row)}")
     out["chunk"] = fused_chunks_side_by_side(torch, synth)
     log(f"fused_update chunk before / after: {json.dumps(out['chunk'])}")
+    return out
+
+
+def fb_case(torch, R, N, F, seed):
+    """Flagship fc / f_fft (N = 100, F = 513) or a ragged geometry, Q
+    log-uniform over [0.05, 30], bf16 spectra rows [|X|, re, im, 1]."""
+    from biear_tpu_torch.models import BiEARConfig
+    from biear_tpu_torch.models.frontend import frontend_constants
+    from biear_tpu_torch.ops.filterbank import stack_rhs
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if (N, F) == (100, 513):
+        c = frontend_constants(BiEARConfig())
+        fc, f_fft = (torch.tensor(c[k], device="cuda")
+                     for k in ("fc", "f_fft"))
+    else:
+        fc = torch.sort(torch.rand(N, generator=gen, device="cuda") * 7000
+                        + 50).values
+        f_fft = torch.linspace(0, 8000, F, device="cuda")
+    Q = torch.exp(torch.rand((R, N), generator=gen, device="cuda")
+                  * float(np.log(600.0))) * 0.05
+    re, im = (torch.randn((R, F), generator=gen, device="cuda")
+              for _ in range(2))
+    return Q, stack_rhs(torch.sqrt(re * re + im * im), re, im, True), fc, f_fft
+
+
+def fb_compare(torch, Q, rhs, fc, f_fft) -> float:
+    """The kernel (with T) against the plain path: bw and finite bit for
+    bit, den and T within FB_SUM_BOUND F u sum |term|, Y, Zre, Zim within
+    that carried through the division; returns the largest error as a
+    share of its limit."""
+    from biear_tpu_torch.device import precision_highest
+    from biear_tpu_torch.ops import filterbank as fb
+    with precision_highest():
+        want = fb.gauss_contract_plain(Q, rhs, fc, f_fft, True)
+    got = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+    _, t, G = fb._gauss_fast(Q, fc, f_fft)
+    F = rhs.shape[-1]
+    a = rhs.double().abs()
+    bnd = lambda w: (FB_SUM_BOUND * F * 2.0 ** -24 * torch.einsum(
+        "rnf,rcf->rnc", w.to(torch.bfloat16).double().abs(), a))
+    b_out, b_t = bnd(G), bnd(G * (-2.0 * t))
+    Y, Zre, Zim, den, finite, bw, T = want
+    if not (torch.equal(got[4], finite) and torch.equal(got[5], bw)):
+        raise RuntimeError("fb_gauss: bw or the finite mask differs")
+    u = 2.0 ** -23
+    lims = [b_out[..., 3] + u * den.abs(), b_t + u * T.abs()]
+    pairs = [(got[3], den), (got[6], T)]
+    for k, w in enumerate((Y, Zre, Zim)):
+        lims.append((b_out[..., k] + w.abs().double() * b_out[..., 3])
+                    / den.abs().double() * 1.01 + 2 * u * w.abs().double())
+        pairs.append((got[k], w))
+    worst = max(float(((g - w).abs().double() / lim).max())
+                for (g, w), lim in zip(pairs, lims))
+    if not worst <= 1.0:
+        raise RuntimeError(f"fb_gauss: {worst!r} of the sums' bound")
+    return worst
+
+
+def fb_probe(torch, Q, fc, f_fft) -> None:
+    """One-hot rhs (channel c = e_f, channel 3 = 0): out_c = bf16(G)[f]
+    alone (read as Y, Zre, Zim = out_c / 1e-8: different bf16 values give
+    different quotients) and T_c = bf16(Gz2)[f], bit for bit against the
+    plain path's operands, at every bin."""
+    from biear_tpu_torch.ops import filterbank as fb
+    R, N = Q.shape
+    F = f_fft.shape[0]
+    _, t, G = fb._gauss_fast(Q, fc, f_fft)
+    Gb = G.to(torch.bfloat16).float()
+    Zb = (G * (-2.0 * t)).to(torch.bfloat16).float()
+    den = torch.full((R, N), 1e-8, dtype=torch.float32, device="cuda")
+    for f0 in range(0, F, 3):
+        bins = [min(f0 + c, F - 1) for c in range(3)]
+        rhs = torch.zeros((R, 4, F), dtype=torch.bfloat16, device="cuda")
+        for c, f in enumerate(bins):
+            rhs[:, c, f] = 1.0
+        out = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+        for c, f in enumerate(bins):
+            if not (torch.equal(out[c], Gb[..., f] / den)
+                    and torch.equal(out[6][..., c], Zb[..., f])):
+                raise RuntimeError(f"fb_gauss: bf16 G or Gz2 at bin {f} "
+                                   "differs from the plain path's")
+
+
+def fb_chunks_side_by_side(torch, synth) -> dict:
+    """The flagship's captured train chunk at TRAIN_BATCH with the plain
+    filterbank build on the card (before: the contract's plain ops swapped
+    in while the chunk captures) and with fb_gauss.cu (after), in turns in
+    this process: device kernels and busy ms per step (torch.profiler over
+    one call), fb_gauss launches per chunk call (19 a step), and utt/s (3
+    windows each)."""
+    from biear_tpu_torch.bench import flagship_config
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import build_active
+    from biear_tpu_torch.ops import filterbank as fb
+    from biear_tpu_torch.serve.profile_serve import device_profile
+    from biear_tpu_torch.train.loop import make_train_chunk
+    from biear_tpu_torch.train.optim import TrainHyper, make_optimizer
+    from biear_tpu_torch.train.profile_train import rate_windows
+
+    hp, steps = TrainHyper(), FUSED_CHUNK_STEPS
+    out, chunks, gens = {}, {}, {}
+    for i, k in enumerate(("before", "after")):
+        model = build_active(flagship_config(), seed=0)
+        chunks[k] = make_train_chunk(model, hp, make_optimizer(model, hp),
+                                     synth.batch_fn(TRAIN_BATCH), steps)
+        gens[k] = torch.Generator(device="cuda").manual_seed(i)
+        swap = fb.gauss_contract
+        if k == "before":
+            fb.gauss_contract = lambda Q, rhs, fc, f, t: \
+                fb.gauss_contract_plain(Q, rhs, fc, f, t)
+        try:
+            chunks[k](gens[k])                     # warm-up and capture
+        finally:
+            fb.gauss_contract = swap
+        LAUNCHES.clear()
+        chunks[k](gens[k])
+        torch.cuda.synchronize()
+        launched = LAUNCHES["fb_gauss"]
+        prof = device_profile(lambda: chunks[k](gens[k]), calls=1)
+        out[k] = {"fb_gauss_per_call": launched,
+                  "kernels_per_step": prof["kernels_per_call"] / steps,
+                  "busy_ms_per_step": prof["device_busy_ms_per_call"]
+                  / steps, "idle_share": prof["device_idle_share"],
+                  "windows": []}
+    if (out["before"]["fb_gauss_per_call"] != 0
+            or out["after"]["fb_gauss_per_call"] != FB_TIMESTEPS * steps):
+        raise RuntimeError(f"fb_gauss launches per chunk: {out}")
+    for k in ("before", "after", "after", "before"):
+        out[k]["windows"] += rate_windows(lambda: chunks[k](gens[k]),
+                                          TRAIN_BATCH * steps, 3)["windows"]
+    for k in out:
+        out[k]["utt_s"] = statistics.median(out[k]["windows"])
+    return out
+
+
+def phase_fb_gauss(torch, synth, rng) -> dict:
+    """Hold fb_gauss.cu against the plain build and contraction at
+    FB_SHAPES (fb_compare; two launches give the same bits; fb_probe at
+    the flagship's frame), time both at the cells' frames (``ms``: one
+    launch replayed from a CUDA graph, as inside the captured chunk),
+    count device kernels per call, check 19 launches per forward of
+    ``predict`` (and 1 per ``stream_step`` hop), then the flagship's chunk
+    before / after (``fb_chunks_side_by_side``)."""
+    from biear_tpu_torch.device import precision_highest
+    from biear_tpu_torch.graph import WARMUP_STEPS
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.ops import filterbank as fb
+    from biear_tpu_torch.serve.infer import predict
+    from biear_tpu_torch.serve.profile_serve import device_profile
+    from biear_tpu_torch.serve.streaming import stream_init, stream_step
+
+    out = {}
+    for R, N, F in FB_SHAPES:
+        Q, rhs, fc, f_fft = fb_case(torch, R, N, F, seed=R + F)
+        row = {"share_of_sum_bound": fb_compare(torch, Q, rhs, fc, f_fft)}
+        a = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+        b = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"fb_gauss {R}x{N}x{F}: two launches differ")
+        if (R, N, F) == FB_SHAPES[0]:
+            fb_probe(torch, Q, fc, f_fft)
+            row["probe"] = "bf16 G and Gz2 bit for bit at every bin"
+        if R >= 128:
+            # a frame of the frontend's (T, 2B, 4, F) stack, read in place
+            rhs = torch.stack([rhs] * 3, dim=1).transpose(0, 1)[1]
+            row["ms"] = graph_ms(
+                torch, lambda: fb.gauss_contract(Q, rhs, fc, f_fft, True))
+            row["ms_no_t"] = graph_ms(
+                torch, lambda: fb.gauss_contract(Q, rhs, fc, f_fft, False))
+            with precision_highest():
+                row["plain_ms"] = graph_ms(
+                    torch, lambda: fb.gauss_contract_plain(Q, rhs, fc, f_fft,
+                                                           True))
+                row["plain_kernels_per_call"] = device_profile(
+                    lambda: fb.gauss_contract_plain(Q, rhs, fc, f_fft, True),
+                    calls=3)["kernels_per_call"]
+            row["kernels_per_call"] = device_profile(
+                lambda: fb.gauss_contract(Q, rhs, fc, f_fft, True),
+                calls=3)["kernels_per_call"]
+            exps = R * N * F
+            nbytes = R * 4 * F * 2 + R * N * 4 + R * N * (5 * 4 + 1 + 16)
+            t_exp, t_bytes = exps / FB_EXPS_S, nbytes / H100_HBM_BYTES_S
+            row.update(bound_ms=max(t_exp, t_bytes) * 1e3,
+                       bound_by="exponentials" if t_exp > t_bytes
+                       else "bytes")
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+        out[f"{R}x{N}x{F}"] = row
+        log(f"fb_gauss {R}x{N}x{F}: {json.dumps(row)}")
+
+    model = serve_model(torch, "dual", "bfloat16")
+    wav = [torch.tensor(rng.uniform(-1, 1, (64, 16000)), dtype=torch.float32,
+                        device="cuda") for _ in range(2)]
+    counts = []
+    for _ in range(2):
+        LAUNCHES.clear()
+        predict(model, *wav)
+        torch.cuda.synchronize()
+        counts.append(LAUNCHES["fb_gauss"])
+    state = stream_init(model, 64)
+    LAUNCHES.clear()
+    for _ in range(3):
+        state = stream_step(model, state, wav[0][:, :842].clone(),
+                            wav[1][:, :842].clone())
+    torch.cuda.synchronize()
+    counts.append(LAUNCHES["fb_gauss"])
+    want = [FB_TIMESTEPS * (1 + WARMUP_STEPS), FB_TIMESTEPS,
+            1 + WARMUP_STEPS + 2]
+    if counts != want:
+        raise RuntimeError(f"fb_gauss launches (predict first / second "
+                           f"call, 3 stream hops): {counts}, not {want}")
+    out["launches_predict_stream"] = counts
+    out["chunk"] = fb_chunks_side_by_side(torch, synth)
+    log(f"fb_gauss chunk before / after: {json.dumps(out['chunk'])}")
     return out
 
 
@@ -3693,6 +3918,7 @@ def main() -> int:
     mark_check = phase_trace_mark(torch)
     synth = training_synth(torch, "bfloat16")
     fused_check = phase_fused_update(torch, synth)
+    fb_check = phase_fb_gauss(torch, synth, rng)
     errs, wtiming = phase_window_kernels(torch, synth)
     launches = {"serve": phase_serve(torch, rng)}
     launches.update(phase_train(torch, synth))
@@ -3754,7 +3980,23 @@ def main() -> int:
                            "counterpart of XLA's fusion of the optax update "
                            "and the telemetry in the jitted train step)",
                     launches=total("fused_update"),
-                    launches_by_path=by_path("fused_update"), **fused_check)]
+                    launches_by_path=by_path("fused_update"), **fused_check),
+               dict(name="fb_gauss", route="cuda",
+                    source="biear_tpu_torch/kernels/fb_gauss.cu",
+                    replaces=None,
+                    status="the port's own: replaces no TPU kernel (the "
+                           "counterpart of XLA's fusion of the adaptive "
+                           "filterbank's Gaussian build into its product)",
+                    launches=total("fb_gauss"),
+                    launches_by_path=by_path("fb_gauss"), **fb_check)]
+    # the filterbank kernel serves every bf16 adaptive forward (19 a
+    # forward, 1 a stream hop) and nothing of AuralNet or the passive family
+    for path, got in by_path("fb_gauss").items():
+        if any(w in path for w in ("auralnet", "passive")) and got:
+            raise RuntimeError(f"fb_gauss launched on {path}")
+        if path in ("serve", "serve_single", "train_bf16",
+                    "train_single_bf16", "stream") and not got:
+            raise RuntimeError(f"fb_gauss never launched on {path}")
     # the optimizer's kernels run on every train path, on no serving,
     # streaming or evaluation path
     for path, got in by_path("fused_update").items():

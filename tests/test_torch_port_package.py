@@ -407,10 +407,11 @@ def test_cpu_tensors_take_the_plain_mix_and_gather_and_count_no_launch(
 def test_kernel_sources_ship_with_the_package():
     """The build reads only repository sources, into a git-ignored dir;
     each source names the TPU kernel it replaces, or (the recorder's
-    mark, the optimizer's fused update) that it replaces none."""
+    mark, the optimizer's fused update, the adaptive filterbank's build
+    and contraction) that it replaces none."""
     from biear_tpu_torch.kernels import build
     assert build.KERNELS == ("cc_lags", "gather_windows", "gather_mix_kb",
-                             "trace_mark", "fused_update")
+                             "trace_mark", "fused_update", "fb_gauss")
     assert build.BUILD_DIR.startswith(PORT)
     assert "sm_90a" in " ".join(build.CUDA_FLAGS)
     gitignore = open(os.path.join(REPO, ".gitignore")).read().split()
@@ -422,7 +423,7 @@ def test_kernel_sources_ship_with_the_package():
         for lib in ("cublas", "cudnn", "cufft", "torch/"):
             assert lib not in src.lower()
         assert ("replaces no tpu kernel"
-                if name in ("trace_mark", "fused_update")
+                if name in ("trace_mark", "fused_update", "fb_gauss")
                 else "replaces the tpu kernel") in src.lower()
         assert 'extern "C"' in src
         assert build.build_dir(name).startswith(build.BUILD_DIR)
@@ -629,6 +630,211 @@ def test_mix_kernel_ragged_shapes_on_card(X, nf, ncol, M, wild):
         want = wg.gather_mix_kb_plain(pool3, rows, offs, meas, kb, nf)
     torch.testing.assert_close(got, want, rtol=0, atol=5e-5)
     assert torch.equal(got, wg.gather_mix_kb(pool3, rows, offs, meas, kb, nf))
+
+
+def _fb_case(R, N=100, F=513, seed=0):
+    """The flagship's fc and f_fft (N = 100, F = 513) or a small odd
+    geometry, Q log-uniform over [q_min, q_max] = [0.05, 30] (bandwidths
+    from far wider than the spectrum to a few bins, so every G from 1 to
+    the subnormals and 0 occurs), and bf16 spectra rows [|X|, re, im, 1]."""
+    from biear_tpu_torch.models import BiEARConfig
+    from biear_tpu_torch.models.frontend import frontend_constants
+    from biear_tpu_torch.ops.filterbank import stack_rhs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    if (N, F) == (100, 513):
+        c = frontend_constants(BiEARConfig())
+        fc, f_fft = (torch.tensor(c[k], device="cuda")
+                     for k in ("fc", "f_fft"))
+    else:
+        fc = torch.sort(torch.rand(N, generator=gen, device="cuda")
+                        * 7000 + 50).values
+        f_fft = torch.linspace(0, 8000, F, device="cuda")
+    Q = torch.exp(torch.rand((R, N), generator=gen, device="cuda")
+                  * float(np.log(600.0))) * 0.05
+    re, im = (torch.randn((R, F), generator=gen, device="cuda")
+              for _ in range(2))
+    return Q, stack_rhs(torch.sqrt(re * re + im * im), re, im, True), fc, f_fft
+
+
+def _fb_sum_bounds(Q, rhs, fc, f_fft):
+    """Per (row, band): the worst-case error of each f32 sum over F terms
+    is at most F u sum_f |term| (u = 2^-24; the plain path's GEMM sums its
+    F terms in one chain, the kernel in chains of at most 9 tensor-core
+    steps), so the kernel and the plain path differ by at most twice that:
+    (bound of out (R, N, 4), bound of T (R, N, 4))."""
+    from biear_tpu_torch.ops.filterbank import _gauss_fast
+
+    _, t, G = _gauss_fast(Q, fc, f_fft)
+    a = rhs.double().abs()
+    bnd = lambda w: (2.0 * w.shape[-1] * 2.0 ** -24
+                     * torch.einsum("rnf,rcf->rnc",
+                                    w.to(torch.bfloat16).double().abs(), a))
+    return bnd(G), bnd(G * (-2.0 * t))
+
+
+def _fb_check(got, want, bounds):
+    """got / want (Y, Zre, Zim, den, finite, bw, T): bw and finite bit for
+    bit; den and T within the sums' bound; Y, Zre, Zim within the bound
+    carried through the division (numerator and den), plus two float32
+    roundings of the quotient."""
+    b_out, b_t = bounds
+    Y, Zre, Zim, den, finite, bw, T = want
+    assert torch.equal(got[4], finite)
+    assert torch.equal(got[5], bw) or (torch.equal(got[5].isnan(),
+                                                   bw.isnan())
+                                       and torch.equal(got[5][~bw.isnan()],
+                                                       bw[~bw.isnan()]))
+    u = 2.0 ** -23
+
+    def close(g, w, lim):
+        nan = w.isnan()
+        assert torch.equal(g.isnan(), nan)
+        assert bool(((g - w).abs().double() <= lim)[~nan].all())
+    close(got[3], den, b_out[..., 3] + u * den.abs())
+    if T is not None:
+        close(got[6], T, b_t + u * T.abs())
+    for k, (g, w) in enumerate(zip(got[:3], (Y, Zre, Zim))):
+        lim = ((b_out[..., k] + w.abs().double() * b_out[..., 3])
+               / den.abs().double() * 1.01 + 2 * u * w.abs().double())
+        close(g, w, torch.where(finite, lim, 0.0))   # Y = 0 where not
+    assert bool((got[0][~finite] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,F", [(1024, 100, 513), (128, 100, 513),
+                                   (1, 100, 513), (3, 7, 33), (5, 20, 48)])
+def test_fb_gauss_kernel_matches_plain_on_card(R, N, F):
+    """fb_gauss.cu against the plain ops on the card at the flagship's
+    training frame (R = 2B = 1,024), the spirit cell's (128), one row and
+    two ragged geometries, with and without T: bw and the finite mask bit
+    for bit, the sums within _fb_sum_bounds; two launches give the same
+    bits; one launch each, counted."""
+    _need_card()
+    from biear_tpu_torch.device import precision_highest
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.ops import filterbank as fb
+
+    Q, rhs, fc, f_fft = _fb_case(R, N, F, seed=R + N + F)
+    bounds = _fb_sum_bounds(Q, rhs, fc, f_fft)
+    LAUNCHES.clear()
+    for with_t in (True, False):
+        with precision_highest():
+            want = fb.gauss_contract_plain(Q, rhs, fc, f_fft, with_t)
+        got = fb.gauss_contract(Q, rhs, fc, f_fft, with_t)
+        _fb_check(got, want, bounds)
+        again = fb.gauss_contract(Q, rhs, fc, f_fft, with_t)
+        for a, b in zip(got, again):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert torch.equal(got[0], again[0])
+    assert LAUNCHES["fb_gauss"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,F", [(1024, 100, 513), (128, 100, 513),
+                                   (3, 7, 33)])
+def test_fb_gauss_bf16_operands_are_the_plain_bits_on_card(R, N, F):
+    """One-hot probes: with rhs channel c = e_f (c < 3) and channel 3 = 0,
+    each sum holds one term, so out_c = bf16(G)[f] and T_c = bf16(Gz2)[f]
+    exactly. den is then 1e-8, and Y, Zre, Zim = out_c / 1e-8 in float32:
+    two different bf16 values give different quotients, so equal quotients
+    are equal bf16 operands. Held bit for bit, at every bin, against the
+    plain path's G.to(bf16) and (G * (-2 t)).to(bf16) on the card."""
+    _need_card()
+    from biear_tpu_torch.ops import filterbank as fb
+
+    Q, _, fc, f_fft = _fb_case(R, N, F, seed=7)
+    _, t, G = fb._gauss_fast(Q, fc, f_fft)
+    Gb = G.to(torch.bfloat16).float()
+    Zb = (G * (-2.0 * t)).to(torch.bfloat16).float()
+    den = torch.full((R, N), 1e-8, dtype=torch.float32, device="cuda")
+    assert bool((Gb > 0).any() and (Gb == 0).any())
+    if R >= 128:                                          # subnormals too
+        assert bool(((Gb > 0) & (Gb < 1.1754944e-38)).any())
+    for f0 in range(0, F, 3):
+        bins = [min(f0 + c, F - 1) for c in range(3)]
+        rhs = torch.zeros((R, 4, F), dtype=torch.bfloat16, device="cuda")
+        for c, f in enumerate(bins):
+            rhs[:, c, f] = 1.0
+        Y, Zre, Zim, d, _, _, T = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+        assert bool((d == den).all())
+        for c, (got, f) in enumerate(zip((Y, Zre, Zim), bins)):
+            assert torch.equal(got, Gb[..., f] / den), (f, c)
+            assert torch.equal(T[..., c], Zb[..., f]), (f, c)
+
+
+@pytest.mark.cuda
+def test_fb_gauss_kernel_edges_on_card():
+    """A NaN row and a NaN entry of Q give Y = 0 and finite False there,
+    the other entries as the plain path; the frontend's strided frame
+    (a view of its (T, 2B, 4, F) stack) gives the bits of a contiguous
+    copy; a stride-0 Q (an expanded Q0) is read in place; a bad shape or
+    type raises."""
+    _need_card()
+    from biear_tpu_torch.device import precision_highest
+    from biear_tpu_torch.ops import filterbank as fb
+
+    Q, rhs, fc, f_fft = _fb_case(64, seed=3)
+    Q[5] = float("nan")
+    Q[9, 17] = float("nan")
+    with precision_highest():
+        want = fb.gauss_contract_plain(Q, rhs, fc, f_fft, True)
+    got = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+    _fb_check(got, want, _fb_sum_bounds(Q, rhs, fc, f_fft))
+    assert not bool(got[4][5].any()) and not bool(got[4][9, 17])
+    assert int((~got[4]).sum()) == 101 and bool((got[0][5] == 0).all())
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    stack = torch.randn((64, 19, 4, 513), generator=gen,
+                        device="cuda").to(torch.bfloat16).transpose(0, 1)
+    Q = _fb_case(64, seed=4)[0]
+    for t in (0, 7, 18):
+        a = fb.gauss_contract(Q, stack[t], fc, f_fft, True)
+        b = fb.gauss_contract(Q, stack[t].contiguous(), fc, f_fft, True)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    q0 = Q[0].expand(64, -1)
+    a = fb.gauss_contract(q0, stack[2], fc, f_fft, False)
+    b = fb.gauss_contract(q0.contiguous(), stack[2], fc, f_fft, False)
+    assert all(torch.equal(x, y) for x, y in zip(a[:6], b[:6]))
+
+    with pytest.raises(ValueError, match="fb_gauss needs"):
+        fb.gauss_contract(Q[:, :99], stack[0], fc, f_fft, True)
+    with pytest.raises(ValueError, match="fb_gauss needs"):
+        fb.gauss_contract(Q, stack[0][:, :3], fc, f_fft, True)
+    with pytest.raises(TypeError, match="bf16"):
+        fb.gauss_contract(Q, stack[0].float(), fc, f_fft, True)
+
+
+@pytest.mark.cuda
+def test_fb_gauss_kernel_in_a_cuda_graph():
+    """Captured in a CUDA graph and replayed: two replays give the same
+    bits, those of an eager launch; the launch counts once per replay."""
+    _need_card()
+    from biear_tpu_torch.kernels import (LAUNCHES, count_replay,
+                                         recording_launches)
+    from biear_tpu_torch.ops import filterbank as fb
+
+    Q, rhs, fc, f_fft = _fb_case(1024, seed=5)
+    eager = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fb.gauss_contract(Q, rhs, fc, f_fft, True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with recording_launches() as rec, torch.cuda.graph(graph):
+        out = fb.gauss_contract(Q, rhs, fc, f_fft, True)
+    assert rec["fb_gauss"] == 1
+    replays = []
+    LAUNCHES.clear()
+    for _ in range(2):
+        graph.replay()
+        count_replay(rec)
+        torch.cuda.synchronize()
+        replays.append([x.clone() for x in out])
+    assert LAUNCHES["fb_gauss"] == 2
+    for a, b, c in zip(eager, *replays):
+        assert torch.equal(a, b) and torch.equal(b, c)
 
 
 @pytest.mark.cuda
