@@ -5,10 +5,10 @@ Each kernel is one ``.cu`` file in this directory with a plain C interface
 ``torch.utils.cpp_extension.load`` compiles it for ``sm_90a`` into its own
 directory ``_build/<name>/`` beside this file (git-ignored; ninja skips an
 unchanged source), and ``ctypes`` binds its C functions. One directory per
-kernel lets ``build_all`` run the six builds (``cc_lags``,
+kernel lets ``build_all`` run the seven builds (``cc_lags``,
 ``gather_windows``, ``gather_mix_kb``, the recorder's ``trace_mark``, the
-optimizer's ``fused_update`` and the adaptive filterbank's ``fb_gauss``)
-at once;
+optimizer's ``fused_update``, the adaptive filterbank's ``fb_gauss`` and
+the dual frontend's reverse recurrence ``frontend_bwd``) at once;
 ``build_all_with_report`` also returns what ``ptxas -v`` said of each
 entry function (registers, spills, shared memory). Nothing is built at
 import time: the CPU tests import every module of the package on a
@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v"]
 KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb", "trace_mark",
-           "fused_update", "fb_gauss")
+           "fused_update", "fb_gauss", "frontend_bwd")
 
 
 def build_dir(name: str) -> str:
@@ -122,6 +122,17 @@ def fb_gauss_lib() -> ctypes.CDLL:
     lib.fb_gauss_launch.argtypes = ([ptr, i32, ptr, i32, i32] + [ptr] * 9
                                     + [i32] * 3 + [ptr])
     lib.fb_gauss_launch.restype = i32
+    return lib
+
+
+@functools.cache
+def frontend_bwd_lib() -> ctypes.CDLL:
+    """The dual frontend's reverse recurrence, one frame a launch
+    (frontend_bwd.cu)."""
+    lib = ctypes.CDLL(build("frontend_bwd"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.frontend_bwd_launch.argtypes = [ptr, i32, ptr, i32, ptr, i32, ptr]
+    lib.frontend_bwd_launch.restype = i32
     return lib
 
 

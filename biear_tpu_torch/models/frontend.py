@@ -17,8 +17,12 @@ Each frame builds the Gaussian filterbank for both ears in one (2B) batch
     so its gradient sums over both ears.
 
 Training (``train=True`` with a generator): the controllers' dropout masks
-for all frames, both ears and both sites are drawn in one call, and the
-filterbank is differentiated by the VJP that ``cfg.fb_vjp`` resolves to:
+for all frames, both ears and both sites are drawn in one call. Under
+the production policy the dual frontend's whole frame loop is one
+autograd node with a hand backward (``models/frontend_bwd.py``: bf16
+operands, the "custom" VJP without spectra gradients, f32 products);
+otherwise the loop of ``frame`` runs under autograd, and the filterbank
+is differentiated by the VJP that ``cfg.fb_vjp`` resolves to:
 the hand backward ``ops.filterbank.FilterbankFn`` ("custom", which saves
 only (B, N)-sized tensors per frame), or plain autograd ("autodiff"),
 which would keep every frame's (2B, N, F) G and its intermediates; there
@@ -51,6 +55,7 @@ from ..ops.erb import erb_spaced_fc_and_q, make_deltaQ_profile
 from ..ops.filterbank import (band_phase, fb_forward, filterbank_apply_rhs,
                               resolve_fb_vjp, stack_rhs)
 from ..ops.framing import frame_1s, frame_params, hann_window_periodic
+from . import frontend_bwd
 from .config import BiEARConfig
 from .layers import GRU, dropout_apply, dropout_masks
 
@@ -163,12 +168,16 @@ class Controller(nn.Module):
                                  drops)
 
 
-def next_q(cfg: BiEARConfig, c: dict, delta: torch.Tensor) -> torch.Tensor:
+def q_unclamped(cfg: BiEARConfig, c: dict,
+                delta: torch.Tensor) -> torch.Tensor:
+    """The next Q from the controller's delta, before the clamp."""
     if cfg.deltaQ_mode.lower() == "relative":
-        Q = c["Q0"][None] * (1.0 + c["deltaQ_vec"][None] * delta)
-    else:
-        Q = c["Q0"][None] + c["deltaQ_vec"][None] * delta
-    return torch.clamp(Q, cfg.q_min, cfg.q_max)
+        return c["Q0"][None] * (1.0 + c["deltaQ_vec"][None] * delta)
+    return c["Q0"][None] + c["deltaQ_vec"][None] * delta
+
+
+def next_q(cfg: BiEARConfig, c: dict, delta: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(q_unclamped(cfg, c, delta), cfg.q_min, cfg.q_max)
 
 
 def finite_reset(Q: torch.Tensor, h: torch.Tensor, Q0: torch.Tensor):
@@ -237,21 +246,30 @@ class _Frontend(nn.Module):
         # (T, 2B, 4, F): both ears batched into every frame's filterbank
         rhs = torch.cat([stack_rhs(*specL, bf16), stack_rhs(*specR, bf16)])
         rhs = rhs.transpose(0, 1)
-        carry = self.init_carry(c, B, wavL.device)
         masks = None
         if train and gen is not None and cfg.ctrl_dropout > 0.0:
             masks = dropout_masks(gen, cfg.ctrl_dropout,
                                   (T, *self.mask_shape(B)))
+        if frontend_bwd.applies(self, rhs):
+            Y, Q, phase = frontend_bwd.recurrence(self, c, rhs, masks)
+        else:
+            Y, Q, phase = self.frame_loop(c, rhs, masks)
+        return Y[0], Y[1], Q[0], Q[1], phase[0], phase[1]
+
+    def frame_loop(self, c: dict, rhs: torch.Tensor, masks=None) -> tuple:
+        """The loop of ``frame`` over rhs (T, 2B, 4, F) with keep-masks
+        (T, ...) or None: (Y, Q, phase), each (2, B, T, N)."""
+        B = rhs.shape[1] // 2
+        carry = self.init_carry(c, B, rhs.device)
         fb = self.filterbank(c)
         Ys, Qs, phases = [], [], []
-        for t in range(T):
+        for t in range(rhs.shape[0]):
             carry, (Y, Q, phase) = self.frame(
                 c, fb, carry, rhs[t], None if masks is None else masks[t])
             Ys.append(Y)
             Qs.append(Q)
             phases.append(phase)
-        Y, Q, phase = (torch.stack(a, dim=2) for a in (Ys, Qs, phases))
-        return Y[0], Y[1], Q[0], Q[1], phase[0], phase[1]
+        return tuple(torch.stack(a, dim=2) for a in (Ys, Qs, phases))
 
     def filterbank(self, c: dict):
         """(Q, rhs) -> (Y, Zre, Zim) for one frame: the plain forward

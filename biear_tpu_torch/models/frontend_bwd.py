@@ -1,0 +1,458 @@
+"""The dual adaptive frontend's frame loop as one autograd Function whose
+backward runs the reverse recurrence explicitly, one launch a frame.
+
+Counterpart of the JAX package's training path through
+``biear_tpu/models/frontend.py``: a ``lax.scan`` over ``adaptive_step``
+whose body and reverse pass XLA fuses (no Pallas kernel exists for it).
+Under autograd, the port's loop of ``DualFrontend.frame`` records some
+200 small ops a frame; here the whole loop is one node.
+
+``applies`` picks it for the production policy only: a ``DualFrontend``
+with adaptive Q (not fixed, not frozen), bf16 filterbank operands, the
+"custom" VJP without spectra gradients ("bf16|noxg"), f32 products (on
+the card: TF32 off and no autocast) and autograd recording. Every other
+combination keeps the loop of ``frame`` under autograd.
+
+Forward (``DualRecurrenceFn.forward``, gradients off): the loop's own ops,
+frame by frame: ``gauss_contract`` with T, ``band_phase``, and per ear the
+controller step of ``adaptive_step``, keeping what the backward reads:
+the GRU cell as its two products and fused cell (whose workspace holds
+r, z, n, h and W_hn h + b_hn), each LayerNorm's input, output, mean and
+1/std, the dropout outputs, tanh's output, Q before the clamp and the
+finite reset's flag. The last frame's controller step feeds nothing and
+is not run. Nothing of size (2B, N, F) is kept.
+
+Backward: for t = T-1 .. 0, ``frame_bwd`` takes the gradients of Q(t+1)
+and h(t+1) back through frame t's controller step (finite reset, clamp,
+next Q, tanh, Linear 8, dropout, SiLU, LayerNorm 5, Linear 4, dropout,
+SiLU, LayerNorm 1, Linear 0, GRU cell), adds the controller's gradient of
+Y(t), through log1p and clamp, to the backend's, runs the band phase's and
+the "bf16|noxg" filterbank's VJP to dQ(t) and adds the Q output's own
+gradient: the carry of frame t-1. It writes each row's activation
+gradients (``GROW``), and after the loop the weight and bias gradients of
+both ears over all (T-1) B rows are five batched f32 products and sums.
+Frame 0's Q is the constant Q0 and h(0) is zero, so frame 0 stops at the
+controller's activation gradients. ``frame_bwd`` is one launch of
+``kernels/frontend_bwd.cu`` (both ears) for CUDA tensors and
+``frame_bwd_plain`` (the same steps in PyTorch ops) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from ..device import precision_highest
+from ..kernels import count_launch
+from ..ops import filterbank
+from ..ops.filterbank import EPS_Q, band_phase, resolve_fb_vjp
+
+# (rows a frame, bands, hidden, GRU inputs, with_ctrl, with_input) of every
+# frontend_bwd.cu launch made or captured in this process, counted (the
+# benchmark's roofline reader takes the kernel's work from here):
+# with_ctrl, the controller step's backward ran (every frame but the
+# last); with_input, the gradients into h(t) and Y(t) and the filterbank's
+# VJP ran (every frame but the first)
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
+
+# the saved tensors of one ear's controller step, each (B, .) but ok ()
+Saved = collections.namedtuple(
+    "Saved", "feat ws hy a1 l1 mu1 rs1 d1 a2 l2 mu2 rs2 d2 delta qraw ok")
+
+# one ear's parameters, in the order the Function takes them
+PARAM_NAMES = ("q_rnn.weight_ih_l0", "q_rnn.weight_hh_l0", "q_rnn.bias_ih_l0",
+               "q_rnn.bias_hh_l0", "q_out.0.weight", "q_out.0.bias",
+               "q_out.1.weight", "q_out.1.bias", "q_out.4.weight",
+               "q_out.4.bias", "q_out.5.weight", "q_out.5.bias",
+               "q_out.8.weight", "q_out.8.bias")
+
+
+def grow_layout(H: int, N: int) -> dict:
+    """Column offsets of a row of activation gradients (``GROW``): the GRU
+    input gates' [r, z, n] and hidden gates' [r, z, r * n] pre-activation
+    gradients (3H each), then Linear 0's output gradient, LayerNorm 1's
+    output gradient and that times x_hat (H each), the same three for
+    Linear 4 and LayerNorm 5, and Linear 8's output gradient (N)."""
+    off = {}
+    at = 0
+    for name, width in (("gi", 3 * H), ("gh", 3 * H), ("a1", H), ("l1", H),
+                        ("lx1", H), ("a2", H), ("l2", H), ("lx2", H),
+                        ("a3", N)):
+        off[name] = (at, at + width)
+        at += width
+    off["width"] = at
+    return off
+
+
+def _f32_products(x: torch.Tensor) -> bool:
+    """Whether the policy's products are plain f32 for `x`: always on the
+    CPU; on the card with TF32 off and no autocast."""
+    if not x.is_cuda:
+        return True
+    return not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32
+                or torch.is_autocast_enabled("cuda"))
+
+
+def applies(front, x: torch.Tensor) -> bool:
+    """Whether `front`'s forward on `x` takes the recurrence Function."""
+    from .frontend import DualFrontend
+
+    cfg = front.cfg
+    return (isinstance(front, DualFrontend) and not cfg.fixed_frontend_q
+            and not cfg.freeze_q and cfg.fb_w_dtype == "bfloat16"
+            and resolve_fb_vjp(cfg.fb_vjp) == "custom"
+            and not cfg.fb_x_grad and torch.is_grad_enabled()
+            and any(p.requires_grad for p in front.parameters())
+            and _f32_products(x))
+
+
+def recurrence(front, c: dict, rhs: torch.Tensor, masks) -> tuple:
+    """The frame loop of `front` (a DualFrontend) through the Function:
+    rhs (T, 2B, 4, F), masks (T, 2, 2, B, H) keep-masks or None ->
+    (Y, Q, phase), each (2, B, T, N)."""
+    params = [p for ctrl in (front.fb_L, front.fb_R)
+              for p in (ctrl.get_parameter(n) for n in PARAM_NAMES)]
+    return DualRecurrenceFn.apply(front, c, rhs, masks, *params)
+
+
+def _gru_step(x, h, w_ih, w_hh, b_ih, b_hh):
+    """torch.gru_cell's ops, with its workspace: (h', ws (B, 5H) = [r, z,
+    n, h, W_hn h + b_hn]). On the card the two products and the fused cell
+    gru_cell runs; on the CPU its composite formula."""
+    if x.is_cuda:
+        return torch.ops.aten._thnn_fused_gru_cell(
+            x.matmul(w_ih.t()), h.matmul(w_hh.t()), h, b_ih, b_hh)
+    ir, iz, inn = F.linear(x, w_ih, b_ih).chunk(3, 1)
+    hr, hz, hn = F.linear(h, w_hh, b_hh).chunk(3, 1)
+    r = torch.sigmoid(hr + ir)
+    z = torch.sigmoid(hz + iz)
+    n = torch.tanh(inn + hn * r)
+    return (h - n) * z + n, torch.cat([r, z, n, h, hn], 1)
+
+
+def _controller_step(cfg, c, p, rate, eps, Q0, h, Y, drops):
+    """One ear's controller step, the ops of ``adaptive_step``: returns
+    (Q', h', Saved)."""
+    from .frontend import q_unclamped
+    from .layers import dropout_apply
+
+    w_ih, w_hh, b_ih, b_hh, w0, b0, g1, be1, w4, b4, g5, be5, w8, b8 = p
+    H = w0.shape[0]
+    Y_ctrl = torch.log1p(torch.clamp(Y, min=0.0))
+    feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl], dim=-1)
+    hy, ws = _gru_step(feat, h, w_ih, w_hh, b_ih, b_hh)
+    a1 = F.linear(hy, w0, b0)
+    l1, mu1, rs1 = torch.native_layer_norm(a1, [H], g1, be1, eps)
+    d1 = F.silu(l1)
+    if drops is not None:
+        d1 = dropout_apply(drops[0], d1, rate)
+    a2 = F.linear(d1, w4, b4)
+    l2, mu2, rs2 = torch.native_layer_norm(a2, [H], g5, be5, eps)
+    d2 = F.silu(l2)
+    if drops is not None:
+        d2 = dropout_apply(drops[1], d2, rate)
+    delta = torch.tanh(F.linear(d2, w8, b8))
+    qraw = q_unclamped(cfg, c, delta)
+    Qc = torch.clamp(qraw, cfg.q_min, cfg.q_max)
+    ok = torch.isfinite(Qc).all()
+    saved = Saved(feat, ws, hy, a1, l1, mu1, rs1, d1, a2, l2, mu2, rs2, d2,
+                  delta, qraw, ok)
+    return (torch.where(ok, Qc, Q0.expand_as(Qc)),
+            torch.where(ok, hy, torch.zeros_like(hy)), saved)
+
+
+class DualRecurrenceFn(torch.autograd.Function):
+    """apply(front, c, rhs, masks, *params) -> (Y, Q, phase), each (2, B,
+    T, N), as ``_Frontend.forward`` stacks them; params are fb_L's then
+    fb_R's, each in PARAM_NAMES' order. rhs gets no gradient ("|noxg"): a
+    zero one if it requires one."""
+
+    @staticmethod
+    def forward(ctx, front, c, rhs, masks, *params):
+        cfg = front.cfg
+        T, B2 = rhs.shape[:2]
+        B, N, H = B2 // 2, cfg.n_bands, cfg.ctrl_hidden
+        ears = (params[:14], params[14:])
+        eps = front.fb_L.q_out[1].eps
+        fc, f_fft, Q0 = c["fc"], c["f_fft"], c["Q0"][None]
+        Q = c["Q0"].expand(2, B, N)
+        h = torch.zeros((2, B, H), device=rhs.device)
+        Ys, Qs, phases, fbs, ctrls = [], [], [], [], []
+        for t in range(T):
+            Qf = Q.reshape(2 * B, -1)
+            Y, Zre, Zim, den, finite, bw, Tm = filterbank.gauss_contract(
+                Qf, rhs[t], fc, f_fft, True)
+            Ys.append(Y.reshape(2, B, -1))
+            Qs.append(Q)
+            phases.append(band_phase(Zre, Zim).reshape(2, B, -1))
+            fbs.append((Qf, bw, Tm, Y, Zre, Zim, den, finite))
+            if t == T - 1:
+                break
+            steps = [_controller_step(
+                cfg, c, ears[e], cfg.ctrl_dropout, eps, Q0, h[e], Ys[-1][e],
+                None if masks is None else masks[t][e]) for e in (0, 1)]
+            Q = torch.stack([s[0] for s in steps])
+            h = torch.stack([s[1] for s in steps])
+            ctrls.append([s[2] for s in steps])
+        ctx.save_for_backward(*params)
+        ctx.front, ctx.c, ctx.masks = front, c, masks
+        ctx.fbs, ctx.ctrls = fbs, ctrls
+        ctx.rhs_meta = (rhs.shape, rhs.dtype, rhs.device)
+        return tuple(torch.stack(a, dim=2) for a in (Ys, Qs, phases))
+
+    @staticmethod
+    def backward(ctx, gY, gQ, gP):
+        params = ctx.saved_tensors
+        front, c = ctx.front, ctx.c
+        T = len(ctx.fbs)
+        st = Statics(front.cfg, c, params, gY.shape[1], T)
+        gY, gQ, gP = (g.contiguous() for g in (gY, gQ, gP))
+        grow = torch.empty((2, max(T - 1, 0), st.B,
+                            grow_layout(st.H, st.N)["width"]),
+                           device=gY.device)
+        carry = (None, None)
+        for t in range(T - 1, -1, -1):
+            ctrl = ctx.ctrls[t] if t < T - 1 else None
+            fbs = ctx.fbs[t] if t > 0 else None
+            keep = None if ctx.masks is None or ctrl is None else ctx.masks[t]
+            carry = frame_bwd(st, t, ctrl, keep, fbs, gY, gQ, gP, carry,
+                              grow)
+        grads = weight_grads(st, grow, ctx.ctrls, params)
+        g_rhs = None
+        if ctx.needs_input_grad[2]:
+            shape, dtype, device = ctx.rhs_meta
+            g_rhs = torch.zeros(shape, dtype=dtype, device=device)
+        return (None, None, g_rhs, None, *grads)
+
+
+class Statics:
+    """What every frame of the backward shares: the shapes, the policy's
+    numbers, the constants and both ears' parameters."""
+
+    def __init__(self, cfg, c, params, B, T):
+        self.B, self.T = B, T
+        self.N, self.H = cfg.n_bands, cfg.ctrl_hidden
+        self.relative = cfg.deltaQ_mode.lower() == "relative"
+        self.q_min, self.q_max = cfg.q_min, cfg.q_max
+        self.rate = cfg.ctrl_dropout
+        self.fc, self.Q0, self.dqv = c["fc"], c["Q0"], c["deltaQ_vec"]
+        self.ears = (params[:14], params[14:])
+
+
+def frame_bwd(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
+    """Frame t of the reverse recurrence (module docstring): ctrl, the two
+    ears' ``Saved`` of frame t's controller step, or None at the last
+    frame; keep, frame t's keep-masks (2, 2, B, H) or None; fbs, frame t's
+    filterbank set (Q, bw, T, Y, Zre, Zim, den, finite), or None at frame
+    0; gY, gQ, gP the outputs' gradients (2, B, T, N); carry, the
+    gradients of Q(t+1) (2, B, N) and h(t+1) (2, B, H), each None where
+    nothing flows; frame t's rows of grow (2, T-1, B, width) are written.
+    Returns the carry of frame t-1: (gradient of Q(t), of h(t))."""
+    if gY.is_cuda:
+        return frame_bwd_cuda(st, t, ctrl, keep, fbs, gY, gQ, gP, carry,
+                              grow)
+    with precision_highest():
+        return frame_bwd_plain(st, t, ctrl, keep, fbs, gY, gQ, gP, carry,
+                               grow)
+
+
+def _act_bwd(g, keep, rate, l):
+    """Through dropout (keep-mask or None) and SiLU of its input l."""
+    if keep is not None:
+        g = torch.where(keep, g / (1.0 - rate), 0.0)
+    s = torch.sigmoid(l)
+    return g * s * (1.0 + l * (1.0 - s))
+
+
+def _ln_bwd(gl, a, mu, rs, gamma):
+    """LayerNorm's input gradient from its output gradient: (ga, x_hat)."""
+    xh = (a - mu) * rs
+    gx = gl * gamma
+    H = a.shape[-1]
+    s1 = gx.sum(-1, keepdim=True)
+    s2 = (gx * xh).sum(-1, keepdim=True)
+    return (rs / H) * (H * gx - xh * s2 - s1), xh
+
+
+def _phase_vjp(g, Zre, Zim, eps_mag: float = 1e-3):
+    """band_phase's VJP, the steps autograd takes: (gZre, gZim)."""
+    s = torch.sqrt(Zre * Zre + Zim * Zim)
+    mag = torch.clamp(s, min=eps_mag)
+    u, v = Zim / mag, Zre / mag
+    recip = (u * u + v * v).reciprocal()
+    gu, gv = g * v * recip, g * -u * recip
+    gmag = -gu * Zim / (mag * mag) + -gv * Zre / (mag * mag)
+    gss = torch.where(s >= eps_mag, gmag, 0.0) / (2.0 * s)
+    return gv / mag + 2.0 * (gss * Zre), gu / mag + 2.0 * (gss * Zim)
+
+
+def _stack(saved, name):
+    return torch.stack([getattr(s, name) for s in saved])
+
+
+def frame_bwd_plain(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
+    """frame_bwd in PyTorch ops, both ears as a leading axis of 2."""
+    B, N, H = st.B, st.N, st.H
+    gq_in, gh_in = carry
+    gyc = gh_prev = None
+    if ctrl is not None:
+        S = {k: _stack(ctrl, k) for k in Saved._fields}
+        W = [torch.stack([p[i] for p in st.ears]) for i in range(14)]
+        ok = S["ok"][:, None, None]
+        gq = torch.where(ok, gq_in, 0.0)
+        gq = torch.where((S["qraw"] >= st.q_min) & (S["qraw"] <= st.q_max),
+                         gq, 0.0)
+        gdelta = (gq * st.Q0 * st.dqv if st.relative else gq * st.dqv)
+        ga3 = gdelta * (1.0 - S["delta"] * S["delta"])
+        k0, k1 = (None, None) if keep is None else (keep[:, 0], keep[:, 1])
+        gl2 = _act_bwd(torch.bmm(ga3, W[12]), k1, st.rate, S["l2"])
+        ga2, xh2 = _ln_bwd(gl2, S["a2"], S["mu2"], S["rs2"], W[10][:, None])
+        gl1 = _act_bwd(torch.bmm(ga2, W[8]), k0, st.rate, S["l1"])
+        ga1, xh1 = _ln_bwd(gl1, S["a1"], S["mu1"], S["rs1"], W[6][:, None])
+        ghy = torch.bmm(ga1, W[4])
+        if gh_in is not None:
+            ghy = ghy + torch.where(ok, gh_in, 0.0)
+        r, z, n, hx, hn = S["ws"].split(H, -1)
+        gig = ghy * (hx - n) * (1 - z) * z
+        ghx = ghy * z
+        gin = ghy * (1 - z) * (1 - n * n)
+        ghn = gin * r
+        grg = gin * hn * (1 - r) * r
+        grow[:, t] = torch.cat([grg, gig, gin, grg, gig, ghn, ga1, gl1,
+                                gl1 * xh1, ga2, gl2, gl2 * xh2, ga3], -1)
+        if t > 0:
+            gh_prev = ghx + torch.bmm(torch.cat([grg, gig, ghn], -1), W[1])
+            gyc = torch.bmm(torch.cat([grg, gig, gin], -1), W[0][:, :, :N])
+    if fbs is None:
+        return None, None
+    Q, bw, Tm, Y, Zre, Zim, den, finite = (
+        x.reshape(2, B, *x.shape[1:]) for x in fbs)
+    gy = gY[:, :, t]
+    if gyc is not None:
+        gy = gy + torch.where(Y >= 0, gyc / (torch.clamp(Y, min=0.0) + 1.0),
+                              0.0)
+    gzre, gzim = _phase_vjp(gP[:, :, t], Zre, Zim)
+    gy = torch.where(finite, gy, 0.0)
+    gden = -(gy * Y + gzre * Zre + gzim * Zim) / den
+    g4 = torch.stack([gy / den, gzre / den, gzim / den, gden], dim=-1)
+    dQ = -st.fc / torch.square(Q + EPS_Q) / bw * torch.sum(g4 * Tm, -1)
+    return dQ + gQ[:, :, t], gh_prev
+
+
+def weight_grads(st, grow, ctrls, params) -> list:
+    """Both ears' parameter gradients, in the Function's order, from the
+    rows of activation gradients and the saved activations: per weight
+    one f32 product batched over ears and frames, then summed over the
+    frames (one product per ear over all (T-1) B rows would give the card
+    two output tiles' worth of blocks, each summing 9,728 rows at the
+    flagship's batch); every bias and LayerNorm parameter from one sum
+    over all rows."""
+    if not ctrls:
+        return [torch.zeros_like(p) for p in params]
+    N, H = st.N, st.H
+    lay = grow_layout(H, N)
+    frames = len(ctrls)
+    G = grow.view(2 * frames, st.B, lay["width"])
+    X = {k: torch.stack([getattr(s[e], k) for e in (0, 1) for s in ctrls])
+         for k in ("feat", "ws", "hy", "d1", "d2")}
+    with precision_highest():
+        def mm(name, x):
+            lo, hi = lay[name]
+            prod = torch.bmm(G[..., lo:hi].transpose(1, 2), x)
+            return prod.view(2, frames, *prod.shape[1:]).sum(1)
+        w_ih = mm("gi", X["feat"])
+        w_hh = mm("gh", X["ws"][..., 3 * H:4 * H])
+        w0, w4, w8 = mm("a1", X["hy"]), mm("a2", X["d1"]), mm("a3", X["d2"])
+    S = G.view(2, frames * st.B, -1).sum(1)
+    col = lambda e, name: S[e, lay[name][0]:lay[name][1]]
+    out = []
+    for e in (0, 1):
+        out += [w_ih[e], w_hh[e], col(e, "gi"), col(e, "gh"), w0[e],
+                col(e, "a1"), col(e, "lx1"), col(e, "l1"), w4[e],
+                col(e, "a2"), col(e, "lx2"), col(e, "l2"), w8[e],
+                col(e, "a3")]
+    return out
+
+
+# ---------------------------------------------------------------- the card
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def row_tile(rows_per_ear: int, sms: int) -> int:
+    """Rows of one ear a block takes: the fewest of 1, 2, 4, 8 that keep
+    both ears' blocks within two a SM of the card's `sms` (8 past that).
+    The launch is bound by the latency of its chain of products, so more
+    resident warps beat fewer reads of the weights from L2 (at the
+    flagship's 512 rows an ear: 4 rows a block, 39 us a frame; 8 rows, 50
+    us)."""
+    for rt in (1, 2, 4, 8):
+        if -(-rows_per_ear // rt) <= sms:
+            return rt
+    return 8
+
+
+def _ptr(x) -> int:
+    return 0 if x is None else x.data_ptr()
+
+
+def frame_bwd_cuda(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
+    """frame_bwd as one launch of ``frontend_bwd.cu`` on the current
+    stream, both ears. Every saved tensor is the contiguous output of the
+    forward's op; weights are the parameters, contiguous. A build or
+    launch failure raises."""
+    from ..kernels.build import check_launch, frontend_bwd_lib
+
+    B, N, H = st.B, st.N, st.H
+    T = st.T
+    dev = gY.device
+    gq_in, gh_in = carry
+    with_ctrl, with_input = ctrl is not None, fbs is not None
+    ears = []
+    for e in (0, 1):
+        p = st.ears[e]
+        w = [p[0], p[1], p[4], p[8], p[12], p[6], p[10]]
+        s = ctrl[e] if with_ctrl else None
+        sv = ([s.ws, s.a1, s.l1, s.mu1, s.rs1, s.a2, s.l2, s.mu2, s.rs2,
+               s.delta, s.qraw, s.ok] if with_ctrl else [None] * 12)
+        k = ([keep[e, 0], keep[e, 1]] if with_ctrl and keep is not None
+             else [None, None])
+        ears.append(w + sv + k)
+    fb = list(fbs) if with_input else [None] * 8
+    tensors = [x for ear in ears for x in ear] + fb + [gY, gQ, gP]
+    for x in tensors:
+        if x is not None and not (x.is_cuda and x.device == dev
+                                  and x.is_contiguous()):
+            raise ValueError("frontend_bwd needs contiguous tensors on one "
+                             "CUDA device")
+    if grow.dtype != torch.float32 or not grow.is_contiguous():
+        raise ValueError("frontend_bwd needs a contiguous float32 grow")
+    gq_out = torch.empty((2, B, N), device=dev) if with_input else None
+    gh_out = (torch.empty((2, B, H), device=dev)
+              if with_input and with_ctrl else None)
+    ptrs = [_ptr(x) for x in tensors] + [
+        _ptr(gq_in), _ptr(gh_in), _ptr(gq_out), _ptr(gh_out), _ptr(grow),
+        _ptr(st.fc), _ptr(st.Q0), _ptr(st.dqv)]
+    n_in = st.ears[0][0].shape[1]
+    rt = row_tile(B, _sm_count(dev.index if dev.index is not None
+                               else torch.cuda.current_device()))
+    ints = [B, N, H, n_in, t, T, int(with_ctrl), int(with_input),
+            int(st.relative), rt]
+    floats = [st.q_min, st.q_max, 1.0 - st.rate]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = frontend_bwd_lib().frontend_bwd_launch(
+            (ctypes.c_uint64 * len(ptrs))(*ptrs), len(ptrs),
+            (ctypes.c_int * len(ints))(*ints), len(ints),
+            (ctypes.c_float * len(floats))(*floats), len(floats), stream)
+    check_launch(err, "frontend_bwd")
+    count_launch("frontend_bwd")
+    LAUNCH_SHAPES[(2 * B, N, H, n_in, with_ctrl, with_input)] += 1
+    return gq_out, gh_out

@@ -410,6 +410,17 @@ FB_SHAPES = ((1024, 100, 513), (128, 100, 513), (1, 100, 513), (3, 7, 33))
 FB_SUM_BOUND = 2.0
 FB_EXPS_S = 132 * 16 * 1.98e9
 FB_TIMESTEPS = 19             # frames, so launches, per adaptive forward
+# phase 3: the dual frontend's reverse recurrence (frontend_bwd.cu) against
+# its plain version at the flagship's frame (B = 512: 1,024 rows) and the
+# spirit cell's (B = 64: 128 rows): every frame's launch against
+# frame_bwd_plain on the same inputs (the norm of each output's
+# difference over the plain one's, within FBWD_REL); one mid-frame launch
+# timed replayed from a CUDA graph beside the plain frame and its bound,
+# the data-gradient multiply-adds at FBWD_FMA_S (one f32 FMA a lane a
+# clock, 128 on each of 132 SMs at 1,980 MHz) or its bytes at the HBM rate
+FBWD_BATCHES = (512, 64)
+FBWD_REL = 2e-5
+FBWD_FMA_S = 132 * 128 * 1.98e9
 
 
 _START = time.perf_counter()
@@ -957,6 +968,134 @@ def phase_fb_gauss(torch, synth, rng) -> dict:
     out["launches_predict_stream"] = counts
     out["chunk"] = fb_chunks_side_by_side(torch, synth)
     log(f"fb_gauss chunk before / after: {json.dumps(out['chunk'])}")
+    return out
+
+
+class _FnCtx:
+    """A stand-in for autograd's ctx: runs a Function's forward and
+    backward by hand."""
+    needs_input_grad = (False,) * 40
+
+    def save_for_backward(self, *t):
+        self.saved_tensors = t
+
+
+def fbwd_frame_counts(B: int, N: int, H: int) -> tuple:
+    """(multiply-adds, bytes) of one full frame of frontend_bwd.cu over
+    both ears' 2B rows: N H + 2 H^2 + 3 H (H + N) multiply-adds a row; per
+    row the saved tensors (9 H + 4 + 3 N), the activation gradients and
+    the gradient of h written (13 H + N), the filterbank's set, the
+    outputs' gradients and the gradient of Q (14 N, float32) and the
+    finite mask (N bytes); each ear's weights once."""
+    rows = 2 * B
+    macs = rows * (N * H + 2 * H * H + 3 * H * (H + N))
+    floats = 9 * H + 4 + 3 * N + 13 * H + N + 14 * N
+    weights = N * H + 2 * H * H + 2 * H + 3 * H * (H + N)
+    return macs, 4.0 * rows * floats + rows * N + 8.0 * weights
+
+
+def phase_frontend_bwd(torch) -> dict:
+    """Hold frontend_bwd.cu against frame_bwd_plain, frame by frame, on
+    the saved tensors of a real forward (the flagship's widths, seeded
+    controllers moved off their zero output layer, dropout on) at
+    FBWD_BATCHES; two backwards give the same bits; 19 launches a
+    backward; time one mid-frame launch and the plain frame in a CUDA
+    graph beside the bound, and the whole backward (19 launches and the
+    weight gradients) and its device kernels."""
+    import copy
+    from biear_tpu_torch.device import precision_highest
+    from biear_tpu_torch.kernels import LAUNCHES
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.models import frontend as fe
+    from biear_tpu_torch.models import frontend_bwd as fbw
+    from biear_tpu_torch.models.layers import dropout_masks
+    from biear_tpu_torch.ops.filterbank import stack_rhs
+    from biear_tpu_torch.serve.profile_serve import device_profile
+
+    cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative",
+                      deltaQ_base=1.0, deltaQ_low_factor=0.3,
+                      deltaQ_high_factor=5.0, fb_w_dtype="bfloat16")
+    N, H, T = cfg.n_bands, cfg.ctrl_hidden, cfg.timesteps
+    out = {}
+    for B in FBWD_BATCHES:
+        model = build_active(cfg, seed=B)
+        perturb_controllers(torch, model, B)
+        front = model.bifb
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        wav = torch.rand((2, B, cfg.fs), generator=gen, device="cuda") * 2 - 1
+        c = fe.device_constants(cfg, "cuda")
+        sL, sR = (fe.spectra(cfg, w, c) for w in wav)
+        rhs = torch.cat([stack_rhs(*sL, True),
+                         stack_rhs(*sR, True)]).transpose(0, 1)
+        masks = dropout_masks(gen, cfg.ctrl_dropout, (T, 2, 2, B, H))
+        params = [p for ctrl in (front.fb_L, front.fb_R)
+                  for p in (ctrl.get_parameter(n) for n in fbw.PARAM_NAMES)]
+        ctx = _FnCtx()
+        with torch.no_grad():
+            outs = fbw.DualRecurrenceFn.forward(ctx, front, c, rhs, masks,
+                                                *params)
+        cot = [torch.randn(o.shape, generator=gen, device="cuda")
+               for o in outs]
+        worst = {}
+        real = fbw.frame_bwd_cuda
+
+        def both(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
+            g2 = grow.clone()
+            got = real(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow)
+            with precision_highest():
+                want = fbw.frame_bwd_plain(st, t, ctrl, keep, fbs, gY, gQ,
+                                           gP, carry, g2)
+            pairs = list(zip(("gq", "gh"), got, want))
+            if ctrl is not None:
+                pairs.append(("grow", grow[:, t], g2[:, t]))
+            for k, a, b in pairs:
+                if (a is None) != (b is None):
+                    raise RuntimeError(f"frontend_bwd frame {t}: {k}")
+                if a is not None:
+                    worst[k] = max(worst.get(k, 0.0), float(
+                        (a - b).norm() / b.norm().clamp_min(1e-30)))
+            return got
+        LAUNCHES.clear()
+        fbw.frame_bwd_cuda = both
+        try:
+            grads = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        finally:
+            fbw.frame_bwd_cuda = real
+        if LAUNCHES["frontend_bwd"] != T or not max(worst.values()) <= \
+                FBWD_REL:
+            raise RuntimeError(f"frontend_bwd B={B}: {worst}, "
+                               f"{LAUNCHES['frontend_bwd']} launches")
+        again = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        if not all(torch.equal(a, b) for a, b in zip(grads[4:], again[4:])):
+            raise RuntimeError(f"frontend_bwd B={B}: two backwards differ")
+        st = fbw.Statics(cfg, c, ctx.saved_tensors, B, T)
+        t = T // 2
+        grow = torch.empty((2, T - 1, B, fbw.grow_layout(H, N)["width"]),
+                           device="cuda")
+        carry = (torch.randn((2, B, N), generator=gen, device="cuda"),
+                 torch.randn((2, B, H), generator=gen, device="cuda"))
+        args = (st, t, ctx.ctrls[t], masks[t], ctx.fbs[t],
+                *[x.contiguous() for x in cot], carry, grow)
+        row = {"share_of_rel_limit": max(worst.values()) / FBWD_REL,
+               "worst_rel": worst}
+        row["ms"] = graph_ms(torch, lambda: real(*args))
+        with precision_highest():
+            row["plain_ms"] = graph_ms(
+                torch, lambda: fbw.frame_bwd_plain(*args))
+            row["plain_kernels_per_call"] = device_profile(
+                lambda: fbw.frame_bwd_plain(*args),
+                calls=3)["kernels_per_call"]
+        macs, nbytes = fbwd_frame_counts(B, N, H)
+        t_op, t_bytes = macs / FBWD_FMA_S, nbytes / H100_HBM_BYTES_S
+        row.update(bound_ms=max(t_op, t_bytes) * 1e3,
+                   bound_by="multiply-adds" if t_op > t_bytes else "bytes")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        whole = lambda: fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        row["backward_ms"] = graph_ms(torch, whole)
+        row["backward_kernels"] = device_profile(
+            whole, calls=3)["kernels_per_call"]
+        out[f"{2 * B}x{N}x{H}"] = row
+        log(f"frontend_bwd {2 * B}x{N}x{H}: {json.dumps(row)}")
     return out
 
 
@@ -3919,6 +4058,7 @@ def main() -> int:
     synth = training_synth(torch, "bfloat16")
     fused_check = phase_fused_update(torch, synth)
     fb_check = phase_fb_gauss(torch, synth, rng)
+    fbwd_check = phase_frontend_bwd(torch)
     errs, wtiming = phase_window_kernels(torch, synth)
     launches = {"serve": phase_serve(torch, rng)}
     launches.update(phase_train(torch, synth))
@@ -3988,7 +4128,28 @@ def main() -> int:
                            "counterpart of XLA's fusion of the adaptive "
                            "filterbank's Gaussian build into its product)",
                     launches=total("fb_gauss"),
-                    launches_by_path=by_path("fb_gauss"), **fb_check)]
+                    launches_by_path=by_path("fb_gauss"), **fb_check),
+               dict(name="frontend_bwd", route="cuda",
+                    source="biear_tpu_torch/kernels/frontend_bwd.cu",
+                    replaces=None,
+                    status="the port's own: replaces no TPU kernel (the "
+                           "counterpart of XLA's fusion of the dual "
+                           "frontend's scan and its reverse pass)",
+                    launches=total("frontend_bwd"),
+                    launches_by_path=by_path("frontend_bwd"), **fbwd_check)]
+    # the reverse recurrence runs on the dual frontend's bf16 training
+    # paths only: 19 a step, none under f32, the single controller,
+    # AuralNet, the passive family or any path without a backward
+    from biear_tpu_torch.graph import WARMUP_STEPS
+    for path, got in by_path("frontend_bwd").items():
+        if any(w in path for w in ("auralnet", "passive", "f32", "single",
+                                   "serve", "stream", "eval", "infer",
+                                   "predict", "scoring")) and got:
+            raise RuntimeError(f"frontend_bwd launched on {path}")
+        if path == "train_bf16" and got != \
+                FB_TIMESTEPS * (TRAIN_STEPS + WARMUP_STEPS):
+            raise RuntimeError(f"frontend_bwd launched {got} times on "
+                               f"{path}")
     # the filterbank kernel serves every bf16 adaptive forward (19 a
     # forward, 1 a stream hop) and nothing of AuralNet or the passive family
     for path, got in by_path("fb_gauss").items():

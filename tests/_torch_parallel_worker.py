@@ -99,7 +99,7 @@ def _model(family: str, cfg_kw: dict, weights: str):
     from biear_tpu_torch.models import (ActiveBiEAR, AuralNet, BiEARConfig,
                                         PassiveBiEAR)
     cls = {"active": ActiveBiEAR, "passive": PassiveBiEAR,
-           "auralnet": AuralNet}[family]
+           "auralnet": AuralNet}[family.split("-")[0]]
     model = cls(BiEARConfig(**cfg_kw))
     model.load_state_dict(torch.load(weights, weights_only=True),
                           strict=True)

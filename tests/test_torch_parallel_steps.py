@@ -43,8 +43,12 @@ SMALL = dict(fs=1600, timesteps=3, n_fft=256, n_bands=16, fmin=50.0,
              ctrl_dropout=0.0, backend_dropout=0.0)
 ATTN = dict(d_model=32, attn_heads=4, attn_layers=2, attn_dropout=0.0,
             fixed_frontend_q=True)
+# "active-bf16": the production policy, whose dual frontend trains
+# through the recurrence Function (models/frontend_bwd.py)
 FAMILIES = {"active": (ActiveBiEAR, SMALL), "passive": (PassiveBiEAR, SMALL),
-            "auralnet": (AuralNet, dict(SMALL, **ATTN))}
+            "auralnet": (AuralNet, dict(SMALL, **ATTN)),
+            "active-bf16": (ActiveBiEAR, dict(SMALL,
+                                              fb_w_dtype="bfloat16"))}
 B, STEPS = 8, 3
 LOSS_RTOL, PARAM_TOL, UPDATE_TOL, NORM_RTOL = 2e-4, 3e-3, 1e-2, 1e-4
 WEIGHTS = (np.ones(B), np.r_[np.ones(6), np.zeros(2)],
@@ -121,7 +125,7 @@ def runs(tmp_path_factory):
                            "init": init, "norms": norms, "last": last}
             for n, meshes in MESHES.items():
                 for mesh in meshes:
-                    if mesh == [1, 2] and family != "active":
+                    if mesh == [1, 2] and not family.startswith("active"):
                         continue
                     cases[n].append(dict(
                         name=f"{family}-{mesh[0]}x{mesh[1]}", family=family,
@@ -148,7 +152,8 @@ def runs(tmp_path_factory):
 
 CASES = [("active", "2x1", 2), ("passive", "2x1", 2), ("auralnet", "2x1", 2),
          ("active", "1x2", 2), ("active", "2x2", 4), ("passive", "2x2", 4),
-         ("auralnet", "2x2", 4)]
+         ("auralnet", "2x2", 4), ("active-bf16", "2x1", 2),
+         ("active-bf16", "1x2", 2), ("active-bf16", "2x2", 4)]
 
 
 @pytest.mark.parametrize("family,mesh,n", CASES,

@@ -132,7 +132,10 @@ def hand_flops_per_utt(cfg) -> int:
       * controllers, both ears, every frame: the GRU cell (2N -> 3H,
         H -> 3H), q_out (H -> H twice, H -> N); backward on frames 0..T-2
         (the last frame's new Q is never used), input products from frame
-        1 on (frame 0's Y and state are constants);
+        1 on (frame 0's Y and state are constants). Under the bf16 policy
+        the recurrence Function (models/frontend_bwd.py) runs no forward
+        step on the last frame, and its GRU input product reaches only
+        the N inputs that take a gradient (the memory half is detached);
       * encoders x2: GRU N -> 200 and 200 -> L over T frames (input
         products on all frames at once; the state products' input
         gradient on frames 1..T-1);
@@ -150,8 +153,12 @@ def hand_flops_per_utt(cfg) -> int:
     fb = (2 * T if cfg.fb_w_dtype == "bfloat16" else 2 * T - 1) * fb_dot
     cell = lin(2 * N, 3 * H) + lin(H, 3 * H)
     head = 2 * lin(H, H) + lin(H, N)
-    ctrl = 2 * (T * (cell + head) + (T - 1) * (cell + 2 * head)
-                + (T - 2) * cell)
+    if cfg.fb_w_dtype == "bfloat16":
+        ctrl = 2 * ((T - 1) * (cell + head) + (T - 1) * (cell + 2 * head)
+                    + (T - 2) * (lin(N, 3 * H) + lin(H, 3 * H)))
+    else:
+        ctrl = 2 * (T * (cell + head) + (T - 1) * (cell + 2 * head)
+                    + (T - 2) * cell)
 
     def gru(i, h):
         return T * 3 * lin(i, 3 * h) + 2 * T * lin(h, 3 * h) \

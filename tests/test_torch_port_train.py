@@ -351,13 +351,19 @@ def _jax_trajectory(cfg_j, params, hp, batches):
     return losses, params
 
 
-@pytest.mark.parametrize("controller_mode,fb_vjp", [
-    ("dual", "autodiff"), ("dual", "custom"), ("single", "autodiff"),
-    ("single", "custom")],
-    ids=["autodiff", "custom", "single-autodiff", "single-custom"])
-def test_three_step_trajectory_matches_jax(controller_mode, fb_vjp):
+@pytest.mark.parametrize("controller_mode,fb_vjp,fb_w_dtype", [
+    ("dual", "autodiff", "float32"), ("dual", "custom", "float32"),
+    ("single", "autodiff", "float32"), ("single", "custom", "float32"),
+    ("dual", "custom", "bfloat16")],
+    ids=["autodiff", "custom", "single-autodiff", "single-custom",
+         "custom-bf16-noxg"])
+def test_three_step_trajectory_matches_jax(controller_mode, fb_vjp,
+                                           fb_w_dtype):
+    """Three steps against JAX's; "custom-bf16-noxg" is the production
+    policy (bf16 filterbank operands, no spectra gradient), whose dual
+    frontend trains through models/frontend_bwd.py's recurrence."""
     kw = dict(TINY, ctrl_dropout=0.0, backend_dropout=0.0, fb_vjp=fb_vjp,
-              controller_mode=controller_mode)
+              controller_mode=controller_mode, fb_w_dtype=fb_w_dtype)
     cfg_j, params, model = _pair(kw, seed=0)
     rng = np.random.default_rng(10)
     batches = [_batch(rng, cfg_j) for _ in range(3)]
