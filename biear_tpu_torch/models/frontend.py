@@ -2,12 +2,15 @@
 fixed-Q path.
 
 Counterpart of ``biear_tpu/models/frontend.py``. All T frames are framed
-and transformed at once; only the Q feedback loop runs frame by frame, in
-``forward``'s loop over the frontend's ``frame`` method, which streaming
-(``serve/streaming.py``) calls on one frame at a time, as the JAX
-package's scan bodies ``adaptive_step`` and ``single_step`` serve both.
-Each frame builds the Gaussian filterbank for both ears in one (2B) batch
-(at batch 512 one frame's G for both ears is ~210 MB in f32).
+and transformed at once; only the Q feedback loop runs frame by frame.
+A frame is the frontend's ``filter`` (both ears' filterbank with the
+carry's Q, and the band phase) then its ``step`` (the controller step of
+``models/controller.py``, written once, for the next frame's Q).
+``frame_loop`` runs them over the T frames, and ``frame``, one hop of
+streaming (``serve/streaming.py``), runs both once, as the JAX package's
+scan bodies ``adaptive_step`` and ``single_step`` serve both. Each frame
+builds the Gaussian filterbank for both ears in one (2B) batch (at batch
+512 one frame's G for both ears is ~210 MB in f32).
 
   * ``DualFrontend``: two independent per-ear controllers (``fb_L``,
     ``fb_R``) on [Y_ctrl, memory] (2N inputs each).
@@ -18,17 +21,17 @@ Each frame builds the Gaussian filterbank for both ears in one (2B) batch
 
 Training (``train=True`` with a generator): the controllers' dropout masks
 for all frames, both ears and both sites are drawn in one call. Under
-the production policy the dual frontend's whole frame loop is one
-autograd node with a hand backward (``models/frontend_bwd.py``: bf16
-operands, the "custom" VJP without spectra gradients, f32 products);
-otherwise the loop of ``frame`` runs under autograd, and the filterbank
-is differentiated by the VJP that ``cfg.fb_vjp`` resolves to:
-the hand backward ``ops.filterbank.FilterbankFn`` ("custom", which saves
-only (B, N)-sized tensors per frame), or plain autograd ("autodiff"),
-which would keep every frame's (2B, N, F) G and its intermediates; there
-the filterbank call is recomputed in the backward
-(``torch.utils.checkpoint``), as the JAX package rematerialises its scan
-step (``cfg.remat_frontend``).
+the production policy (``DualFrontend.hand_backward``) the dual
+frontend's whole ``frame_loop`` is one autograd node with a hand backward
+(``models/frontend_bwd.py``: bf16 operands, the "custom" VJP without
+spectra gradients, f32 products); otherwise ``frame_loop`` runs under
+autograd, and the filterbank is differentiated by the VJP that
+``cfg.fb_vjp`` resolves to: the hand backward
+``ops.filterbank.FilterbankFn`` ("custom", which saves only (B, N)-sized
+tensors per frame), or plain autograd ("autodiff"), which would keep
+every frame's (2B, N, F) G and its intermediates; there the filterbank
+call is recomputed in the backward (``torch.utils.checkpoint``), as the
+JAX package rematerialises its scan step (``cfg.remat_frontend``).
 
 Quirks of the reference kept exactly:
   * dual: the Y-memory input is 0.2 * log1p(max(Y, 0)) of the CURRENT
@@ -57,7 +60,9 @@ from ..ops.filterbank import (band_phase, fb_forward, filterbank_apply_rhs,
 from ..ops.framing import frame_1s, frame_params, hann_window_periodic
 from . import frontend_bwd
 from .config import BiEARConfig
-from .layers import GRU, dropout_apply, dropout_masks
+from .controller import (Controller, controller_params, controller_step,
+                         make_q_out)
+from .layers import GRU, dropout_masks
 
 
 @functools.lru_cache(maxsize=None)
@@ -127,77 +132,6 @@ def spectra(cfg: BiEARConfig, wav: torch.Tensor, c: dict):
     return frame_spectra(cfg, frames, c)
 
 
-def make_q_out(cfg: BiEARConfig) -> nn.Sequential:
-    """[Linear, LN, SiLU, Dropout] x2 and Linear(H -> N); indices 0, 1, 4,
-    5, 8 are the reference's."""
-    H = cfg.ctrl_hidden
-    return nn.Sequential(
-        nn.Linear(H, H), nn.LayerNorm(H), nn.SiLU(),
-        nn.Dropout(cfg.ctrl_dropout),
-        nn.Linear(H, H), nn.LayerNorm(H), nn.SiLU(),
-        nn.Dropout(cfg.ctrl_dropout),
-        nn.Linear(H, cfg.n_bands))
-
-
-def controller_update(q_rnn: GRU, q_out: nn.Sequential, rate: float,
-                      h: torch.Tensor, feat: torch.Tensor, drops=None):
-    """One controller update: returns (delta in [-1, 1], new hidden).
-    drops: the keep-masks (2, B, H) of the two dropout sites, or None for
-    none (the nn.Dropout modules at indices 3 and 7 are never called)."""
-    h = q_rnn.step(feat, h)
-    z = q_out[2](q_out[1](q_out[0](h)))
-    if drops is not None:
-        z = dropout_apply(drops[0], z, rate)
-    z = q_out[6](q_out[5](q_out[4](z)))
-    if drops is not None:
-        z = dropout_apply(drops[1], z, rate)
-    return torch.tanh(q_out[8](z)), h
-
-
-class Controller(nn.Module):
-    """Q-controller: GRU(n_in -> H) and ``make_q_out``."""
-
-    def __init__(self, cfg: BiEARConfig, n_in: int):
-        super().__init__()
-        self.rate = cfg.ctrl_dropout
-        self.q_rnn = GRU(n_in, cfg.ctrl_hidden)
-        self.q_out = make_q_out(cfg)
-
-    def forward(self, h: torch.Tensor, feat: torch.Tensor, drops=None):
-        return controller_update(self.q_rnn, self.q_out, self.rate, h, feat,
-                                 drops)
-
-
-def q_unclamped(cfg: BiEARConfig, c: dict,
-                delta: torch.Tensor) -> torch.Tensor:
-    """The next Q from the controller's delta, before the clamp."""
-    if cfg.deltaQ_mode.lower() == "relative":
-        return c["Q0"][None] * (1.0 + c["deltaQ_vec"][None] * delta)
-    return c["Q0"][None] + c["deltaQ_vec"][None] * delta
-
-
-def next_q(cfg: BiEARConfig, c: dict, delta: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(q_unclamped(cfg, c, delta), cfg.q_min, cfg.q_max)
-
-
-def finite_reset(Q: torch.Tensor, h: torch.Tensor, Q0: torch.Tensor):
-    """If any Q entry is nonfinite, reset Q to Q0 and h to zeros, for the
-    whole batch; decided on the device (no .item())."""
-    ok = torch.isfinite(Q).all()
-    return (torch.where(ok, Q, Q0.expand_as(Q)),
-            torch.where(ok, h, torch.zeros_like(h)))
-
-
-def adaptive_step(ctrl: Controller, cfg: BiEARConfig, c: dict, Q, h, Y,
-                  drops=None):
-    """Controller half of one dual-mode frame for one ear, from its band
-    energy Y."""
-    Y_ctrl = torch.log1p(torch.clamp(Y, min=0.0))
-    feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl.detach()], dim=-1)
-    delta, h = ctrl(h, feat, drops)
-    return finite_reset(next_q(cfg, c, delta), h, c["Q0"][None])
-
-
 def fixed_forward(cfg: BiEARConfig, c: dict, Xmag, Xre, Xim):
     """Fixed-Q filterbank over the whole spectrogram with the precomputed
     clamped-Q0 matrix, under the same f32/bf16 operand policy (f32 sums,
@@ -218,8 +152,8 @@ def fixed_forward(cfg: BiEARConfig, c: dict, Xmag, Xre, Xim):
 class _Frontend(nn.Module):
     """Spectra, the fixed-Q path and the frame loop shared by both
     adaptive frontends. A subclass defines ``init_carry``, ``mask_shape``,
-    ``controllers`` and ``frame``; ``STREAM_AXIS`` is the batch axis of
-    its carry."""
+    ``controllers``, ``filter`` and ``step``; ``STREAM_AXIS`` is the batch
+    axis of its carry."""
 
     STREAM_AXIS = 0
 
@@ -250,26 +184,41 @@ class _Frontend(nn.Module):
         if train and gen is not None and cfg.ctrl_dropout > 0.0:
             masks = dropout_masks(gen, cfg.ctrl_dropout,
                                   (T, *self.mask_shape(B)))
-        if frontend_bwd.applies(self, rhs):
-            Y, Q, phase = frontend_bwd.recurrence(self, c, rhs, masks)
-        else:
-            Y, Q, phase = self.frame_loop(c, rhs, masks)
+        Y, Q, phase = self.frames(c, rhs, masks)
         return Y[0], Y[1], Q[0], Q[1], phase[0], phase[1]
 
-    def frame_loop(self, c: dict, rhs: torch.Tensor, masks=None) -> tuple:
-        """The loop of ``frame`` over rhs (T, 2B, 4, F) with keep-masks
-        (T, ...) or None: (Y, Q, phase), each (2, B, T, N)."""
-        B = rhs.shape[1] // 2
+    def frames(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
+        """The frame loop as forward runs it: ``frame_loop``."""
+        return self.frame_loop(c, rhs, masks)
+
+    def frame_loop(self, c: dict, rhs: torch.Tensor, masks=None, fb=None,
+                   sink: list | None = None) -> tuple:
+        """The loop of ``frame``'s two halves, ``filter`` and ``step``,
+        over rhs (T, 2B, 4, F) with keep-masks (T, ...) or None: (Y, Q,
+        phase), each (2, B, T, N). The last frame's controller step is
+        not run: nothing reads its carry. fb:
+        the filterbank, ``filterbank(c)`` if None; sink: a list that gets
+        what each controller step saved (``step``)."""
+        T, B = rhs.shape[0], rhs.shape[1] // 2
         carry = self.init_carry(c, B, rhs.device)
-        fb = self.filterbank(c)
-        Ys, Qs, phases = [], [], []
-        for t in range(rhs.shape[0]):
-            carry, (Y, Q, phase) = self.frame(
-                c, fb, carry, rhs[t], None if masks is None else masks[t])
-            Ys.append(Y)
-            Qs.append(Q)
-            phases.append(phase)
-        return tuple(torch.stack(a, dim=2) for a in (Ys, Qs, phases))
+        fb = fb or self.filterbank(c)
+        outs = []
+        for t in range(T):
+            outs.append(self.filter(fb, carry, rhs[t]))
+            if t == T - 1:
+                break
+            carry, saved = self.step(c, carry, outs[-1][0],
+                                     None if masks is None else masks[t])
+            if sink is not None:
+                sink.append(saved)
+        return tuple(torch.stack(a, dim=2) for a in zip(*outs))
+
+    def frame(self, c: dict, fb, carry: tuple, rhs: torch.Tensor,
+              drops=None):
+        """One frame, both ears: rhs (2B, 4, F) -> (carry', (Y, Q, phase)),
+        each output (2, B, N), Q the one this frame was filtered with."""
+        out = self.filter(fb, carry, rhs)
+        return self.step(c, carry, out[0], drops)[0], out
 
     def filterbank(self, c: dict):
         """(Q, rhs) -> (Y, Zre, Zim) for one frame: the plain forward
@@ -314,24 +263,57 @@ class DualFrontend(_Frontend):
         """Per frame: [ear, site] -> (B, H)."""
         return (2, 2, B, self.cfg.ctrl_hidden)
 
-    def frame(self, c: dict, fb, carry: tuple, rhs: torch.Tensor,
-              drops=None):
-        """One frame, both ears: rhs (2B, 4, F) -> (carry', (Y, Q, phase)),
-        each output (2, B, N), Q the one this frame was filtered with."""
+    def hand_backward(self, x: torch.Tensor) -> bool:
+        """Whether the frame loop on `x` runs as ``DualRecurrenceFn`` (one
+        autograd node, the hand reverse recurrence): adaptive Q (not
+        frozen), bf16 filterbank operands, the "custom" VJP without
+        spectra gradients ("bf16|noxg"), f32 products and autograd
+        recording."""
         cfg = self.cfg
-        Q, h = carry
+        return (not cfg.freeze_q and cfg.fb_w_dtype == "bfloat16"
+                and resolve_fb_vjp(cfg.fb_vjp) == "custom"
+                and not cfg.fb_x_grad and torch.is_grad_enabled()
+                and any(p.requires_grad for p in self.parameters())
+                and frontend_bwd.f32_products(x))
+
+    def frames(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
+        if self.hand_backward(rhs):
+            return self.recurrence(c, rhs, masks)
+        return self.frame_loop(c, rhs, masks)
+
+    def recurrence(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
+        """``frame_loop`` through ``DualRecurrenceFn``: rhs (T, 2B, 4, F),
+        masks (T, 2, 2, B, H) keep-masks or None -> (Y, Q, phase), each
+        (2, B, T, N)."""
+        params = [p for ctrl in self.controllers()
+                  for p in controller_params(ctrl)]
+        return frontend_bwd.DualRecurrenceFn.apply(self, c, rhs, masks,
+                                                   *params)
+
+    def filter(self, fb, carry: tuple, rhs: torch.Tensor) -> tuple:
+        """Both ears through one (2B) filterbank call with the carry's Q:
+        (Y, Q, phase), each (2, B, N)."""
+        Q = carry[0]
         B = Q.shape[1]
         Y, Zre, Zim = fb(Q.reshape(2 * B, -1), rhs)
-        Y = Y.reshape(2, B, -1)
-        out = (Y, Q, band_phase(Zre, Zim).reshape(2, B, -1))
-        if cfg.freeze_q:
-            return carry, out
-        dL = dR = None
-        if drops is not None:
-            dL, dR = drops[0], drops[1]
-        QL, hL = adaptive_step(self.fb_L, cfg, c, Q[0], h[0], Y[0], dL)
-        QR, hR = adaptive_step(self.fb_R, cfg, c, Q[1], h[1], Y[1], dR)
-        return (torch.stack([QL, QR]), torch.stack([hL, hR])), out
+        return (Y.reshape(2, B, -1), Q,
+                band_phase(Zre, Zim).reshape(2, B, -1))
+
+    def step(self, c: dict, carry: tuple, Y: torch.Tensor, drops=None):
+        """Each ear's controller step on [Y_ctrl, 0.2 * Y_ctrl] of its band
+        energy Y (2, B, N), the memory input detached: (carry', (left's
+        Saved, right's)); with Q frozen, (carry, None)."""
+        if self.cfg.freeze_q:
+            return carry, None
+        steps = []
+        for e, ctrl in enumerate(self.controllers()):
+            Y_ctrl = torch.log1p(torch.clamp(Y[e], min=0.0))
+            feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl.detach()], dim=-1)
+            steps.append(controller_step(
+                self.cfg, c, carry[1][e], feat,
+                None if drops is None else drops[e], controller_params(ctrl)))
+        (QL, hL, sL), (QR, hR, sR) = steps
+        return (torch.stack([QL, QR]), torch.stack([hL, hR])), (sL, sR)
 
 
 class SingleFrontend(_Frontend):
@@ -345,7 +327,6 @@ class SingleFrontend(_Frontend):
     def __init__(self, cfg: BiEARConfig):
         super().__init__(cfg)
         if not cfg.fixed_frontend_q:
-            self.rate = cfg.ctrl_dropout
             self.q_rnn = GRU(4 * cfg.n_bands, cfg.ctrl_hidden)
             self.q_out = make_q_out(cfg)
 
@@ -362,32 +343,33 @@ class SingleFrontend(_Frontend):
         """Per frame: [site] -> (B, H)."""
         return (2, B, self.cfg.ctrl_hidden)
 
-    def frame(self, c: dict, fb, carry: tuple, rhs: torch.Tensor,
-              drops=None):
-        """One frame, both ears through one (2B) filterbank call with Q
-        repeated: rhs (2B, 4, F) -> (carry', (Y, Q, phase)), each output
-        (2, B, N)."""
-        cfg = self.cfg
-        Q, h, memL, memR = carry
+    def filter(self, fb, carry: tuple, rhs: torch.Tensor) -> tuple:
+        """Both ears through one (2B) filterbank call with Q repeated:
+        (Y, Q, phase), each (2, B, N)."""
+        Q = carry[0]
         B = Q.shape[0]
         Y, Zre, Zim = fb(torch.cat([Q, Q]), rhs)
-        Y = Y.reshape(2, B, -1)
-        out = (Y, Q.expand(2, B, cfg.n_bands),
-               band_phase(Zre, Zim).reshape(2, B, -1))
-        if cfg.freeze_q:
+        return (Y.reshape(2, B, -1), Q.expand(2, B, self.cfg.n_bands),
+                band_phase(Zre, Zim).reshape(2, B, -1))
+
+    def step(self, c: dict, carry: tuple, Y: torch.Tensor, drops=None):
+        """The controller step on [YL_ctrl, memL, YR_ctrl, memR], then the
+        memories' EMA of the detached Y_ctrl: (carry', Saved); with Q
+        frozen, (the zero carry at Q0, None)."""
+        Q, h, memL, memR = carry
+        if self.cfg.freeze_q:
             zero = torch.zeros_like
             return (c["Q0"].expand_as(Q), zero(h), zero(memL),
-                    zero(memR)), out
+                    zero(memR)), None
         YL_ctrl = torch.log1p(torch.clamp(Y[0], min=0.0))
         YR_ctrl = torch.log1p(torch.clamp(Y[1], min=0.0))
         feat = torch.cat([YL_ctrl, memL, YR_ctrl, memR], dim=-1)
-        delta, h = controller_update(self.q_rnn, self.q_out, self.rate, h,
-                                     feat, drops)
-        Qn, h = finite_reset(next_q(cfg, c, delta), h, c["Q0"][None])
+        Qn, h, saved = controller_step(self.cfg, c, h, feat, drops,
+                                       controller_params(self))
         beta = self.BETA
         memL = beta * memL + (1.0 - beta) * YL_ctrl.detach()
         memR = beta * memR + (1.0 - beta) * YR_ctrl.detach()
-        return (Qn, h, memL, memR), out
+        return (Qn, h, memL, memR), saved
 
 
 def auralnet_fb(cfg: BiEARConfig, wav: torch.Tensor, c: dict) -> torch.Tensor:

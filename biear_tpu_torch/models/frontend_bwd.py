@@ -4,23 +4,21 @@ backward runs the reverse recurrence explicitly, one launch a frame.
 Counterpart of the JAX package's training path through
 ``biear_tpu/models/frontend.py``: a ``lax.scan`` over ``adaptive_step``
 whose body and reverse pass XLA fuses (no Pallas kernel exists for it).
-Under autograd, the port's loop of ``DualFrontend.frame`` records some
-200 small ops a frame; here the whole loop is one node.
+Under autograd, the port's ``frame_loop`` records some 200 small ops a
+frame; here the whole loop is one node.
 
-``applies`` picks it for the production policy only: a ``DualFrontend``
-with adaptive Q (not fixed, not frozen), bf16 filterbank operands, the
-"custom" VJP without spectra gradients ("bf16|noxg"), f32 products (on
-the card: TF32 off and no autocast) and autograd recording. Every other
-combination keeps the loop of ``frame`` under autograd.
+``DualFrontend.hand_backward`` picks it for the production policy only
+(``f32_products`` is this module's part of that choice); every other
+combination runs ``frame_loop`` under autograd.
 
-Forward (``DualRecurrenceFn.forward``, gradients off): the loop's own ops,
-frame by frame: ``gauss_contract`` with T, ``band_phase``, and per ear the
-controller step of ``adaptive_step``, keeping what the backward reads:
-the GRU cell as its two products and fused cell (whose workspace holds
-r, z, n, h and W_hn h + b_hn), each LayerNorm's input, output, mean and
+Forward (``DualRecurrenceFn.forward``, gradients off): the frontend's own
+``frame_loop``, with a filterbank that calls ``gauss_contract`` with T and
+keeps each frame's set, and a sink that keeps each frame's two
+``controller.Saved`` (``controller_step``): the GRU cell's workspace (r,
+z, n, h and W_hn h + b_hn), each LayerNorm's input, output, mean and
 1/std, the dropout outputs, tanh's output, Q before the clamp and the
-finite reset's flag. The last frame's controller step feeds nothing and
-is not run. Nothing of size (2B, N, F) is kept.
+finite reset's flag. The loop runs no controller step at the last frame:
+its carry feeds nothing. Nothing of size (2B, N, F) is kept.
 
 Backward: for t = T-1 .. 0, ``frame_bwd`` takes the gradients of Q(t+1)
 and h(t+1) back through frame t's controller step (finite reset, clamp,
@@ -44,12 +42,12 @@ import ctypes
 import functools
 
 import torch
-import torch.nn.functional as F
 
 from ..device import precision_highest
 from ..kernels import count_launch
 from ..ops import filterbank
-from ..ops.filterbank import EPS_Q, band_phase, resolve_fb_vjp
+from ..ops.filterbank import EPS_Q
+from .controller import Saved
 
 # (rows a frame, bands, hidden, GRU inputs, with_ctrl, with_input) of every
 # frontend_bwd.cu launch made or captured in this process, counted (the
@@ -58,17 +56,6 @@ from ..ops.filterbank import EPS_Q, band_phase, resolve_fb_vjp
 # last); with_input, the gradients into h(t) and Y(t) and the filterbank's
 # VJP ran (every frame but the first)
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
-
-# the saved tensors of one ear's controller step, each (B, .) but ok ()
-Saved = collections.namedtuple(
-    "Saved", "feat ws hy a1 l1 mu1 rs1 d1 a2 l2 mu2 rs2 d2 delta qraw ok")
-
-# one ear's parameters, in the order the Function takes them
-PARAM_NAMES = ("q_rnn.weight_ih_l0", "q_rnn.weight_hh_l0", "q_rnn.bias_ih_l0",
-               "q_rnn.bias_hh_l0", "q_out.0.weight", "q_out.0.bias",
-               "q_out.1.weight", "q_out.1.bias", "q_out.4.weight",
-               "q_out.4.bias", "q_out.5.weight", "q_out.5.bias",
-               "q_out.8.weight", "q_out.8.bias")
 
 
 def grow_layout(H: int, N: int) -> dict:
@@ -88,7 +75,7 @@ def grow_layout(H: int, N: int) -> dict:
     return off
 
 
-def _f32_products(x: torch.Tensor) -> bool:
+def f32_products(x: torch.Tensor) -> bool:
     """Whether the policy's products are plain f32 for `x`: always on the
     CPU; on the card with TF32 off and no autocast."""
     if not x.is_cuda:
@@ -98,112 +85,29 @@ def _f32_products(x: torch.Tensor) -> bool:
                 or torch.is_autocast_enabled("cuda"))
 
 
-def applies(front, x: torch.Tensor) -> bool:
-    """Whether `front`'s forward on `x` takes the recurrence Function."""
-    from .frontend import DualFrontend
-
-    cfg = front.cfg
-    return (isinstance(front, DualFrontend) and not cfg.fixed_frontend_q
-            and not cfg.freeze_q and cfg.fb_w_dtype == "bfloat16"
-            and resolve_fb_vjp(cfg.fb_vjp) == "custom"
-            and not cfg.fb_x_grad and torch.is_grad_enabled()
-            and any(p.requires_grad for p in front.parameters())
-            and _f32_products(x))
-
-
-def recurrence(front, c: dict, rhs: torch.Tensor, masks) -> tuple:
-    """The frame loop of `front` (a DualFrontend) through the Function:
-    rhs (T, 2B, 4, F), masks (T, 2, 2, B, H) keep-masks or None ->
-    (Y, Q, phase), each (2, B, T, N)."""
-    params = [p for ctrl in (front.fb_L, front.fb_R)
-              for p in (ctrl.get_parameter(n) for n in PARAM_NAMES)]
-    return DualRecurrenceFn.apply(front, c, rhs, masks, *params)
-
-
-def _gru_step(x, h, w_ih, w_hh, b_ih, b_hh):
-    """torch.gru_cell's ops, with its workspace: (h', ws (B, 5H) = [r, z,
-    n, h, W_hn h + b_hn]). On the card the two products and the fused cell
-    gru_cell runs; on the CPU its composite formula."""
-    if x.is_cuda:
-        return torch.ops.aten._thnn_fused_gru_cell(
-            x.matmul(w_ih.t()), h.matmul(w_hh.t()), h, b_ih, b_hh)
-    ir, iz, inn = F.linear(x, w_ih, b_ih).chunk(3, 1)
-    hr, hz, hn = F.linear(h, w_hh, b_hh).chunk(3, 1)
-    r = torch.sigmoid(hr + ir)
-    z = torch.sigmoid(hz + iz)
-    n = torch.tanh(inn + hn * r)
-    return (h - n) * z + n, torch.cat([r, z, n, h, hn], 1)
-
-
-def _controller_step(cfg, c, p, rate, eps, Q0, h, Y, drops):
-    """One ear's controller step, the ops of ``adaptive_step``: returns
-    (Q', h', Saved)."""
-    from .frontend import q_unclamped
-    from .layers import dropout_apply
-
-    w_ih, w_hh, b_ih, b_hh, w0, b0, g1, be1, w4, b4, g5, be5, w8, b8 = p
-    H = w0.shape[0]
-    Y_ctrl = torch.log1p(torch.clamp(Y, min=0.0))
-    feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl], dim=-1)
-    hy, ws = _gru_step(feat, h, w_ih, w_hh, b_ih, b_hh)
-    a1 = F.linear(hy, w0, b0)
-    l1, mu1, rs1 = torch.native_layer_norm(a1, [H], g1, be1, eps)
-    d1 = F.silu(l1)
-    if drops is not None:
-        d1 = dropout_apply(drops[0], d1, rate)
-    a2 = F.linear(d1, w4, b4)
-    l2, mu2, rs2 = torch.native_layer_norm(a2, [H], g5, be5, eps)
-    d2 = F.silu(l2)
-    if drops is not None:
-        d2 = dropout_apply(drops[1], d2, rate)
-    delta = torch.tanh(F.linear(d2, w8, b8))
-    qraw = q_unclamped(cfg, c, delta)
-    Qc = torch.clamp(qraw, cfg.q_min, cfg.q_max)
-    ok = torch.isfinite(Qc).all()
-    saved = Saved(feat, ws, hy, a1, l1, mu1, rs1, d1, a2, l2, mu2, rs2, d2,
-                  delta, qraw, ok)
-    return (torch.where(ok, Qc, Q0.expand_as(Qc)),
-            torch.where(ok, hy, torch.zeros_like(hy)), saved)
-
-
 class DualRecurrenceFn(torch.autograd.Function):
     """apply(front, c, rhs, masks, *params) -> (Y, Q, phase), each (2, B,
-    T, N), as ``_Frontend.forward`` stacks them; params are fb_L's then
-    fb_R's, each in PARAM_NAMES' order. rhs gets no gradient ("|noxg"): a
+    T, N), as ``_Frontend.frame_loop`` stacks them; params are fb_L's then
+    fb_R's, each in ``controller.PARAM_NAMES``' order, the tensors
+    ``front``'s loop reads. rhs gets no gradient ("|noxg"): a
     zero one if it requires one."""
 
     @staticmethod
     def forward(ctx, front, c, rhs, masks, *params):
-        cfg = front.cfg
-        T, B2 = rhs.shape[:2]
-        B, N, H = B2 // 2, cfg.n_bands, cfg.ctrl_hidden
-        ears = (params[:14], params[14:])
-        eps = front.fb_L.q_out[1].eps
-        fc, f_fft, Q0 = c["fc"], c["f_fft"], c["Q0"][None]
-        Q = c["Q0"].expand(2, B, N)
-        h = torch.zeros((2, B, H), device=rhs.device)
-        Ys, Qs, phases, fbs, ctrls = [], [], [], [], []
-        for t in range(T):
-            Qf = Q.reshape(2 * B, -1)
+        fc, f_fft = c["fc"], c["f_fft"]
+        fbs, ctrls = [], []
+
+        def fb(Q, x):
             Y, Zre, Zim, den, finite, bw, Tm = filterbank.gauss_contract(
-                Qf, rhs[t], fc, f_fft, True)
-            Ys.append(Y.reshape(2, B, -1))
-            Qs.append(Q)
-            phases.append(band_phase(Zre, Zim).reshape(2, B, -1))
-            fbs.append((Qf, bw, Tm, Y, Zre, Zim, den, finite))
-            if t == T - 1:
-                break
-            steps = [_controller_step(
-                cfg, c, ears[e], cfg.ctrl_dropout, eps, Q0, h[e], Ys[-1][e],
-                None if masks is None else masks[t][e]) for e in (0, 1)]
-            Q = torch.stack([s[0] for s in steps])
-            h = torch.stack([s[1] for s in steps])
-            ctrls.append([s[2] for s in steps])
+                Q, x, fc, f_fft, True)
+            fbs.append((Q, bw, Tm, Y, Zre, Zim, den, finite))
+            return Y, Zre, Zim
+        outs = front.frame_loop(c, rhs, masks, fb, ctrls)
         ctx.save_for_backward(*params)
         ctx.front, ctx.c, ctx.masks = front, c, masks
         ctx.fbs, ctx.ctrls = fbs, ctrls
         ctx.rhs_meta = (rhs.shape, rhs.dtype, rhs.device)
-        return tuple(torch.stack(a, dim=2) for a in (Ys, Qs, phases))
+        return outs
 
     @staticmethod
     def backward(ctx, gY, gQ, gP):

@@ -1008,6 +1008,7 @@ def phase_frontend_bwd(torch) -> dict:
     from biear_tpu_torch.models import BiEARConfig, build_active
     from biear_tpu_torch.models import frontend as fe
     from biear_tpu_torch.models import frontend_bwd as fbw
+    from biear_tpu_torch.models.controller import controller_params
     from biear_tpu_torch.models.layers import dropout_masks
     from biear_tpu_torch.ops.filterbank import stack_rhs
     from biear_tpu_torch.serve.profile_serve import device_profile
@@ -1029,7 +1030,7 @@ def phase_frontend_bwd(torch) -> dict:
                          stack_rhs(*sR, True)]).transpose(0, 1)
         masks = dropout_masks(gen, cfg.ctrl_dropout, (T, 2, 2, B, H))
         params = [p for ctrl in (front.fb_L, front.fb_R)
-                  for p in (ctrl.get_parameter(n) for n in fbw.PARAM_NAMES)]
+                  for p in controller_params(ctrl)]
         ctx = _FnCtx()
         with torch.no_grad():
             outs = fbw.DualRecurrenceFn.forward(ctx, front, c, rhs, masks,

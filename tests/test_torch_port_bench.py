@@ -129,13 +129,14 @@ def hand_flops_per_utt(cfg) -> int:
         policy ("bf16|noxg"): two in the forward, none in the backward;
         f32 ("f32|noxg"): one forward, one backward on every frame but
         the first (its Q is Q0, a constant);
-      * controllers, both ears, every frame: the GRU cell (2N -> 3H,
-        H -> 3H), q_out (H -> H twice, H -> N); backward on frames 0..T-2
-        (the last frame's new Q is never used), input products from frame
-        1 on (frame 0's Y and state are constants). Under the bf16 policy
-        the recurrence Function (models/frontend_bwd.py) runs no forward
-        step on the last frame, and its GRU input product reaches only
-        the N inputs that take a gradient (the memory half is detached);
+      * controllers, both ears, every frame but the last (whose new Q is
+        never used, so the frame loop runs no step there): the GRU cell
+        (2N -> 3H, H -> 3H), q_out (H -> H twice, H -> N); backward on
+        frames 0..T-2, input products from frame 1 on (frame 0's Y and
+        state are constants). Under the bf16 policy the recurrence
+        Function's (models/frontend_bwd.py) GRU input product reaches
+        only the N inputs that take a gradient (the memory half is
+        detached);
       * encoders x2: GRU N -> 200 and 200 -> L over T frames (input
         products on all frames at once; the state products' input
         gradient on frames 1..T-1);
@@ -157,7 +158,7 @@ def hand_flops_per_utt(cfg) -> int:
         ctrl = 2 * ((T - 1) * (cell + head) + (T - 1) * (cell + 2 * head)
                     + (T - 2) * (lin(N, 3 * H) + lin(H, 3 * H)))
     else:
-        ctrl = 2 * (T * (cell + head) + (T - 1) * (cell + 2 * head)
+        ctrl = 2 * ((T - 1) * (cell + head) + (T - 1) * (cell + 2 * head)
                     + (T - 2) * cell)
 
     def gru(i, h):

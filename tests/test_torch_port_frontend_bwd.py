@@ -29,6 +29,7 @@ from biear_tpu_torch.device import precision_highest
 from biear_tpu_torch.kernels import LAUNCHES
 from biear_tpu_torch.kernels import build
 from biear_tpu_torch.models import BiEARConfig
+from biear_tpu_torch.models import controller as tctrl
 from biear_tpu_torch.models import frontend as tfe
 from biear_tpu_torch.models import frontend_bwd as fbw
 from biear_tpu_torch.models.layers import dropout_masks, init_module_
@@ -71,7 +72,7 @@ def _case(B=3, seed=0, device="cpu", dropout=True, **kw):
 
 def _params(front):
     return [p for ctrl in (front.fb_L, front.fb_R)
-            for p in (ctrl.get_parameter(n) for n in fbw.PARAM_NAMES)]
+            for p in tctrl.controller_params(ctrl)]
 
 
 def _grads(front, outs, loss_fn, extra=()):
@@ -95,14 +96,16 @@ def _close(got, want):
 
 
 def _compare(front, c, rhs, masks, loss_fn=None, rhs_grad=False):
-    """Outputs and gradients of the Function and of the loop; returns the
-    Function's outputs and gradients."""
+    """Outputs and gradients of the Function and of the loop: one shared
+    forward (``frame_loop``), held to the same bits with and without the
+    Function, and the hand backward against autograd through it. Returns
+    the Function's outputs and gradients."""
     extra = []
     if rhs_grad:
         rhs = rhs.detach().float().requires_grad_()
         extra = [rhs]
-    new = fbw.recurrence(front, c, rhs.to(torch.bfloat16) if rhs_grad
-                         else rhs, masks)
+    new = front.recurrence(c, rhs.to(torch.bfloat16) if rhs_grad
+                           else rhs, masks)
     old = front.frame_loop(c, rhs.to(torch.bfloat16) if rhs_grad else rhs,
                            masks)
     for a, b in zip(new, old):
@@ -139,7 +142,7 @@ def test_finite_reset_in_one_ear_matches_autograd(monkeypatch):
     """A NaN in the right ear's next Q at frame 1 resets that ear (Q to
     Q0, h to zero) there and only there; the left ear runs on."""
     front, c, rhs, masks = _case(3, seed=6, timesteps=5)
-    real = tfe.q_unclamped
+    real = tctrl.q_unclamped
     calls = []
 
     def poisoned(cfg, c, delta):
@@ -149,12 +152,12 @@ def test_finite_reset_in_one_ear_matches_autograd(monkeypatch):
             q = q.clone()
             q[1, 2] = float("nan")
         return q
-    monkeypatch.setattr(tfe, "q_unclamped", poisoned)
+    monkeypatch.setattr(tctrl, "q_unclamped", poisoned)
 
     def run(fn):
         calls.clear()
         return fn(front, c, rhs, masks)
-    new = run(fbw.recurrence)
+    new = run(tfe.DualFrontend.recurrence)
     old = run(tfe.DualFrontend.frame_loop)
     for a, b in zip(new, old):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -162,7 +165,7 @@ def test_finite_reset_in_one_ear_matches_autograd(monkeypatch):
     assert torch.equal(Q[1, :, 2], c["Q0"].expand(3, -1))
     assert not torch.equal(Q[0, :, 2], c["Q0"].expand(3, -1))
     loss_fn = _cot_loss(8, old)
-    got = _grads(front, run(fbw.recurrence), loss_fn)
+    got = _grads(front, run(tfe.DualFrontend.recurrence), loss_fn)
     want = _grads(front, run(tfe.DualFrontend.frame_loop), loss_fn)
     _close(got, want)
     assert all(bool(torch.isfinite(g).all()) for g in got)
@@ -209,7 +212,7 @@ def test_plain_frames_write_every_activation_gradient_row(monkeypatch):
     monkeypatch.setattr(fbw, "weight_grads", spy)
     monkeypatch.setattr(torch, "empty", lambda *a, **k: real_empty(
         *a, **k).fill_(float("nan")))
-    outs = fbw.recurrence(front, c, rhs, masks)
+    outs = front.recurrence(c, rhs, masks)
     torch.autograd.grad(sum(o.sum() for o in outs), _params(front))
     assert seen[0].shape == (2, 3, 2, lay["width"])
     assert bool(torch.isfinite(seen[0]).all())
@@ -227,8 +230,8 @@ def test_only_the_dual_bf16_noxg_custom_frontend_takes_the_function(
     from biear_tpu_torch.models import build_active
 
     calls = []
-    real = fbw.recurrence
-    monkeypatch.setattr(fbw, "recurrence",
+    real = tfe.DualFrontend.recurrence
+    monkeypatch.setattr(tfe.DualFrontend, "recurrence",
                         lambda *a: calls.append(1) or real(*a))
     cfg = BiEARConfig(**{**SMALL, **change})
     model = build_active(cfg, seed=1, device="cpu").train()
@@ -256,7 +259,7 @@ def test_the_cuda_entry_refuses_cpu_tensors_before_the_library(monkeypatch):
     front, c, rhs, masks = _case(2, seed=12)
     LAUNCHES.clear()
     fbw.LAUNCH_SHAPES.clear()
-    outs = fbw.recurrence(front, c, rhs, masks)
+    outs = front.recurrence(c, rhs, masks)
     torch.autograd.grad(sum(o.sum() for o in outs), _params(front))
     assert calls == [] and LAUNCHES["frontend_bwd"] == 0
     assert not fbw.LAUNCH_SHAPES

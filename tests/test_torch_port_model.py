@@ -29,6 +29,7 @@ from biear_tpu.train.state import to_torch_state_dict
 
 from biear_tpu_torch.models import ActiveBiEAR, BiEARConfig, build_active
 from biear_tpu_torch.models import backend as tbe
+from biear_tpu_torch.models import controller as tctrl
 from biear_tpu_torch.models import frontend as tfe
 from biear_tpu_torch.models.layers import GRU
 from biear_tpu_torch.models.weights import state_dict_from_jax
@@ -147,27 +148,56 @@ def test_controller_step_and_next_q_match_jax(kw):
                                        jnp.asarray(feat), None, False)
         q_j = jfe._next_q(cfg_j, jfe.frontend_constants(cfg_j), d_j)
     with torch.no_grad():
-        d_t, h_t = model.bifb.fb_L(_t(h), _t(feat))
         c = tfe.device_constants(model.cfg, "cpu")
-        q_t = tfe.next_q(model.cfg, c, d_t)
-    np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), atol=1e-5)
+        q_t, h_t, saved = tctrl.controller_step(
+            model.cfg, c, _t(h), _t(feat), None,
+            tctrl.controller_params(model.bifb.fb_L))
+    assert bool(saved.ok)
+    np.testing.assert_allclose(saved.delta.numpy(), np.asarray(d_j),
+                               atol=1e-5)
     np.testing.assert_allclose(h_t.numpy(), np.asarray(h_j), atol=1e-5)
     np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j), atol=1e-5)
     assert float(np.abs(np.asarray(d_j)).max()) > 1e-3
 
 
 def test_finite_reset_is_whole_batch():
-    Q0 = torch.tensor([[1.0, 2.0]])
-    Q = torch.tensor([[3.0, 4.0], [5.0, float("nan")]])
-    h = torch.ones(2, 3)
-    Qr, hr = tfe.finite_reset(Q, h, Q0)
-    Qj, hj = jfe._finite_reset(jnp.asarray(Q.numpy()), jnp.asarray(h.numpy()),
-                               jnp.asarray(Q0.numpy()))
+    """A nonfinite input row makes that row's next Q nonfinite: the step
+    resets Q to Q0 and h to zeros for the whole batch, as JAX's
+    _finite_reset does; without that row nothing is reset."""
+    cfg_j, params, model = _pair(FLAGSHIP, seed=3)
+    ctrl_j = jax.tree.map(lambda a: a[1], params["bifb"]["fb"])
+    rng = np.random.default_rng(3)
+    feat = rng.standard_normal((B, 200)).astype(np.float32)
+    feat[1, 5] = np.nan
+    h = rng.standard_normal((B, 128)).astype(np.float32)
+    c_j = jfe.frontend_constants(cfg_j)
+    c = tfe.device_constants(model.cfg, "cpu")
+    p = tctrl.controller_params(model.bifb.fb_R)
+
+    def jax_step(rows):
+        with jax.default_matmul_precision("highest"):
+            d_j, h_j = jfe.controller_step(ctrl_j, cfg_j,
+                                           jnp.asarray(h[rows]),
+                                           jnp.asarray(feat[rows]), None,
+                                           False)
+            return jfe._finite_reset(jfe._next_q(cfg_j, c_j, d_j), h_j,
+                                     jnp.asarray(c_j["Q0"])[None])
+    with torch.no_grad():
+        Qr, hr, saved = tctrl.controller_step(model.cfg, c, _t(h), _t(feat),
+                                              None, p)
+        Qk, hk, kept = tctrl.controller_step(model.cfg, c, _t(h[:1]),
+                                             _t(feat[:1]), None, p)
+    Qj, hj = jax_step(slice(None))
+    assert not bool(saved.ok) and bool(torch.isnan(saved.qraw[1]).all())
     np.testing.assert_array_equal(Qr.numpy(), np.asarray(Qj))
     np.testing.assert_array_equal(hr.numpy(), np.asarray(hj))
-    np.testing.assert_array_equal(Qr.numpy(), [[1.0, 2.0], [1.0, 2.0]])
-    Qk, hk = tfe.finite_reset(Q[:1], h[:1], Q0)
-    np.testing.assert_array_equal(Qk.numpy(), Q[:1].numpy())
+    np.testing.assert_array_equal(Qr.numpy(), c["Q0"].expand(B, -1).numpy())
+    np.testing.assert_array_equal(hr.numpy(), 0.0)
+    Qj, hj = jax_step(slice(0, 1))
+    assert bool(kept.ok)
+    np.testing.assert_allclose(Qk.numpy(), np.asarray(Qj), atol=1e-5)
+    np.testing.assert_allclose(hk.numpy(), np.asarray(hj), atol=1e-5)
+    assert not torch.equal(Qk, c["Q0"][None])
 
 
 @pytest.mark.parametrize("kw,tol", [

@@ -70,6 +70,38 @@ def test_port_never_imports_jax_or_the_jax_package(banned):
     assert not bad, bad
 
 
+def _resolved_imports(rel):
+    """Every module that the port's file `rel` imports, relative imports
+    and imports inside functions too, as absolute names; ``from X import
+    y`` gives both X and X.y (y may be a module)."""
+    package = ["biear_tpu_torch"] + os.path.dirname(rel).split(os.sep)
+    path = os.path.join(PORT, rel)
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[:len(package) - node.level + 1] if node.level \
+                else []
+            mod = ".".join(base + ([node.module] if node.module else []))
+            yield mod
+            yield from (f"{mod}.{a.name}" for a in node.names)
+
+
+def _imports_frontend(rel):
+    target = "biear_tpu_torch.models.frontend"
+    return [m for m in _resolved_imports(rel)
+            if m == target or m.startswith(target + ".")]
+
+
+@pytest.mark.parametrize("rel", ["models/frontend_bwd.py",
+                                 "models/controller.py"])
+def test_modules_below_the_frontend_never_import_it(rel):
+    """The frontend imports its hand backward and its controller step,
+    never the other way round (no lazy import either)."""
+    assert _imports_frontend("models/biear.py")       # the scan sees one
+    assert _imports_frontend(rel) == []
+
+
 def _clean_env():
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("PYTHON", "JAX"))}

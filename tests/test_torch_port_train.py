@@ -28,6 +28,8 @@ from biear_tpu.train import optim as jopt
 
 from biear_tpu_torch.kernels import LAUNCHES
 from biear_tpu_torch.models import ActiveBiEAR, BiEARConfig
+from biear_tpu_torch.models import controller as tctrl
+from biear_tpu_torch.models import frontend as tfe
 from biear_tpu_torch.models import layers as tla
 from biear_tpu_torch.models.weights import state_dict_from_jax
 from biear_tpu_torch.ops import erb as terb
@@ -197,9 +199,14 @@ def test_controller_step_with_masks_matches_jax():
         dj, hj = jfe.controller_step(p, cfg_j, jnp.asarray(h),
                                      jnp.asarray(feat), None, True,
                                      drops=jnp.asarray(drops))
+    c = tfe.device_constants(model.cfg, "cpu")
+    p_t = tctrl.controller_params(model.bifb.fb_R)
     with torch.no_grad():
-        dt, ht = model.bifb.fb_R(_t(h), _t(feat), _t(drops))
-        d0, _ = model.bifb.fb_R(_t(h), _t(feat))
+        _, ht, saved = tctrl.controller_step(model.cfg, c, _t(h), _t(feat),
+                                             _t(drops), p_t)
+        d0 = tctrl.controller_step(model.cfg, c, _t(h), _t(feat), None,
+                                   p_t)[2].delta
+    dt = saved.delta
     # f32 sums in another order through two LayerNorms: a few ulps of O(1)
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), atol=1e-5)
     np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=1e-5)
