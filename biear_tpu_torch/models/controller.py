@@ -4,16 +4,24 @@ from a frame's features to the next Q (JAX ``controller_step``,
 The frame loop of ``models/frontend.py`` runs the step under autograd or
 without, and ``models/frontend_bwd.py`` keeps its ``Saved`` tensors for
 the hand backward; this module imports neither.
+
+On the card, with gradients off and f32 products (``takes_kernel``), the
+dual frontend runs both ears' steps of a frame as one launch of
+``kernels/controller_fwd.cu`` (``dual_step_cuda``); ``controller_step``,
+once an ear, is its plain twin and serves every other case.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import count_launch
 from .config import BiEARConfig
 from .layers import GRU, dropout_apply
 
@@ -29,6 +37,11 @@ PARAM_NAMES = ("q_rnn.weight_ih_l0", "q_rnn.weight_hh_l0", "q_rnn.bias_ih_l0",
                "q_out.8.weight", "q_out.8.bias")
 
 LN_EPS = 1e-5                     # the LayerNorms' eps, nn.LayerNorm's default
+
+# (rows of both ears, bands, hidden, GRU inputs) of every controller_fwd.cu
+# launch made or captured in this process, counted (the benchmark's
+# roofline reader takes the kernel's work from here)
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 
 def make_q_out(cfg: BiEARConfig) -> nn.Sequential:
@@ -112,3 +125,112 @@ def controller_step(cfg: BiEARConfig, c: dict, h: torch.Tensor,
                   delta, qraw, ok)
     return (torch.where(ok, Qc, c["Q0"][None].expand_as(Qc)),
             torch.where(ok, hy, torch.zeros_like(hy)), saved)
+
+
+def f32_products(x: torch.Tensor) -> bool:
+    """Whether the policy's products are plain f32 for `x`: always on the
+    CPU; on the card with TF32 off and no autocast."""
+    if not x.is_cuda:
+        return True
+    return not (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32
+                or torch.is_autocast_enabled("cuda"))
+
+
+def takes_kernel(Y: torch.Tensor) -> bool:
+    """Whether the dual frontend's step on band energies `Y` is one launch
+    of ``controller_fwd.cu``: a CUDA tensor, gradients off and f32
+    products. Under autograd, TF32 or autocast the composite ops stay."""
+    return Y.is_cuda and not torch.is_grad_enabled() and f32_products(Y)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def row_tile(rows_per_ear: int, blocks_per_ear: int) -> int:
+    """Rows of one ear a block of ``controller_fwd.cu`` or
+    ``frontend_bwd.cu`` takes: the fewest of 1, 2, 4, 8 that keep an
+    ear's blocks within `blocks_per_ear` (8 past that). Each launch is
+    bound by the latency of its chain of products, so more resident warps
+    beat fewer reads of the weights from L2 (the reverse recurrence at the
+    flagship's 512 rows an ear: 4 rows a block, 39 us a frame; 8 rows, 50
+    us)."""
+    for rt in (1, 2, 4, 8):
+        if -(-rows_per_ear // rt) <= blocks_per_ear:
+            return rt
+    return 8
+
+
+def card_row_tile(rows_per_ear: int, dev: torch.device,
+                  per_sm: int) -> int:
+    """row_tile for both ears' blocks at about `per_sm` a SM of the card
+    that holds `dev`: two for ``frontend_bwd.cu``'s blocks of 256 threads,
+    one for ``controller_fwd.cu``'s of 512."""
+    sms = _sm_count(dev.index if dev.index is not None
+                    else torch.cuda.current_device())
+    return row_tile(rows_per_ear, sms * per_sm // 2)
+
+
+def dual_step_cuda(cfg: BiEARConfig, c: dict, h: torch.Tensor,
+                   Y: torch.Tensor, drops, ears):
+    """Both ears' ``controller_step`` as one launch of
+    ``controller_fwd.cu`` on the current stream: band energies Y (2, B,
+    N), hidden state h (2, B, H), keep-masks drops (2 ears, 2 sites, B, H)
+    or None, and each ear's 14 parameters (PARAM_NAMES' order) -> (Q' (2,
+    B, N), h' (2, B, H), (left's Saved, right's)), each Saved field a
+    contiguous view of an ear-stacked output. The features are [Y_ctrl,
+    0.2 Y_ctrl] of Y_ctrl = log1p(max(Y, 0)), as the dual frontend makes
+    them. A build or launch failure raises."""
+    from ..kernels.build import check_launch, controller_fwd_lib
+
+    B, N = Y.shape[1], Y.shape[2]
+    H, n_in = cfg.ctrl_hidden, ears[0][0].shape[1]
+    dev = Y.device
+    h = h.contiguous()
+    keeps = ([None] * 4 if drops is None else
+             [drops[0, 0], drops[0, 1], drops[1, 0], drops[1, 1]])
+    inputs = [Y, h, c["Q0"], c["deltaQ_vec"]]
+    tensors = [x for ear in ears for x in ear] + inputs
+    for x in tensors + [k for k in keeps if k is not None]:
+        if not (x.is_cuda and x.device == dev and x.is_contiguous()):
+            raise ValueError("controller_fwd needs contiguous tensors on one "
+                             "CUDA device")
+    if any(x.dtype != torch.float32 for x in tensors) or any(
+            k is not None and k.dtype != torch.bool for k in keeps):
+        raise ValueError("controller_fwd needs float32 tensors and bool "
+                         "keep-masks")
+    if (Y.shape[0] != 2 or tuple(h.shape) != (2, B, H) or n_in != 2 * N
+            or (drops is not None and tuple(drops.shape) != (2, 2, B, H))):
+        raise ValueError("controller_fwd: shapes do not fit the dual "
+                         "frontend's step")
+    widths = {"Q": N, "h": H, "feat": n_in, "ws": 5 * H, "hy": H, "a1": H,
+              "l1": H, "mu1": 1, "rs1": 1, "d1": H, "a2": H, "l2": H,
+              "mu2": 1, "rs2": 1, "d2": H, "delta": N, "qraw": N}
+    out = {k: torch.empty((2, B, w), device=dev) for k, w in widths.items()}
+    ok = torch.empty(2, dtype=torch.bool, device=dev)
+    counters = torch.zeros(4, dtype=torch.int32, device=dev)
+    ears_ptrs = [[x.data_ptr() for x in ear] for ear in ears]
+    ptrs = (ears_ptrs[0] + [0 if k is None else k.data_ptr()
+                            for k in keeps[:2]]
+            + ears_ptrs[1] + [0 if k is None else k.data_ptr()
+                              for k in keeps[2:]]
+            + [x.data_ptr() for x in inputs]
+            + [x.data_ptr() for x in out.values()]
+            + [ok.data_ptr(), counters.data_ptr()])
+    ints = [B, N, H, n_in, int(cfg.deltaQ_mode.lower() == "relative"),
+            card_row_tile(B, dev, 1)]
+    floats = [cfg.q_min, cfg.q_max, 1.0 - cfg.ctrl_dropout, LN_EPS]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = controller_fwd_lib().controller_fwd_launch(
+            (ctypes.c_uint64 * len(ptrs))(*ptrs), len(ptrs),
+            (ctypes.c_int * len(ints))(*ints), len(ints),
+            (ctypes.c_float * len(floats))(*floats), len(floats), stream)
+    check_launch(err, "controller_fwd")
+    count_launch("controller_fwd")
+    LAUNCH_SHAPES[(2 * B, N, H, n_in)] += 1
+    saved = tuple(Saved(*(out[k][e] for k in Saved._fields[:-1]), ok[e])
+                  for e in (0, 1))
+    return out["Q"], out["h"], saved

@@ -5,7 +5,9 @@ Counterpart of ``biear_tpu/models/frontend.py``. All T frames are framed
 and transformed at once; only the Q feedback loop runs frame by frame.
 A frame is the frontend's ``filter`` (both ears' filterbank with the
 carry's Q, and the band phase) then its ``step`` (the controller step of
-``models/controller.py``, written once, for the next frame's Q).
+``models/controller.py``, written once, for the next frame's Q; the dual
+frontend's, on the card without gradients, both ears in one launch of
+``kernels/controller_fwd.cu``).
 ``frame_loop`` runs them over the T frames, and ``frame``, one hop of
 streaming (``serve/streaming.py``), runs both once, as the JAX package's
 scan bodies ``adaptive_step`` and ``single_step`` serve both. Each frame
@@ -61,7 +63,8 @@ from ..ops.framing import frame_1s, frame_params, hann_window_periodic
 from . import frontend_bwd
 from .config import BiEARConfig
 from .controller import (Controller, controller_params, controller_step,
-                         make_q_out)
+                         dual_step_cuda, f32_products, make_q_out,
+                         takes_kernel)
 from .layers import GRU, dropout_masks
 
 
@@ -274,7 +277,7 @@ class DualFrontend(_Frontend):
                 and resolve_fb_vjp(cfg.fb_vjp) == "custom"
                 and not cfg.fb_x_grad and torch.is_grad_enabled()
                 and any(p.requires_grad for p in self.parameters())
-                and frontend_bwd.f32_products(x))
+                and f32_products(x))
 
     def frames(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
         if self.hand_backward(rhs):
@@ -302,16 +305,24 @@ class DualFrontend(_Frontend):
     def step(self, c: dict, carry: tuple, Y: torch.Tensor, drops=None):
         """Each ear's controller step on [Y_ctrl, 0.2 * Y_ctrl] of its band
         energy Y (2, B, N), the memory input detached: (carry', (left's
-        Saved, right's)); with Q frozen, (carry, None)."""
+        Saved, right's)); with Q frozen, (carry, None). On the card with
+        gradients off and f32 products (``controller.takes_kernel``) both
+        ears' steps are one launch of ``kernels/controller_fwd.cu``;
+        elsewhere ``controller_step`` once an ear."""
         if self.cfg.freeze_q:
             return carry, None
+        ears = [controller_params(ctrl) for ctrl in self.controllers()]
+        if takes_kernel(Y):
+            Q, h, saved = dual_step_cuda(self.cfg, c, carry[1], Y, drops,
+                                         ears)
+            return (Q, h), saved
         steps = []
-        for e, ctrl in enumerate(self.controllers()):
+        for e, params in enumerate(ears):
             Y_ctrl = torch.log1p(torch.clamp(Y[e], min=0.0))
             feat = torch.cat([Y_ctrl, 0.2 * Y_ctrl.detach()], dim=-1)
             steps.append(controller_step(
                 self.cfg, c, carry[1][e], feat,
-                None if drops is None else drops[e], controller_params(ctrl)))
+                None if drops is None else drops[e], params))
         (QL, hL, sL), (QR, hR, sR) = steps
         return (torch.stack([QL, QR]), torch.stack([hL, hR])), (sL, sR)
 

@@ -8,7 +8,7 @@ Under autograd, the port's ``frame_loop`` records some 200 small ops a
 frame; here the whole loop is one node.
 
 ``DualFrontend.hand_backward`` picks it for the production policy only
-(``f32_products`` is this module's part of that choice); every other
+(``controller.f32_products`` is part of that choice); every other
 combination runs ``frame_loop`` under autograd.
 
 Forward (``DualRecurrenceFn.forward``, gradients off): the frontend's own
@@ -39,7 +39,6 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
 
 import torch
 
@@ -47,7 +46,7 @@ from ..device import precision_highest
 from ..kernels import count_launch
 from ..ops import filterbank
 from ..ops.filterbank import EPS_Q
-from .controller import Saved
+from .controller import Saved, card_row_tile
 
 # (rows a frame, bands, hidden, GRU inputs, with_ctrl, with_input) of every
 # frontend_bwd.cu launch made or captured in this process, counted (the
@@ -73,16 +72,6 @@ def grow_layout(H: int, N: int) -> dict:
         at += width
     off["width"] = at
     return off
-
-
-def f32_products(x: torch.Tensor) -> bool:
-    """Whether the policy's products are plain f32 for `x`: always on the
-    CPU; on the card with TF32 off and no autocast."""
-    if not x.is_cuda:
-        return True
-    return not (torch.backends.cuda.matmul.allow_tf32
-                or torch.backends.cudnn.allow_tf32
-                or torch.is_autocast_enabled("cuda"))
 
 
 class DualRecurrenceFn(torch.autograd.Function):
@@ -285,24 +274,6 @@ def weight_grads(st, grow, ctrls, params) -> list:
 
 # ---------------------------------------------------------------- the card
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-def row_tile(rows_per_ear: int, sms: int) -> int:
-    """Rows of one ear a block takes: the fewest of 1, 2, 4, 8 that keep
-    both ears' blocks within two a SM of the card's `sms` (8 past that).
-    The launch is bound by the latency of its chain of products, so more
-    resident warps beat fewer reads of the weights from L2 (at the
-    flagship's 512 rows an ear: 4 rows a block, 39 us a frame; 8 rows, 50
-    us)."""
-    for rt in (1, 2, 4, 8):
-        if -(-rows_per_ear // rt) <= sms:
-            return rt
-    return 8
-
-
 def _ptr(x) -> int:
     return 0 if x is None else x.data_ptr()
 
@@ -345,10 +316,8 @@ def frame_bwd_cuda(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
         _ptr(gq_in), _ptr(gh_in), _ptr(gq_out), _ptr(gh_out), _ptr(grow),
         _ptr(st.fc), _ptr(st.Q0), _ptr(st.dqv)]
     n_in = st.ears[0][0].shape[1]
-    rt = row_tile(B, _sm_count(dev.index if dev.index is not None
-                               else torch.cuda.current_device()))
     ints = [B, N, H, n_in, t, T, int(with_ctrl), int(with_input),
-            int(st.relative), rt]
+            int(st.relative), card_row_tile(B, dev, 2)]
     floats = [st.q_min, st.q_max, 1.0 - st.rate]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

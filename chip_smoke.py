@@ -421,6 +421,13 @@ FB_TIMESTEPS = 19             # frames, so launches, per adaptive forward
 FBWD_BATCHES = (512, 64)
 FBWD_REL = 2e-5
 FBWD_FMA_S = 132 * 128 * 1.98e9
+# phase 3: both ears' controller step (controller_fwd.cu) against the
+# composite ops (controller_step once an ear) at the flagship's frame (B =
+# 512) and the spirit cell's (B = 64): Q', h' and every saved field within
+# CFWD_REL (norm of the difference over the composite's); the launch and
+# the composite timed replayed from a CUDA graph beside the bound (its
+# multiply-adds at FBWD_FMA_S, or its bytes at the HBM rate)
+CFWD_REL = 2e-5
 
 
 _START = time.perf_counter()
@@ -1097,6 +1104,100 @@ def phase_frontend_bwd(torch) -> dict:
             whole, calls=3)["kernels_per_call"]
         out[f"{2 * B}x{N}x{H}"] = row
         log(f"frontend_bwd {2 * B}x{N}x{H}: {json.dumps(row)}")
+    return out
+
+
+def cfwd_frame_counts(B: int, N: int, H: int) -> tuple:
+    """(multiply-adds, bytes) of one launch of controller_fwd.cu over both
+    ears' 2B rows (perfbench/bounds/controller.py): 3 H 2N + 5 H^2 + N H
+    multiply-adds a row; per row Y and h read, the keep-masks (2 H
+    bytes), the saved set (2N + 13 H + 4 + 2 N), Q' and h' written; each
+    ear's weights, biases and LayerNorm parameters once."""
+    rows, n_in = 2 * B, 2 * N
+    per_row = 3 * H * n_in + 5 * H * H + N * H
+    floats = (N + H) + (n_in + 13 * H + 4 + 2 * N) + (N + H)
+    weights = per_row + 12 * H + N
+    return rows * per_row, 4.0 * rows * floats + rows * 2 * H + 8.0 * weights
+
+
+def phase_controller_fwd(torch) -> dict:
+    """Hold controller_fwd.cu against the composite step (controller_step
+    once an ear) at FBWD_BATCHES on a seeded flagship (controllers moved
+    off their zero output layer, dropout on), band energies over decades
+    and a hidden state in (-1, 1); two launches give the same bits; time
+    one launch and the composite ops replayed from a CUDA graph beside the
+    bound, and count the composite's kernels."""
+    from biear_tpu_torch.models import BiEARConfig, build_active
+    from biear_tpu_torch.models import controller as ctl
+    from biear_tpu_torch.models import frontend as fe
+    from biear_tpu_torch.models.layers import dropout_masks
+    from biear_tpu_torch.serve.profile_serve import device_profile
+
+    cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative",
+                      deltaQ_base=1.0, deltaQ_low_factor=0.3,
+                      deltaQ_high_factor=5.0, fb_w_dtype="bfloat16")
+    N, H = cfg.n_bands, cfg.ctrl_hidden
+    c = fe.device_constants(cfg, "cuda")
+    out = {}
+    for B in FBWD_BATCHES:
+        model = build_active(cfg, seed=B)
+        perturb_controllers(torch, model, B)
+        ctrls = model.bifb.controllers()
+        ears = [ctl.controller_params(x) for x in ctrls]
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        Y = torch.exp(3.0 * torch.randn((2, B, N), generator=gen,
+                                        device="cuda"))
+        h = torch.rand((2, B, H), generator=gen, device="cuda") * 2 - 1
+        drops = dropout_masks(gen, cfg.ctrl_dropout, (2, 2, B, H))
+
+        def kernel():
+            return ctl.dual_step_cuda(cfg, c, h, Y, drops, ears)
+
+        def composite():
+            steps = []
+            for e in (0, 1):
+                yc = torch.log1p(torch.clamp(Y[e], min=0.0))
+                steps.append(ctl.controller_step(
+                    cfg, c, h[e], torch.cat([yc, 0.2 * yc], dim=-1),
+                    drops[e], ears[e]))
+            return steps
+        with torch.no_grad():
+            Q, hn, saved = kernel()
+            want = composite()
+            again = kernel()
+            worst = {"Q": 0.0, "h": 0.0}
+            for e, (Qw, hw, sw) in enumerate(want):
+                pairs = [("Q", Q[e], Qw), ("h", hn[e], hw)] + [
+                    (k, getattr(saved[e], k), getattr(sw, k))
+                    for k in ctl.Saved._fields[:-1]]
+                for k, a, b in pairs:
+                    worst[k] = max(worst.get(k, 0.0), float(
+                        (a - b).double().norm()
+                        / b.double().norm().clamp_min(1e-30)))
+                if bool(saved[e].ok) != bool(sw.ok):
+                    raise RuntimeError(f"controller_fwd B={B}: ok differs")
+            if not max(worst.values()) <= CFWD_REL:
+                raise RuntimeError(f"controller_fwd B={B}: {worst}")
+            if not (torch.equal(Q, again[0]) and torch.equal(hn, again[1])
+                    and all(torch.equal(getattr(a, k), getattr(b, k))
+                            for a, b in zip(saved, again[2])
+                            for k in ctl.Saved._fields)):
+                raise RuntimeError(f"controller_fwd B={B}: two launches "
+                                   "differ")
+            row = {"share_of_rel_limit": max(worst.values()) / CFWD_REL,
+                   "worst_rel": worst,
+                   "rows_a_block": ctl.card_row_tile(B, Y.device, 1)}
+            row["ms"] = graph_ms(torch, kernel)
+            row["composite_ms"] = graph_ms(torch, composite)
+            row["composite_kernels_per_call"] = device_profile(
+                composite, calls=3)["kernels_per_call"]
+        macs, nbytes = cfwd_frame_counts(B, N, H)
+        t_op, t_bytes = macs / FBWD_FMA_S, nbytes / H100_HBM_BYTES_S
+        row.update(bound_ms=max(t_op, t_bytes) * 1e3,
+                   bound_by="multiply-adds" if t_op > t_bytes else "bytes")
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        out[f"{2 * B}x{N}x{H}"] = row
+        log(f"controller_fwd {2 * B}x{N}x{H}: {json.dumps(row)}")
     return out
 
 
@@ -3196,6 +3297,12 @@ def torchrun_results(run, timeout: float) -> list:
             for r in range(n)]
 
 
+def train_launches(launches: dict) -> dict:
+    """A runner's launches without controller_fwd's, whose count follows
+    the forwards without gradients (its evaluation) as well."""
+    return {k: v for k, v in launches.items() if k != "controller_fwd"}
+
+
 def phase_distributed(torch, smi: str) -> dict:
     """Phase 16: the runner across processes, (a) one rank over NCCL, (b)
     two ranks sharing the card over gloo, 2x1 and 1x2, (c) the fused bf16
@@ -3275,8 +3382,11 @@ def phase_distributed(torch, smi: str) -> dict:
             for r, x in zip(ranks, runs):
                 launches[f"dist_{name}_rank{r['rank']}"] = x["launches"]
             # 2x1 is captured (the reference's launches, warm-ups
-            # included, on each rank); 1x2 runs eagerly
-            captured = [x["launches"] == ref_launches for x in runs]
+            # included, on each rank); 1x2 runs eagerly. controller_fwd
+            # runs in the evaluation's forwards too, which follow each
+            # rank's share of the evaluation rows: left out of the match
+            captured = [train_launches(x["launches"])
+                        == train_launches(ref_launches) for x in runs]
             log(f"distributed (b) {name} over {ranks[0]['backend']}: "
                 f"per-step losses {got['loss']!r}, gradient norms (fb, "
                 f"backend) {got['grad_fb_norm']!r}, "
@@ -4060,6 +4170,7 @@ def main() -> int:
     fused_check = phase_fused_update(torch, synth)
     fb_check = phase_fb_gauss(torch, synth, rng)
     fbwd_check = phase_frontend_bwd(torch)
+    cfwd_check = phase_controller_fwd(torch)
     errs, wtiming = phase_window_kernels(torch, synth)
     launches = {"serve": phase_serve(torch, rng)}
     launches.update(phase_train(torch, synth))
@@ -4137,7 +4248,16 @@ def main() -> int:
                            "counterpart of XLA's fusion of the dual "
                            "frontend's scan and its reverse pass)",
                     launches=total("frontend_bwd"),
-                    launches_by_path=by_path("frontend_bwd"), **fbwd_check)]
+                    launches_by_path=by_path("frontend_bwd"), **fbwd_check),
+               dict(name="controller_fwd", route="cuda",
+                    source="biear_tpu_torch/kernels/controller_fwd.cu",
+                    replaces=None,
+                    status="the port's own: replaces no TPU kernel (the "
+                           "counterpart of XLA's fusion of the dual "
+                           "frontend's scan body, the controller step)",
+                    launches=total("controller_fwd"),
+                    launches_by_path=by_path("controller_fwd"),
+                    **cfwd_check)]
     # the reverse recurrence runs on the dual frontend's bf16 training
     # paths only: 19 a step, none under f32, the single controller,
     # AuralNet, the passive family or any path without a backward
@@ -4151,6 +4271,19 @@ def main() -> int:
                 FB_TIMESTEPS * (TRAIN_STEPS + WARMUP_STEPS):
             raise RuntimeError(f"frontend_bwd launched {got} times on "
                                f"{path}")
+    # the controller step runs as one launch a frame wherever the dual
+    # frontend steps without gradients in f32 products: 18 a bf16 train
+    # step (inside the recurrence Function), serving, streaming; never in
+    # the single controller, AuralNet or the passive family
+    for path, got in by_path("controller_fwd").items():
+        if any(w in path for w in ("auralnet", "passive", "single")) and got:
+            raise RuntimeError(f"controller_fwd launched on {path}")
+        if path == "train_bf16" and got != \
+                (FB_TIMESTEPS - 1) * (TRAIN_STEPS + WARMUP_STEPS):
+            raise RuntimeError(f"controller_fwd launched {got} times on "
+                               f"{path}")
+        if path in ("serve", "stream") and not got:
+            raise RuntimeError(f"controller_fwd never launched on {path}")
     # the filterbank kernel serves every bf16 adaptive forward (19 a
     # forward, 1 a stream hop) and nothing of AuralNet or the passive family
     for path, got in by_path("fb_gauss").items():

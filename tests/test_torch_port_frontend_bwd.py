@@ -277,10 +277,10 @@ def test_the_cuda_entry_refuses_cpu_tensors_before_the_library(monkeypatch):
 
 
 def test_row_tile_makes_about_two_blocks_a_sm():
-    assert fbw.row_tile(512, 132) == 4       # the flagship: 256 blocks
-    assert fbw.row_tile(64, 132) == 1        # the spirit cell: 128 blocks
-    assert fbw.row_tile(200, 132) == 2
-    assert fbw.row_tile(5000, 132) == 8
+    assert tctrl.row_tile(512, 132) == 4     # the flagship: 256 blocks
+    assert tctrl.row_tile(64, 132) == 1      # the spirit cell: 128 blocks
+    assert tctrl.row_tile(200, 132) == 2
+    assert tctrl.row_tile(5000, 132) == 8
 
 
 # ---------------------------------------------------------------- the card
