@@ -34,6 +34,9 @@ tensors per frame), or plain autograd ("autodiff"), which would keep
 every frame's (2B, N, F) G and its intermediates; there the filterbank
 call is recomputed in the backward (``torch.utils.checkpoint``), as the
 JAX package rematerialises its scan step (``cfg.remat_frontend``).
+``forward`` runs the frames inside a ``frontend.loop`` span whose ``path``
+names the loop it took, and hands its outputs to ``trace.frontend_marks``
+(the ``frontend`` and ``frontend_grad`` stage marks of a train chunk).
 
 Quirks of the reference kept exactly:
   * dual: the Y-memory input is 0.2 * log1p(max(Y, 0)) of the CURRENT
@@ -55,6 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .. import trace
 from ..device import constant_cache, precision_highest
 from ..ops.erb import erb_spaced_fc_and_q, make_deltaQ_profile
 from ..ops.filterbank import (band_phase, fb_forward, filterbank_apply_rhs,
@@ -176,7 +180,7 @@ class _Frontend(nn.Module):
         if cfg.fixed_frontend_q:
             YL, QL, phL = fixed_forward(cfg, c, *specL)
             YR, QR, phR = fixed_forward(cfg, c, *specR)
-            return YL, YR, QL, QR, phL, phR
+            return trace.frontend_marks(YL, YR, QL, QR, phL, phR)
 
         bf16 = cfg.fb_w_dtype == "bfloat16"
         B, T = wavL.shape[0], cfg.timesteps
@@ -187,12 +191,18 @@ class _Frontend(nn.Module):
         if train and gen is not None and cfg.ctrl_dropout > 0.0:
             masks = dropout_masks(gen, cfg.ctrl_dropout,
                                   (T, *self.mask_shape(B)))
-        Y, Q, phase = self.frames(c, rhs, masks)
+        path = self.loop_path(rhs)
+        with trace.span("frontend.loop", path=path):
+            Y, Q, phase = (self.recurrence if path == "recurrence"
+                           else self.frame_loop)(c, rhs, masks)
+        Y, Q, phase = trace.frontend_marks(Y, Q, phase)
         return Y[0], Y[1], Q[0], Q[1], phase[0], phase[1]
 
-    def frames(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
-        """The frame loop as forward runs it: ``frame_loop``."""
-        return self.frame_loop(c, rhs, masks)
+    def loop_path(self, rhs: torch.Tensor) -> str:
+        """How forward runs the frames on `rhs`: "autograd" (``frame_loop``
+        recorded by autograd) or "no_grad"; the dual frontend adds
+        "recurrence"."""
+        return "autograd" if torch.is_grad_enabled() else "no_grad"
 
     def frame_loop(self, c: dict, rhs: torch.Tensor, masks=None, fb=None,
                    sink: list | None = None) -> tuple:
@@ -279,10 +289,12 @@ class DualFrontend(_Frontend):
                 and any(p.requires_grad for p in self.parameters())
                 and f32_products(x))
 
-    def frames(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
+    def loop_path(self, rhs: torch.Tensor) -> str:
+        """As the base class, but "recurrence" (``DualRecurrenceFn``)
+        where ``hand_backward`` holds."""
         if self.hand_backward(rhs):
-            return self.recurrence(c, rhs, masks)
-        return self.frame_loop(c, rhs, masks)
+            return "recurrence"
+        return super().loop_path(rhs)
 
     def recurrence(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
         """``frame_loop`` through ``DualRecurrenceFn``: rhs (T, 2B, 4, F),

@@ -19,7 +19,9 @@ append.
 The names the port uses are fixed: ``chunk.call``, ``graph.launch``
 (attribute ``graph``, the train chunk's name), ``graph.warm_up``,
 ``graph.capture``, ``synth.bank``, ``runner.checkpoint``,
-``runner.eval_splits``.
+``runner.eval_splits``, ``frontend.loop`` (attribute ``path``: the
+adaptive frontend's frames as "recurrence", the dual frontend's one
+autograd node, "autograd" or "no_grad").
 
 Marks. ``mark(slot)`` stamps, into row ``row[0]`` and column ``slot`` of
 the active step sink's (rows, len(SLOTS)) int64 stack, the time at which
@@ -28,9 +30,14 @@ reads the card's %globaltimer (ns), inside a captured graph at every
 replay; on the CPU the plain version writes ``perf_counter_ns``. A row
 outside the stack is not written. Without an active sink (``step_sink``)
 a mark does nothing, so an eager call outside a train chunk is not
-marked. The slots, in step order, are SLOTS; the train chunks
+marked. The slots are SLOTS; the train chunks
 (``train/graph.py::CapturedChunk``, the eager loop of
-``loop.make_train_chunk``) hold the sink.
+``loop.make_train_chunk``) hold the sink. Every marked step writes the
+first six (STEP_SLOTS), in stream order; the waveform BiEAR model's step
+also writes ``frontend`` (its frontend's outputs made, before the
+encoders) and ``frontend_grad`` (their gradient complete, before the
+frontend's own backward), through ``frontend_marks``: in stream order
+synthesis <= frontend <= forward <= frontend_grad <= backward.
 
 Chunk records. After its replays a chunk call hands ``record_chunk`` the
 rows it wrote (cloned on the device: no sync), its ``chunk.call`` span
@@ -48,7 +55,7 @@ A mark plus the offset is a time on the spans' clock; a time laid across
 the two clocks is not resolved below the width.
 
 Counters: ``kernels.LAUNCHES`` counts kernel launches (``trace_mark``
-among them, six per marked step); ``snapshot`` reads it.
+among them, six or eight per marked step); ``snapshot`` reads it.
 """
 
 from __future__ import annotations
@@ -65,7 +72,9 @@ import torch
 from .kernels import LAUNCHES, count_launch
 
 RING = 4096             # spans, and chunk records, kept
-SLOTS = ("start", "synthesis", "forward", "backward", "update", "recorded")
+SLOTS = ("start", "synthesis", "forward", "backward", "update", "recorded",
+         "frontend", "frontend_grad")
+STEP_SLOTS = 6          # the slots every marked step writes
 CALIBRATION_MARKS = 5
 _SLOT = {s: i for i, s in enumerate(SLOTS)}
 
@@ -355,13 +364,17 @@ class Recorder:
     def replay_summary(self, profiled=True) -> dict | None:
         """Per-step means (ms) over the chunk records at their full
         chunk_steps (`profiled` as in ``chunk_records``) of calls that did
-        not capture their graph, or None without one whose marks are all
-        written:
+        not capture their graph, or None without one whose STEP_SLOTS
+        marks are all written:
 
           * synthesis_ms, forward_ms, backward_ms, update_ms: synthesis -
             start, forward - synthesis, backward - forward, recorded -
             backward (the update, its telemetry and the metric row; in a
             mesh chunk also the pack, the all-reduce and the unpack);
+          * frontend_ms, frontend_grad_ms: frontend - synthesis (spectra
+            and the frontend's frames) and backward - frontend_grad (the
+            frontend's own backward), over the records that wrote both
+            frontend marks in every row (None without one);
           * gap_ms: from one replay's recorded to the next replay's start
             within a call (the card waiting between replays);
           * launch_ms: the ``graph.launch`` spans' host duration;
@@ -376,7 +389,7 @@ class Recorder:
           * chunks, steps, gaps: what the means are over."""
         recs = [c for c in self.chunk_records(profiled, full=True)
                 if not c["captured"] and len(c["marks"])
-                and (c["marks"] >= 0).all()]
+                and (c["marks"][:, :STEP_SLOTS] >= 0).all()]
         if not recs:
             return None
         with self._lock:
@@ -404,6 +417,15 @@ class Recorder:
         out = {name: mean_ms(np.concatenate(v)) for name, v in zip(
             ("synthesis_ms", "forward_ms", "backward_ms", "update_ms"),
             stages)}
+        fe = [c["marks"] for c in recs if c["marks"].shape[1] == len(SLOTS)
+              and (c["marks"][:, STEP_SLOTS:] >= 0).all()]
+
+        def fe_ms(a: str, b: str):
+            """Mean ms from mark `a` to mark `b` over the records in fe."""
+            return mean_ms(np.concatenate(
+                [m[:, _SLOT[b]] - m[:, _SLOT[a]] for m in fe])) if fe else None
+        out.update(frontend_ms=fe_ms("synthesis", "frontend"),
+                   frontend_grad_ms=fe_ms("frontend_grad", "backward"))
         widths = [self.clocks[c["device"]]["width_ns"] / 1e6
                   if c["device"] in self.clocks else 0.0 for c in recs]
         out.update(gap_ms=mean_ms(gaps), launch_ms=mean_ms(launches),
@@ -413,6 +435,24 @@ class Recorder:
                    clock_width_ms=max(widths),
                    chunks=len(recs), steps=steps, gaps=len(gaps))
         return out
+
+
+class _GradMark(torch.autograd.Function):
+    """Identity on tensors whose backward writes the ``frontend_grad``
+    mark into the sink given to the forward: autograd runs a card's
+    backward on a thread of its own, where no sink is active. Its
+    backward runs once every output's gradient is complete."""
+
+    @staticmethod
+    def forward(ctx, sink, *xs):
+        ctx.sink = sink
+        ctx.set_materialize_grads(False)
+        return xs
+
+    @staticmethod
+    def backward(ctx, *gs):
+        write_mark(ctx.sink[0], ctx.sink[1], _SLOT["frontend_grad"])
+        return (None, *gs)
 
 
 RECORDER = Recorder()
@@ -426,3 +466,17 @@ replay_summary = RECORDER.replay_summary
 snapshot = RECORDER.snapshot
 total_ns = RECORDER.total_ns
 reset = RECORDER.reset
+
+
+def frontend_marks(*xs: torch.Tensor) -> tuple:
+    """`xs`, the frontend's outputs, with the ``frontend`` mark written
+    after them and, where autograd records them, the ``frontend_grad``
+    mark written once their gradient is complete (``_GradMark``).
+    Without an active sink, `xs` unchanged and nothing written."""
+    sink = active_sink()
+    if sink is None:
+        return xs
+    mark("frontend")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        xs = _GradMark.apply(sink, *xs)
+    return xs

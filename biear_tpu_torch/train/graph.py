@@ -17,12 +17,13 @@ objects of this module, built on the package's capture machinery
     ``chunk_steps`` times per call. Replay i writes its metrics into row i
     of preallocated (chunk_steps, ...) stacks (a row counter on the
     device, advanced by the graph itself), and the device times of its
-    stage boundaries into row i of a (chunk_steps, 6) mark stack: the
-    recorder's sink (``trace.step_sink``) is active while the chunk
-    captures, so the graph holds six ``trace_mark`` nodes per step
-    (``trace.SLOTS``: start, synthesis, forward, backward, update,
-    recorded). A call is a ``chunk.call`` span; it fills the mark stack
-    with -1, replays, and hands the recorder a clone of the rows
+    stage boundaries into row i of a (chunk_steps, len(trace.SLOTS)) mark
+    stack: the recorder's sink (``trace.step_sink``) is active while the
+    chunk captures, so the graph holds a ``trace_mark`` node per stage
+    boundary of a step (``trace.SLOTS``: start, synthesis, forward,
+    backward, update, recorded, and for the waveform BiEAR model frontend
+    and frontend_grad). A call is a ``chunk.call`` span; it fills the mark
+    stack with -1, replays, and hands the recorder a clone of the rows
     (``trace.record_chunk``).
   * ``CapturedMeshStep`` and ``CapturedMeshChunk``: the same over D > 1
     data ranks, each step two graphs (``graph.SplitGraph``) around the

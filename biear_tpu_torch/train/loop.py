@@ -437,9 +437,9 @@ def make_train_chunk(model: _Model, hp: TrainHyper, optimizer: Adam,
     first call (`gen` and `dropout_gen`), which the caller re-seeds in
     place between chunks; the CPU, a model axis and ``capture=False`` run
     the eager loop (``use_capture``), a ``chunk.call`` span that stamps
-    each step's stage marks (``trace.SLOTS``) into a (chunk_steps, 6)
-    stack of its own and hands it to the recorder, as the captured chunk
-    does."""
+    each step's stage marks (``trace.SLOTS``) into a (chunk_steps,
+    len(trace.SLOTS)) stack of its own and hands it to the recorder, as
+    the captured chunk does."""
     if use_capture(model, mesh, capture):
         state = train_state(model, optimizer)
         if sends(mesh):

@@ -1,0 +1,14 @@
+"""replay_frontend_ms: milliseconds per step from the synthesis mark to the
+frontend mark (the frontend's spectra and frames done, before the
+encoders) of the captured chunk's replays (device-timed marks), mean over
+the records that wrote the frontend marks. None off the card, without a
+record, or where the program writes no frontend mark (AuralNet; a program
+without it)."""
+
+from perfbench.metrics._recorder import _recorder
+
+
+def read(ctx):
+    trace = _recorder(ctx)
+    summary = trace.replay_summary(profiled=True) if trace else None
+    return None if summary is None else summary.get("frontend_ms")

@@ -17,7 +17,7 @@ from biear_tpu_torch import trace
 from biear_tpu_torch.data.synth import (AnechoicSynthesizer,
                                         make_test_hrir_bank,
                                         make_test_segments)
-from biear_tpu_torch.models import ActiveBiEAR, BiEARConfig
+from biear_tpu_torch.models import ActiveBiEAR, BiEARConfig, build_auralnet
 from biear_tpu_torch.train import graph as tgraph
 from biear_tpu_torch.train import loop as tloop
 from biear_tpu_torch.train import optim as topt
@@ -30,7 +30,9 @@ READERS = {"replay_synthesis_ms": "synthesis_ms",
            "replay_backward_ms": "backward_ms",
            "replay_update_ms": "update_ms", "replay_gap_ms": "gap_ms",
            "replay_launch_ms": "launch_ms",
-           "replay_gap_launch_ms": "gap_launch_ms"}
+           "replay_gap_launch_ms": "gap_launch_ms",
+           "replay_frontend_ms": "frontend_ms",
+           "replay_frontend_grad_ms": "frontend_grad_ms"}
 CARD = {"device_kind": "NVIDIA H100 80GB HBM3"}
 
 
@@ -52,11 +54,20 @@ def _model_and_synth(seed: int = 1):
     return ActiveBiEAR(BiEARConfig(**SMALL)).init_weights_(seed), synth
 
 
+# the slots in the order the stream reaches them in a waveform BiEAR step
+STREAM_ORDER = ("start", "synthesis", "frontend", "forward", "frontend_grad",
+                "backward", "update", "recorded")
+
+
 def _check_marks(marks: np.ndarray) -> None:
-    """Every slot written, each row non-decreasing, rows in step order."""
+    """Every slot written, each row non-decreasing in stream order, rows
+    in step order."""
     assert marks.shape[1] == len(trace.SLOTS) and (marks >= 0).all()
-    assert (np.diff(marks, axis=1) >= 0).all()
-    assert (marks[1:, 0] >= marks[:-1, -1]).all()
+    order = [trace.SLOTS.index(s) for s in STREAM_ORDER]
+    assert sorted(order) == list(range(len(trace.SLOTS)))
+    assert (np.diff(marks[:, order], axis=1) >= 0).all()
+    recorded = trace.SLOTS.index("recorded")
+    assert (marks[1:, 0] >= marks[:-1, recorded]).all()
 
 
 # ---------------- spans ----------------
@@ -153,8 +164,9 @@ def test_the_mark_writes_only_inside_the_stack_on_the_plain_path():
 
 def test_the_eager_chunk_marks_six_stages_per_step_in_order():
     """make_train_chunk(..., capture=False) on the CPU: one record per
-    call, chunk_steps rows of six non-decreasing marks, rows in step
-    order; an eager step outside a chunk marks nothing."""
+    call, chunk_steps rows of the six stage marks and the frontend's two,
+    in stream order, rows in step order; an eager step outside a chunk
+    marks nothing."""
     model, synth = _model_and_synth()
     hp = topt.TrainHyper()
     opt = topt.make_optimizer(model, hp)
@@ -345,3 +357,113 @@ def test_the_summary_reports_the_widest_calibration_and_skips_a_capture():
     assert s["wall_ms"] == pytest.approx(second.ms / 2)
     assert s["clock_width_ms"] == pytest.approx(0.0125)
     assert [c["captured"] for c in rec.chunk_records()] == [True, False]
+
+
+# ---------------- the frontend's marks and span ----------------
+
+FRONTEND_PATHS = {
+    "dual-bf16": (dict(SMALL, fb_w_dtype="bfloat16"), "recurrence"),
+    "dual-f32": (dict(SMALL, fb_w_dtype="float32"), "autograd"),
+    "single-bf16": (dict(SMALL, controller_mode="single",
+                         deltaQ_mode="absolute", fb_w_dtype="bfloat16"),
+                    "autograd"),
+}
+
+
+def _eager_chunk(model, steps: int = 2):
+    ir, az, dist = make_test_hrir_bank()
+    synth = AnechoicSynthesizer(ir, az, dist, make_test_segments(8),
+                                num_lags=16, mix_dtype="bfloat16",
+                                device="cpu")
+    hp = topt.TrainHyper()
+    chunk = tloop.make_train_chunk(model, hp, topt.make_optimizer(model, hp),
+                                   synth.batch_fn(2), steps, capture=False)
+    chunk(torch.Generator().manual_seed(0))
+    (rec,) = trace.chunk_records()
+    return rec
+
+
+@pytest.mark.parametrize("name", list(FRONTEND_PATHS))
+def test_the_frontend_marks_lie_in_stream_order_on_each_path(name):
+    """synthesis <= frontend <= forward <= frontend_grad <= backward in
+    every step of an eager chunk: the dual frontend under
+    ``DualRecurrenceFn`` (bf16) and under the autograd frame loop (f32),
+    the single frontend under the autograd loop; the ``frontend.loop``
+    span names the path, once a step."""
+    kw, path = FRONTEND_PATHS[name]
+    rec = _eager_chunk(ActiveBiEAR(BiEARConfig(**kw)).init_weights_(1))
+    _check_marks(rec["marks"])
+    loops = [s for s in trace.RECORDER.spans if s.name == "frontend.loop"]
+    assert [s.attrs for s in loops] == [{"path": path}] * 2
+    summary = trace.replay_summary(profiled=False)
+    m = rec["marks"]
+    S = trace.SLOTS.index
+    assert summary["frontend_ms"] == pytest.approx(
+        float(np.mean(m[:, S("frontend")] - m[:, S("synthesis")])) / 1e6)
+    assert summary["frontend_grad_ms"] == pytest.approx(
+        float(np.mean(m[:, S("backward")] - m[:, S("frontend_grad")])) / 1e6)
+
+
+def test_auralnet_keeps_its_six_marks_and_summary():
+    """AuralNet writes no frontend mark: its two columns stay -1, the
+    summary's earlier keys read its six marks as before and the frontend
+    keys are None."""
+    cfg = BiEARConfig(**SMALL, d_model=16)
+    rec = _eager_chunk(build_auralnet(cfg, device="cpu"))
+    m = rec["marks"]
+    six = trace.STEP_SLOTS
+    assert (m[:, :six] >= 0).all() and (m[:, six:] == -1).all()
+    assert (np.diff(m[:, :six], axis=1) >= 0).all()
+    s = trace.replay_summary(profiled=False)
+    d = np.diff(m[:, :six], axis=1)
+    for key, col in (("synthesis_ms", d[:, 0]), ("forward_ms", d[:, 1]),
+                     ("backward_ms", d[:, 2]),
+                     ("update_ms", m[:, 5] - m[:, 3]),
+                     ("gap_ms", m[1:, 0] - m[:-1, 5])):
+        assert s[key] == pytest.approx(float(np.mean(col)) / 1e6), key
+    assert (s["chunks"], s["steps"], s["gaps"]) == (1, 2, 1)
+    assert s["frontend_ms"] is None and s["frontend_grad_ms"] is None
+    assert not [x for x in trace.RECORDER.spans if x.name == "frontend.loop"]
+
+
+def test_the_frontend_grad_mark_goes_to_the_forwards_sink():
+    """The backward mark is written into the sink active at the forward,
+    whichever sink (none) is active where the backward runs, as on a
+    card, where autograd's backward thread has none; outside a sink the
+    outputs pass through unmarked."""
+    marks = torch.full((2, len(trace.SLOTS)), -1, dtype=torch.long)
+    row = torch.tensor([1])
+    x = torch.ones(3, requires_grad=True)
+    with trace.step_sink(marks, row):
+        y, z = trace.frontend_marks(x * 2.0, x * 3.0)
+    written = (marks >= 0).nonzero().tolist()
+    assert written == [[1, trace.SLOTS.index("frontend")]]
+    (g,) = torch.autograd.grad((y + z).sum(), [x])
+    assert g.tolist() == [5.0] * 3
+    assert int(marks[1, trace.SLOTS.index("frontend_grad")]) >= int(
+        marks[1, trace.SLOTS.index("frontend")])
+    a = torch.ones(2)
+    assert trace.frontend_marks(a)[0] is a
+    assert (marks[0] == -1).all()
+
+
+def test_the_summary_reads_the_frontend_over_the_records_that_wrote_it():
+    """Hand-built records: one of eight marks a row, one of six (a model
+    without a frontend mark): the stage keys over both, the frontend keys
+    over the first alone."""
+    rec = trace.Recorder()
+    full = torch.tensor([[0, 2_000, 10_000, 14_000, 17_000, 18_000, 5_000,
+                          11_000],
+                         [20_000, 22_000, 30_000, 34_000, 37_000, 38_000,
+                          26_000, 32_000]], dtype=torch.long)
+    six = torch.cat([full[:, :6] + 100_000,
+                     torch.full((2, 2), -1, dtype=torch.long)], 1)
+    for m in (full, six):
+        with rec.span("chunk.call") as call:
+            rec.record_chunk(m, call, 2, "train_chunk")
+    s = rec.replay_summary(profiled=False)
+    assert (s["chunks"], s["steps"]) == (2, 4)
+    assert s["forward_ms"] == pytest.approx(0.008)
+    assert s["frontend_ms"] == pytest.approx(0.0035)     # 3 and 4 us
+    assert s["frontend_grad_ms"] == pytest.approx(0.0025)  # 3 and 2 us
+
