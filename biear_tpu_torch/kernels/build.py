@@ -8,8 +8,8 @@ unchanged source), and ``ctypes`` binds its C functions. One directory per
 kernel lets ``build_all`` run the eight builds (``cc_lags``,
 ``gather_windows``, ``gather_mix_kb``, the recorder's ``trace_mark``, the
 optimizer's ``fused_update``, the adaptive filterbank's ``fb_gauss``, the
-dual frontend's reverse recurrence ``frontend_bwd`` and its controller
-step ``controller_fwd``) at once;
+adaptive frontends' reverse recurrence ``frontend_bwd`` and the dual
+frontend's controller step ``controller_fwd``) at once;
 ``build_all_with_report`` also returns what ``ptxas -v`` said of each
 entry function (registers, spills, shared memory). Nothing is built at
 import time: the CPU tests import every module of the package on a
@@ -128,12 +128,13 @@ def fb_gauss_lib() -> ctypes.CDLL:
 
 @functools.cache
 def frontend_bwd_lib() -> ctypes.CDLL:
-    """The dual frontend's reverse recurrence, one frame a launch
-    (frontend_bwd.cu)."""
+    """The adaptive frontends' reverse recurrence, one frame a launch
+    (frontend_bwd.cu: the dual frontend's entry and the single's)."""
     lib = ctypes.CDLL(build("frontend_bwd"))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.frontend_bwd_launch.argtypes = [ptr, i32, ptr, i32, ptr, i32, ptr]
-    lib.frontend_bwd_launch.restype = i32
+    for entry in (lib.frontend_bwd_launch, lib.single_bwd_launch):
+        entry.argtypes = [ptr, i32, ptr, i32, ptr, i32, ptr]
+        entry.restype = i32
     return lib
 
 

@@ -163,14 +163,15 @@ def row_tile(rows_per_ear: int, blocks_per_ear: int) -> int:
     return 8
 
 
-def card_row_tile(rows_per_ear: int, dev: torch.device,
-                  per_sm: int) -> int:
-    """row_tile for both ears' blocks at about `per_sm` a SM of the card
-    that holds `dev`: two for ``frontend_bwd.cu``'s blocks of 256 threads,
-    one for ``controller_fwd.cu``'s of 512."""
+def card_row_tile(rows_per_ear: int, dev: torch.device, per_sm: int,
+                  ears: int = 2) -> int:
+    """row_tile for the blocks of `ears` controllers (both ears', or the
+    single frontend's one) at about `per_sm` a SM of the card that holds
+    `dev`: two for ``frontend_bwd.cu``'s blocks of 256 threads, one for
+    ``controller_fwd.cu``'s of 512."""
     sms = _sm_count(dev.index if dev.index is not None
                     else torch.cuda.current_device())
-    return row_tile(rows_per_ear, sms * per_sm // 2)
+    return row_tile(rows_per_ear, sms * per_sm // ears)
 
 
 def dual_step_cuda(cfg: BiEARConfig, c: dict, h: torch.Tensor,

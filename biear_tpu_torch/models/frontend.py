@@ -23,8 +23,8 @@ builds the Gaussian filterbank for both ears in one (2B) batch (at batch
 
 Training (``train=True`` with a generator): the controllers' dropout masks
 for all frames, both ears and both sites are drawn in one call. Under
-the production policy (``DualFrontend.hand_backward``) the dual
-frontend's whole ``frame_loop`` is one autograd node with a hand backward
+the production policy (``_Frontend.hand_backward``) either frontend's
+whole ``frame_loop`` is one autograd node with a hand backward
 (``models/frontend_bwd.py``: bf16 operands, the "custom" VJP without
 spectra gradients, f32 products); otherwise ``frame_loop`` runs under
 autograd, and the filterbank is differentiated by the VJP that
@@ -157,10 +157,11 @@ def fixed_forward(cfg: BiEARConfig, c: dict, Xmag, Xre, Xim):
 
 
 class _Frontend(nn.Module):
-    """Spectra, the fixed-Q path and the frame loop shared by both
-    adaptive frontends. A subclass defines ``init_carry``, ``mask_shape``,
-    ``controllers``, ``filter`` and ``step``; ``STREAM_AXIS`` is the batch
-    axis of its carry."""
+    """Spectra, the fixed-Q path, the frame loop and its hand backward
+    shared by both adaptive frontends. A subclass defines ``init_carry``,
+    ``mask_shape``, ``controllers``, ``filter``, ``step`` (whose saved
+    sets are one ``Saved`` per controller) and ``y_cols``; ``STREAM_AXIS``
+    is the batch axis of its carry."""
 
     STREAM_AXIS = 0
 
@@ -198,11 +199,34 @@ class _Frontend(nn.Module):
         Y, Q, phase = trace.frontend_marks(Y, Q, phase)
         return Y[0], Y[1], Q[0], Q[1], phase[0], phase[1]
 
+    def hand_backward(self, x: torch.Tensor) -> bool:
+        """Whether the frame loop on `x` runs as ``RecurrenceFn`` (one
+        autograd node, the hand reverse recurrence): adaptive Q (not
+        frozen), bf16 filterbank operands, the "custom" VJP without
+        spectra gradients ("bf16|noxg"), f32 products and autograd
+        recording."""
+        cfg = self.cfg
+        return (not cfg.freeze_q and cfg.fb_w_dtype == "bfloat16"
+                and resolve_fb_vjp(cfg.fb_vjp) == "custom"
+                and not cfg.fb_x_grad and torch.is_grad_enabled()
+                and any(p.requires_grad for p in self.parameters())
+                and f32_products(x))
+
     def loop_path(self, rhs: torch.Tensor) -> str:
-        """How forward runs the frames on `rhs`: "autograd" (``frame_loop``
-        recorded by autograd) or "no_grad"; the dual frontend adds
-        "recurrence"."""
+        """How forward runs the frames on `rhs`: "recurrence"
+        (``RecurrenceFn``) where ``hand_backward`` holds, else "autograd"
+        (``frame_loop`` recorded by autograd) or "no_grad"."""
+        if self.hand_backward(rhs):
+            return "recurrence"
         return "autograd" if torch.is_grad_enabled() else "no_grad"
+
+    def recurrence(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
+        """``frame_loop`` through ``RecurrenceFn``: rhs (T, 2B, 4, F),
+        masks (T, *mask_shape) keep-masks or None -> (Y, Q, phase), each
+        (2, B, T, N)."""
+        params = [p for ctrl in self.controllers()
+                  for p in controller_params(ctrl)]
+        return frontend_bwd.RecurrenceFn.apply(self, c, rhs, masks, *params)
 
     def frame_loop(self, c: dict, rhs: torch.Tensor, masks=None, fb=None,
                    sink: list | None = None) -> tuple:
@@ -276,35 +300,6 @@ class DualFrontend(_Frontend):
         """Per frame: [ear, site] -> (B, H)."""
         return (2, 2, B, self.cfg.ctrl_hidden)
 
-    def hand_backward(self, x: torch.Tensor) -> bool:
-        """Whether the frame loop on `x` runs as ``DualRecurrenceFn`` (one
-        autograd node, the hand reverse recurrence): adaptive Q (not
-        frozen), bf16 filterbank operands, the "custom" VJP without
-        spectra gradients ("bf16|noxg"), f32 products and autograd
-        recording."""
-        cfg = self.cfg
-        return (not cfg.freeze_q and cfg.fb_w_dtype == "bfloat16"
-                and resolve_fb_vjp(cfg.fb_vjp) == "custom"
-                and not cfg.fb_x_grad and torch.is_grad_enabled()
-                and any(p.requires_grad for p in self.parameters())
-                and f32_products(x))
-
-    def loop_path(self, rhs: torch.Tensor) -> str:
-        """As the base class, but "recurrence" (``DualRecurrenceFn``)
-        where ``hand_backward`` holds."""
-        if self.hand_backward(rhs):
-            return "recurrence"
-        return super().loop_path(rhs)
-
-    def recurrence(self, c: dict, rhs: torch.Tensor, masks) -> tuple:
-        """``frame_loop`` through ``DualRecurrenceFn``: rhs (T, 2B, 4, F),
-        masks (T, 2, 2, B, H) keep-masks or None -> (Y, Q, phase), each
-        (2, B, T, N)."""
-        params = [p for ctrl in self.controllers()
-                  for p in controller_params(ctrl)]
-        return frontend_bwd.DualRecurrenceFn.apply(self, c, rhs, masks,
-                                                   *params)
-
     def filter(self, fb, carry: tuple, rhs: torch.Tensor) -> tuple:
         """Both ears through one (2B) filterbank call with the carry's Q:
         (Y, Q, phase), each (2, B, N)."""
@@ -337,6 +332,11 @@ class DualFrontend(_Frontend):
                 None if drops is None else drops[e], params))
         (QL, hL, sL), (QR, hR, sR) = steps
         return (torch.stack([QL, QR]), torch.stack([hL, hR])), (sL, sR)
+
+    def y_cols(self) -> tuple:
+        """The feature columns at which each controller's step reads the
+        ears' Y: its own ear's at 0 of [Y_ctrl, 0.2 * Y_ctrl]."""
+        return (0,)
 
 
 class SingleFrontend(_Frontend):
@@ -377,7 +377,7 @@ class SingleFrontend(_Frontend):
 
     def step(self, c: dict, carry: tuple, Y: torch.Tensor, drops=None):
         """The controller step on [YL_ctrl, memL, YR_ctrl, memR], then the
-        memories' EMA of the detached Y_ctrl: (carry', Saved); with Q
+        memories' EMA of the detached Y_ctrl: (carry', (Saved,)); with Q
         frozen, (the zero carry at Q0, None)."""
         Q, h, memL, memR = carry
         if self.cfg.freeze_q:
@@ -392,7 +392,13 @@ class SingleFrontend(_Frontend):
         beta = self.BETA
         memL = beta * memL + (1.0 - beta) * YL_ctrl.detach()
         memR = beta * memR + (1.0 - beta) * YR_ctrl.detach()
-        return (Qn, h, memL, memR), saved
+        return (Qn, h, memL, memR), (saved,)
+
+    def y_cols(self) -> tuple:
+        """The feature columns at which the step reads the ears' Y: the
+        left's at 0 and the right's at 2N of [YL_ctrl, memL, YR_ctrl,
+        memR]."""
+        return (0, 2 * self.cfg.n_bands)
 
 
 def auralnet_fb(cfg: BiEARConfig, wav: torch.Tensor, c: dict) -> torch.Tensor:

@@ -1,38 +1,50 @@
-"""The dual adaptive frontend's frame loop as one autograd Function whose
+"""The adaptive frontends' frame loop as one autograd Function whose
 backward runs the reverse recurrence explicitly, one launch a frame.
 
 Counterpart of the JAX package's training path through
 ``biear_tpu/models/frontend.py``: a ``lax.scan`` over ``adaptive_step``
-whose body and reverse pass XLA fuses (no Pallas kernel exists for it).
-Under autograd, the port's ``frame_loop`` records some 200 small ops a
-frame; here the whole loop is one node.
+(dual) or ``single_step`` (single) whose body and reverse pass XLA fuses
+(no Pallas kernel exists for it). Under autograd, the port's
+``frame_loop`` records some 200 small ops a frame; here the whole loop is
+one node.
 
-``DualFrontend.hand_backward`` picks it for the production policy only
+``_Frontend.hand_backward`` picks it for the production policy only
 (``controller.f32_products`` is part of that choice); every other
-combination runs ``frame_loop`` under autograd.
+combination runs ``frame_loop`` under autograd. One Function serves both
+frontends; what differs follows the frontend's structure
+(``controllers()``, and the feature columns at which each controller
+reads the ears' Y, ``y_cols()``): the dual frontend has two controllers,
+each reading its own ear's Y at feature columns 0:N; the single frontend
+one, reading the left ear's at 0:N and the right's at 2N:3N, whose Q the
+(2B) filterbank call repeats for both ears, so the Q carry's gradient
+sums over them.
 
-Forward (``DualRecurrenceFn.forward``, gradients off): the frontend's own
+Forward (``RecurrenceFn.forward``, gradients off): the frontend's own
 ``frame_loop``, with a filterbank that calls ``gauss_contract`` with T and
-keeps each frame's set, and a sink that keeps each frame's two
-``controller.Saved`` (``controller_step``): the GRU cell's workspace (r,
-z, n, h and W_hn h + b_hn), each LayerNorm's input, output, mean and
-1/std, the dropout outputs, tanh's output, Q before the clamp and the
-finite reset's flag. The loop runs no controller step at the last frame:
-its carry feeds nothing. Nothing of size (2B, N, F) is kept.
+keeps each frame's set, and a sink that keeps each frame's ``controller.
+Saved`` of every controller (``controller_step``): the GRU cell's
+workspace (r, z, n, h and W_hn h + b_hn), each LayerNorm's input, output,
+mean and 1/std, the dropout outputs, tanh's output, Q before the clamp and
+the finite reset's flag. The loop runs no controller step at the last
+frame: its carry feeds nothing. Nothing of size (2B, N, F) is kept.
 
 Backward: for t = T-1 .. 0, ``frame_bwd`` takes the gradients of Q(t+1)
 and h(t+1) back through frame t's controller step (finite reset, clamp,
 next Q, tanh, Linear 8, dropout, SiLU, LayerNorm 5, Linear 4, dropout,
 SiLU, LayerNorm 1, Linear 0, GRU cell), adds the controller's gradient of
-Y(t), through log1p and clamp, to the backend's, runs the band phase's and
-the "bf16|noxg" filterbank's VJP to dQ(t) and adds the Q output's own
-gradient: the carry of frame t-1. It writes each row's activation
-gradients (``GROW``), and after the loop the weight and bias gradients of
-both ears over all (T-1) B rows are five batched f32 products and sums.
-Frame 0's Q is the constant Q0 and h(0) is zero, so frame 0 stops at the
-controller's activation gradients. ``frame_bwd`` is one launch of
-``kernels/frontend_bwd.cu`` (both ears) for CUDA tensors and
-``frame_bwd_plain`` (the same steps in PyTorch ops) for CPU tensors.
+each ear's Y(t), through log1p and clamp, to the backend's, runs the band
+phase's and the "bf16|noxg" filterbank's VJP to dQ(t) and adds the Q
+output's own gradient: the carry of frame t-1 (the single frontend's,
+dQ_L + dQ_R + gQ_L + gQ_R). The EMA memories, built from detached Y,
+carry none. It writes each row's activation gradients (``GROW``), and
+after the loop the weight and bias gradients of every controller over all
+(T-1) B rows are five batched f32 products and sums. Frame 0's Q is the
+constant Q0 and h(0) is zero, so frame 0 stops at the controller's
+activation gradients. ``frame_bwd`` is one launch of
+``kernels/frontend_bwd.cu`` for CUDA tensors (its dual entry, a block on
+rows of one ear, or its single entry, a block on rows of the shared
+controller, each feeding two filterbank rows) and ``frame_bwd_plain``
+(the same steps in PyTorch ops) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -48,13 +60,16 @@ from ..ops import filterbank
 from ..ops.filterbank import EPS_Q
 from .controller import Saved, card_row_tile
 
-# (rows a frame, bands, hidden, GRU inputs, with_ctrl, with_input) of every
-# frontend_bwd.cu launch made or captured in this process, counted (the
-# benchmark's roofline reader takes the kernel's work from here):
-# with_ctrl, the controller step's backward ran (every frame but the
-# last); with_input, the gradients into h(t) and Y(t) and the filterbank's
-# VJP ran (every frame but the first)
+# (controller rows a frame, bands, hidden, GRU inputs, with_ctrl,
+# with_input) of every frontend_bwd.cu launch made or captured in this
+# process, counted (the benchmark's roofline readers take the kernel's
+# work from here): with_ctrl, the controller step's backward ran (every
+# frame but the last); with_input, the gradients into h(t) and Y(t) and
+# the filterbank's VJP ran (every frame but the first). LAUNCH_SHAPES
+# holds the dual entry's (both ears' 2B rows), SINGLE_LAUNCH_SHAPES the
+# single entry's (B rows, each with two filterbank rows).
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
+SINGLE_LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 
 def grow_layout(H: int, N: int) -> dict:
@@ -74,12 +89,12 @@ def grow_layout(H: int, N: int) -> dict:
     return off
 
 
-class DualRecurrenceFn(torch.autograd.Function):
+class RecurrenceFn(torch.autograd.Function):
     """apply(front, c, rhs, masks, *params) -> (Y, Q, phase), each (2, B,
-    T, N), as ``_Frontend.frame_loop`` stacks them; params are fb_L's then
-    fb_R's, each in ``controller.PARAM_NAMES``' order, the tensors
-    ``front``'s loop reads. rhs gets no gradient ("|noxg"): a
-    zero one if it requires one."""
+    T, N), as ``_Frontend.frame_loop`` stacks them; params are each of
+    ``front.controllers()``' 14 in ``controller.PARAM_NAMES``' order (the
+    dual frontend's fb_L then fb_R), the tensors ``front``'s loop reads.
+    rhs gets no gradient ("|noxg"): a zero one if it requires one."""
 
     @staticmethod
     def forward(ctx, front, c, rhs, masks, *params):
@@ -103,16 +118,18 @@ class DualRecurrenceFn(torch.autograd.Function):
         params = ctx.saved_tensors
         front, c = ctx.front, ctx.c
         T = len(ctx.fbs)
-        st = Statics(front.cfg, c, params, gY.shape[1], T)
+        st = Statics(front.cfg, c, params, gY.shape[1], T, front.y_cols())
+        E = len(st.weights)
         gY, gQ, gP = (g.contiguous() for g in (gY, gQ, gP))
-        grow = torch.empty((2, max(T - 1, 0), st.B,
+        grow = torch.empty((E, max(T - 1, 0), st.B,
                             grow_layout(st.H, st.N)["width"]),
                            device=gY.device)
         carry = (None, None)
         for t in range(T - 1, -1, -1):
             ctrl = ctx.ctrls[t] if t < T - 1 else None
             fbs = ctx.fbs[t] if t > 0 else None
-            keep = None if ctx.masks is None or ctrl is None else ctx.masks[t]
+            keep = (None if ctx.masks is None or ctrl is None
+                    else ctx.masks[t].reshape(E, 2, st.B, st.H))
             carry = frame_bwd(st, t, ctrl, keep, fbs, gY, gQ, gP, carry,
                               grow)
         grads = weight_grads(st, grow, ctx.ctrls, params)
@@ -125,27 +142,33 @@ class DualRecurrenceFn(torch.autograd.Function):
 
 class Statics:
     """What every frame of the backward shares: the shapes, the policy's
-    numbers, the constants and both ears' parameters."""
+    numbers, the constants, each controller's parameters (``weights``)
+    and the feature columns at which a controller reads each ear's Y
+    (``y_cols``, the frontend's ``y_cols()``: (0,) dual, (0, 2N)
+    single)."""
 
-    def __init__(self, cfg, c, params, B, T):
+    def __init__(self, cfg, c, params, B, T, y_cols):
         self.B, self.T = B, T
         self.N, self.H = cfg.n_bands, cfg.ctrl_hidden
         self.relative = cfg.deltaQ_mode.lower() == "relative"
         self.q_min, self.q_max = cfg.q_min, cfg.q_max
         self.rate = cfg.ctrl_dropout
         self.fc, self.Q0, self.dqv = c["fc"], c["Q0"], c["deltaQ_vec"]
-        self.ears = (params[:14], params[14:])
+        self.weights = tuple(params[i:i + 14]
+                             for i in range(0, len(params), 14))
+        self.y_cols = tuple(y_cols)
 
 
 def frame_bwd(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
-    """Frame t of the reverse recurrence (module docstring): ctrl, the two
-    ears' ``Saved`` of frame t's controller step, or None at the last
-    frame; keep, frame t's keep-masks (2, 2, B, H) or None; fbs, frame t's
-    filterbank set (Q, bw, T, Y, Zre, Zim, den, finite), or None at frame
-    0; gY, gQ, gP the outputs' gradients (2, B, T, N); carry, the
-    gradients of Q(t+1) (2, B, N) and h(t+1) (2, B, H), each None where
-    nothing flows; frame t's rows of grow (2, T-1, B, width) are written.
-    Returns the carry of frame t-1: (gradient of Q(t), of h(t))."""
+    """Frame t of the reverse recurrence (module docstring), over E = 2
+    controllers (dual) or 1 (single): ctrl, each controller's ``Saved`` of
+    frame t's step, or None at the last frame; keep, frame t's keep-masks
+    (E, 2, B, H) or None; fbs, frame t's filterbank set (Q, bw, T, Y, Zre,
+    Zim, den, finite) over both ears' 2B rows, or None at frame 0; gY, gQ,
+    gP the outputs' gradients (2, B, T, N); carry, the gradients of Q(t+1)
+    (E, B, N) and h(t+1) (E, B, H), each None where nothing flows; frame
+    t's rows of grow (E, T-1, B, width) are written. Returns the carry of
+    frame t-1: (gradient of Q(t), of h(t))."""
     if gY.is_cuda:
         return frame_bwd_cuda(st, t, ctrl, keep, fbs, gY, gQ, gP, carry,
                               grow)
@@ -189,13 +212,14 @@ def _stack(saved, name):
 
 
 def frame_bwd_plain(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
-    """frame_bwd in PyTorch ops, both ears as a leading axis of 2."""
+    """frame_bwd in PyTorch ops, the controllers as a leading axis (2
+    dual, 1 single), both ears' filterbank rows as one of 2."""
     B, N, H = st.B, st.N, st.H
     gq_in, gh_in = carry
     gyc = gh_prev = None
     if ctrl is not None:
         S = {k: _stack(ctrl, k) for k in Saved._fields}
-        W = [torch.stack([p[i] for p in st.ears]) for i in range(14)]
+        W = [torch.stack([p[i] for p in st.weights]) for i in range(14)]
         ok = S["ok"][:, None, None]
         gq = torch.where(ok, gq_in, 0.0)
         gq = torch.where((S["qraw"] >= st.q_min) & (S["qraw"] <= st.q_max),
@@ -220,7 +244,9 @@ def frame_bwd_plain(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
                                 gl1 * xh1, ga2, gl2, gl2 * xh2, ga3], -1)
         if t > 0:
             gh_prev = ghx + torch.bmm(torch.cat([grg, gig, ghn], -1), W[1])
-            gyc = torch.bmm(torch.cat([grg, gig, gin], -1), W[0][:, :, :N])
+            gates = torch.cat([grg, gig, gin], -1)
+            gyc = torch.cat([torch.bmm(gates, W[0][:, :, lo:lo + N])
+                             for lo in st.y_cols])
     if fbs is None:
         return None, None
     Q, bw, Tm, Y, Zre, Zim, den, finite = (
@@ -234,37 +260,41 @@ def frame_bwd_plain(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
     gden = -(gy * Y + gzre * Zre + gzim * Zim) / den
     g4 = torch.stack([gy / den, gzre / den, gzim / den, gden], dim=-1)
     dQ = -st.fc / torch.square(Q + EPS_Q) / bw * torch.sum(g4 * Tm, -1)
-    return dQ + gQ[:, :, t], gh_prev
+    if len(st.weights) == 2:
+        return dQ + gQ[:, :, t], gh_prev
+    # one Q for both ears: the (2B) call's and the output's gradients sum
+    return (dQ[0] + dQ[1] + gQ[0, :, t] + gQ[1, :, t])[None], gh_prev
 
 
 def weight_grads(st, grow, ctrls, params) -> list:
-    """Both ears' parameter gradients, in the Function's order, from the
-    rows of activation gradients and the saved activations: per weight
-    one f32 product batched over ears and frames, then summed over the
-    frames (one product per ear over all (T-1) B rows would give the card
-    two output tiles' worth of blocks, each summing 9,728 rows at the
-    flagship's batch); every bias and LayerNorm parameter from one sum
-    over all rows."""
+    """Every controller's parameter gradients, in the Function's order,
+    from the rows of activation gradients and the saved activations
+    (``feat`` with the memories, where the controller reads them): per
+    weight one f32 product batched over controllers and frames, then
+    summed over the frames (one product per controller over all (T-1) B
+    rows would give the card two output tiles' worth of blocks, each
+    summing 9,728 rows at the flagship's batch); every bias and LayerNorm
+    parameter from one sum over all rows."""
     if not ctrls:
         return [torch.zeros_like(p) for p in params]
     N, H = st.N, st.H
     lay = grow_layout(H, N)
-    frames = len(ctrls)
-    G = grow.view(2 * frames, st.B, lay["width"])
-    X = {k: torch.stack([getattr(s[e], k) for e in (0, 1) for s in ctrls])
+    frames, E = len(ctrls), len(st.weights)
+    G = grow.view(E * frames, st.B, lay["width"])
+    X = {k: torch.stack([getattr(s[e], k) for e in range(E) for s in ctrls])
          for k in ("feat", "ws", "hy", "d1", "d2")}
     with precision_highest():
         def mm(name, x):
             lo, hi = lay[name]
             prod = torch.bmm(G[..., lo:hi].transpose(1, 2), x)
-            return prod.view(2, frames, *prod.shape[1:]).sum(1)
+            return prod.view(E, frames, *prod.shape[1:]).sum(1)
         w_ih = mm("gi", X["feat"])
         w_hh = mm("gh", X["ws"][..., 3 * H:4 * H])
         w0, w4, w8 = mm("a1", X["hy"]), mm("a2", X["d1"]), mm("a3", X["d2"])
-    S = G.view(2, frames * st.B, -1).sum(1)
+    S = G.view(E, frames * st.B, -1).sum(1)
     col = lambda e, name: S[e, lay[name][0]:lay[name][1]]
     out = []
-    for e in (0, 1):
+    for e in range(E):
         out += [w_ih[e], w_hh[e], col(e, "gi"), col(e, "gh"), w0[e],
                 col(e, "a1"), col(e, "lx1"), col(e, "l1"), w4[e],
                 col(e, "a2"), col(e, "lx2"), col(e, "l2"), w8[e],
@@ -280,19 +310,22 @@ def _ptr(x) -> int:
 
 def frame_bwd_cuda(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
     """frame_bwd as one launch of ``frontend_bwd.cu`` on the current
-    stream, both ears. Every saved tensor is the contiguous output of the
-    forward's op; weights are the parameters, contiguous. A build or
-    launch failure raises."""
+    stream: its dual entry for two controllers (a block on rows of one
+    ear), its single entry ``single_bwd`` for one (a block on rows of the
+    shared controller, each with both ears' filterbank rows). Every saved
+    tensor is the contiguous output of the forward's op; weights are the
+    parameters, contiguous. A build or launch failure raises."""
     from ..kernels.build import check_launch, frontend_bwd_lib
 
     B, N, H = st.B, st.N, st.H
     T = st.T
+    E = len(st.weights)
     dev = gY.device
     gq_in, gh_in = carry
     with_ctrl, with_input = ctrl is not None, fbs is not None
     ears = []
-    for e in (0, 1):
-        p = st.ears[e]
+    for e in range(E):
+        p = st.weights[e]
         w = [p[0], p[1], p[4], p[8], p[12], p[6], p[10]]
         s = ctrl[e] if with_ctrl else None
         sv = ([s.ws, s.a1, s.l1, s.mu1, s.rs1, s.a2, s.l2, s.mu2, s.rs2,
@@ -302,30 +335,36 @@ def frame_bwd_cuda(st, t, ctrl, keep, fbs, gY, gQ, gP, carry, grow):
         ears.append(w + sv + k)
     fb = list(fbs) if with_input else [None] * 8
     tensors = [x for ear in ears for x in ear] + fb + [gY, gQ, gP]
+    name = "frontend_bwd" if E == 2 else "single_bwd"
     for x in tensors:
         if x is not None and not (x.is_cuda and x.device == dev
                                   and x.is_contiguous()):
-            raise ValueError("frontend_bwd needs contiguous tensors on one "
-                             "CUDA device")
+            raise ValueError(f"{name} needs contiguous tensors on one CUDA "
+                             "device")
     if grow.dtype != torch.float32 or not grow.is_contiguous():
-        raise ValueError("frontend_bwd needs a contiguous float32 grow")
-    gq_out = torch.empty((2, B, N), device=dev) if with_input else None
-    gh_out = (torch.empty((2, B, H), device=dev)
+        raise ValueError(f"{name} needs a contiguous float32 grow")
+    if st.y_cols[0] != 0 or len(st.y_cols) != 3 - E:
+        raise ValueError(f"{name} reads the left (or its own) ear's Y at "
+                         f"feature column 0, not {st.y_cols}")
+    gq_out = torch.empty((E, B, N), device=dev) if with_input else None
+    gh_out = (torch.empty((E, B, H), device=dev)
               if with_input and with_ctrl else None)
     ptrs = [_ptr(x) for x in tensors] + [
         _ptr(gq_in), _ptr(gh_in), _ptr(gq_out), _ptr(gh_out), _ptr(grow),
         _ptr(st.fc), _ptr(st.Q0), _ptr(st.dqv)]
-    n_in = st.ears[0][0].shape[1]
+    n_in = st.weights[0][0].shape[1]
     ints = [B, N, H, n_in, t, T, int(with_ctrl), int(with_input),
-            int(st.relative), card_row_tile(B, dev, 2)]
+            int(st.relative), card_row_tile(B, dev, 2, E), st.y_cols[-1]]
     floats = [st.q_min, st.q_max, 1.0 - st.rate]
+    lib = frontend_bwd_lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = frontend_bwd_lib().frontend_bwd_launch(
+        err = getattr(lib, f"{name}_launch")(
             (ctypes.c_uint64 * len(ptrs))(*ptrs), len(ptrs),
             (ctypes.c_int * len(ints))(*ints), len(ints),
             (ctypes.c_float * len(floats))(*floats), len(floats), stream)
-    check_launch(err, "frontend_bwd")
-    count_launch("frontend_bwd")
-    LAUNCH_SHAPES[(2 * B, N, H, n_in, with_ctrl, with_input)] += 1
+    check_launch(err, name)
+    count_launch(name)
+    shapes = LAUNCH_SHAPES if E == 2 else SINGLE_LAUNCH_SHAPES
+    shapes[(E * B, N, H, n_in, with_ctrl, with_input)] += 1
     return gq_out, gh_out

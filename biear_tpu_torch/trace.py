@@ -20,7 +20,7 @@ The names the port uses are fixed: ``chunk.call``, ``graph.launch``
 (attribute ``graph``, the train chunk's name), ``graph.warm_up``,
 ``graph.capture``, ``synth.bank``, ``runner.checkpoint``,
 ``runner.eval_splits``, ``frontend.loop`` (attribute ``path``: the
-adaptive frontend's frames as "recurrence", the dual frontend's one
+adaptive frontend's frames as "recurrence", either frontend's one
 autograd node, "autograd" or "no_grad").
 
 Marks. ``mark(slot)`` stamps, into row ``row[0]`` and column ``slot`` of

@@ -420,6 +420,10 @@ FB_TIMESTEPS = 19             # frames, so launches, per adaptive forward
 # clock, 128 on each of 132 SMs at 1,980 MHz) or its bytes at the HBM rate
 FBWD_BATCHES = (512, 64)
 FBWD_REL = 2e-5
+# the same for its single entry (single_bwd) at the single-controller
+# cell's frame (B = 512 rows of the shared controller, 400 GRU inputs;
+# both ears' 1,024 filterbank rows)
+SBWD_BATCHES = (512,)
 FBWD_FMA_S = 132 * 128 * 1.98e9
 # phase 3: both ears' controller step (controller_fwd.cu) against the
 # composite ops (controller_step once an ear) at the flagship's frame (B =
@@ -987,28 +991,34 @@ class _FnCtx:
         self.saved_tensors = t
 
 
-def fbwd_frame_counts(B: int, N: int, H: int) -> tuple:
+def fbwd_frame_counts(B: int, N: int, H: int, ears: int = 2) -> tuple:
     """(multiply-adds, bytes) of one full frame of frontend_bwd.cu over
-    both ears' 2B rows: N H + 2 H^2 + 3 H (H + N) multiply-adds a row; per
-    row the saved tensors (9 H + 4 + 3 N), the activation gradients and
-    the gradient of h written (13 H + N), the filterbank's set, the
-    outputs' gradients and the gradient of Q (14 N, float32) and the
-    finite mask (N bytes); each ear's weights once."""
-    rows = 2 * B
-    macs = rows * (N * H + 2 * H * H + 3 * H * (H + N))
-    floats = 9 * H + 4 + 3 * N + 13 * H + N + 14 * N
-    weights = N * H + 2 * H * H + 2 * H + 3 * H * (H + N)
-    return macs, 4.0 * rows * floats + rows * N + 8.0 * weights
+    both ears' 2B filterbank rows and `ears` controllers (2: the dual
+    entry, a controller an ear reading N columns of its ear's Y; 1: the
+    single entry, one on B rows reading 2N, both ears'): per controller
+    row N H + 2 H^2 + 3 H (H + N Y-columns) multiply-adds, the saved
+    tensors (9 H + 4 + 3 N), the activation gradients and the gradient of
+    h written (13 H + N) and the gradient of Q written (N); per
+    filterbank row its set and the outputs' gradients (13 N, float32) and
+    the finite mask (N bytes); each controller's weights once."""
+    rows, y_in = ears * B, (3 - ears) * N
+    per_row = N * H + 2 * H * H + 3 * H * (H + y_in)
+    floats = rows * (9 * H + 4 + 3 * N + 13 * H + N + N) + 2 * B * 13 * N
+    weights = per_row + 2 * H
+    return (rows * per_row,
+            4.0 * floats + 2 * B * N + 4.0 * ears * weights)
 
 
-def phase_frontend_bwd(torch) -> dict:
-    """Hold frontend_bwd.cu against frame_bwd_plain, frame by frame, on
-    the saved tensors of a real forward (the flagship's widths, seeded
-    controllers moved off their zero output layer, dropout on) at
-    FBWD_BATCHES; two backwards give the same bits; 19 launches a
-    backward; time one mid-frame launch and the plain frame in a CUDA
-    graph beside the bound, and the whole backward (19 launches and the
-    weight gradients) and its device kernels."""
+def phase_frontend_bwd(torch, mode: str = "dual") -> dict:
+    """Hold frontend_bwd.cu's entry for the `mode` frontend ("dual":
+    frontend_bwd at FBWD_BATCHES; "single": single_bwd at SBWD_BATCHES)
+    against frame_bwd_plain, frame by frame, on the saved tensors of a
+    real forward (the published widths, seeded controllers moved off
+    their zero output layer, dropout on); two backwards give the same
+    bits; 19 launches a backward; time one mid-frame launch and the plain
+    frame in a CUDA graph beside the bound, and the whole backward (19
+    launches and the weight gradients) and its device kernels. Keyed by
+    controller rows x N x H."""
     import copy
     from biear_tpu_torch.device import precision_highest
     from biear_tpu_torch.kernels import LAUNCHES
@@ -1020,12 +1030,19 @@ def phase_frontend_bwd(torch) -> dict:
     from biear_tpu_torch.ops.filterbank import stack_rhs
     from biear_tpu_torch.serve.profile_serve import device_profile
 
-    cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative",
-                      deltaQ_base=1.0, deltaQ_low_factor=0.3,
-                      deltaQ_high_factor=5.0, fb_w_dtype="bfloat16")
+    if mode == "dual":
+        cfg = BiEARConfig(controller_mode="dual", deltaQ_mode="relative",
+                          deltaQ_base=1.0, deltaQ_low_factor=0.3,
+                          deltaQ_high_factor=5.0, fb_w_dtype="bfloat16")
+        name, batches = "frontend_bwd", FBWD_BATCHES
+    else:   # conf/config_single_ctrl.yaml's rule, perfbench's biear-single
+        cfg = BiEARConfig(controller_mode="single", deltaQ_mode="absolute",
+                          deltaQ_base=2.0, deltaQ_low_factor=0.5,
+                          deltaQ_high_factor=5.0, fb_w_dtype="bfloat16")
+        name, batches = "single_bwd", SBWD_BATCHES
     N, H, T = cfg.n_bands, cfg.ctrl_hidden, cfg.timesteps
     out = {}
-    for B in FBWD_BATCHES:
+    for B in batches:
         model = build_active(cfg, seed=B)
         perturb_controllers(torch, model, B)
         front = model.bifb
@@ -1035,13 +1052,15 @@ def phase_frontend_bwd(torch) -> dict:
         sL, sR = (fe.spectra(cfg, w, c) for w in wav)
         rhs = torch.cat([stack_rhs(*sL, True),
                          stack_rhs(*sR, True)]).transpose(0, 1)
-        masks = dropout_masks(gen, cfg.ctrl_dropout, (T, 2, 2, B, H))
-        params = [p for ctrl in (front.fb_L, front.fb_R)
-                  for p in controller_params(ctrl)]
+        masks = dropout_masks(gen, cfg.ctrl_dropout,
+                              (T, *front.mask_shape(B)))
+        ctrls = front.controllers()
+        E = len(ctrls)
+        params = [p for ctrl in ctrls for p in controller_params(ctrl)]
         ctx = _FnCtx()
         with torch.no_grad():
-            outs = fbw.DualRecurrenceFn.forward(ctx, front, c, rhs, masks,
-                                                *params)
+            outs = fbw.RecurrenceFn.forward(ctx, front, c, rhs, masks,
+                                            *params)
         cot = [torch.randn(o.shape, generator=gen, device="cuda")
                for o in outs]
         worst = {}
@@ -1058,7 +1077,7 @@ def phase_frontend_bwd(torch) -> dict:
                 pairs.append(("grow", grow[:, t], g2[:, t]))
             for k, a, b in pairs:
                 if (a is None) != (b is None):
-                    raise RuntimeError(f"frontend_bwd frame {t}: {k}")
+                    raise RuntimeError(f"{name} frame {t}: {k}")
                 if a is not None:
                     worst[k] = max(worst.get(k, 0.0), float(
                         (a - b).norm() / b.norm().clamp_min(1e-30)))
@@ -1066,24 +1085,23 @@ def phase_frontend_bwd(torch) -> dict:
         LAUNCHES.clear()
         fbw.frame_bwd_cuda = both
         try:
-            grads = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+            grads = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
         finally:
             fbw.frame_bwd_cuda = real
-        if LAUNCHES["frontend_bwd"] != T or not max(worst.values()) <= \
-                FBWD_REL:
-            raise RuntimeError(f"frontend_bwd B={B}: {worst}, "
-                               f"{LAUNCHES['frontend_bwd']} launches")
-        again = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        if LAUNCHES[name] != T or not max(worst.values()) <= FBWD_REL:
+            raise RuntimeError(f"{name} B={B}: {worst}, "
+                               f"{LAUNCHES[name]} launches")
+        again = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
         if not all(torch.equal(a, b) for a, b in zip(grads[4:], again[4:])):
-            raise RuntimeError(f"frontend_bwd B={B}: two backwards differ")
-        st = fbw.Statics(cfg, c, ctx.saved_tensors, B, T)
+            raise RuntimeError(f"{name} B={B}: two backwards differ")
+        st = fbw.Statics(cfg, c, ctx.saved_tensors, B, T, front.y_cols())
         t = T // 2
-        grow = torch.empty((2, T - 1, B, fbw.grow_layout(H, N)["width"]),
+        grow = torch.empty((E, T - 1, B, fbw.grow_layout(H, N)["width"]),
                            device="cuda")
-        carry = (torch.randn((2, B, N), generator=gen, device="cuda"),
-                 torch.randn((2, B, H), generator=gen, device="cuda"))
-        args = (st, t, ctx.ctrls[t], masks[t], ctx.fbs[t],
-                *[x.contiguous() for x in cot], carry, grow)
+        carry = (torch.randn((E, B, N), generator=gen, device="cuda"),
+                 torch.randn((E, B, H), generator=gen, device="cuda"))
+        args = (st, t, ctx.ctrls[t], masks[t].reshape(E, 2, B, H),
+                ctx.fbs[t], *[x.contiguous() for x in cot], carry, grow)
         row = {"share_of_rel_limit": max(worst.values()) / FBWD_REL,
                "worst_rel": worst}
         row["ms"] = graph_ms(torch, lambda: real(*args))
@@ -1093,17 +1111,17 @@ def phase_frontend_bwd(torch) -> dict:
             row["plain_kernels_per_call"] = device_profile(
                 lambda: fbw.frame_bwd_plain(*args),
                 calls=3)["kernels_per_call"]
-        macs, nbytes = fbwd_frame_counts(B, N, H)
+        macs, nbytes = fbwd_frame_counts(B, N, H, E)
         t_op, t_bytes = macs / FBWD_FMA_S, nbytes / H100_HBM_BYTES_S
         row.update(bound_ms=max(t_op, t_bytes) * 1e3,
                    bound_by="multiply-adds" if t_op > t_bytes else "bytes")
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        whole = lambda: fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        whole = lambda: fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
         row["backward_ms"] = graph_ms(torch, whole)
         row["backward_kernels"] = device_profile(
             whole, calls=3)["kernels_per_call"]
-        out[f"{2 * B}x{N}x{H}"] = row
-        log(f"frontend_bwd {2 * B}x{N}x{H}: {json.dumps(row)}")
+        out[f"{E * B}x{N}x{H}"] = row
+        log(f"{name} {E * B}x{N}x{H}: {json.dumps(row)}")
     return out
 
 
@@ -4170,6 +4188,7 @@ def main() -> int:
     fused_check = phase_fused_update(torch, synth)
     fb_check = phase_fb_gauss(torch, synth, rng)
     fbwd_check = phase_frontend_bwd(torch)
+    sbwd_check = phase_frontend_bwd(torch, "single")
     cfwd_check = phase_controller_fwd(torch)
     errs, wtiming = phase_window_kernels(torch, synth)
     launches = {"serve": phase_serve(torch, rng)}
@@ -4248,7 +4267,16 @@ def main() -> int:
                            "counterpart of XLA's fusion of the dual "
                            "frontend's scan and its reverse pass)",
                     launches=total("frontend_bwd"),
-                    launches_by_path=by_path("frontend_bwd"), **fbwd_check),
+                    launches_by_path=by_path("frontend_bwd"),
+                    **fbwd_check),
+               dict(name="single_bwd", route="cuda",
+                    source="biear_tpu_torch/kernels/frontend_bwd.cu",
+                    replaces=None,
+                    status="the port's own: replaces no TPU kernel (the "
+                           "counterpart of XLA's fusion of the single "
+                           "frontend's scan and its reverse pass)",
+                    launches=total("single_bwd"),
+                    launches_by_path=by_path("single_bwd"), **sbwd_check),
                dict(name="controller_fwd", route="cuda",
                     source="biear_tpu_torch/kernels/controller_fwd.cu",
                     replaces=None,
@@ -4258,9 +4286,10 @@ def main() -> int:
                     launches=total("controller_fwd"),
                     launches_by_path=by_path("controller_fwd"),
                     **cfwd_check)]
-    # the reverse recurrence runs on the dual frontend's bf16 training
-    # paths only: 19 a step, none under f32, the single controller,
-    # AuralNet, the passive family or any path without a backward
+    # the dual entry of the reverse recurrence runs on the dual
+    # frontend's bf16 training paths only: 19 a step, none under f32, the
+    # single controller, AuralNet, the passive family or any path without
+    # a backward
     from biear_tpu_torch.graph import WARMUP_STEPS
     for path, got in by_path("frontend_bwd").items():
         if any(w in path for w in ("auralnet", "passive", "f32", "single",
@@ -4271,6 +4300,17 @@ def main() -> int:
                 FB_TIMESTEPS * (TRAIN_STEPS + WARMUP_STEPS):
             raise RuntimeError(f"frontend_bwd launched {got} times on "
                                f"{path}")
+    # its single entry runs on the single controller's bf16 training path
+    # only: 19 a step, none on the dual frontend's nor without a backward
+    for path, got in by_path("single_bwd").items():
+        if (path == "train_bf16" or any(
+                w in path for w in ("auralnet", "passive", "f32", "serve",
+                                    "stream", "eval", "infer", "predict",
+                                    "scoring"))) and got:
+            raise RuntimeError(f"single_bwd launched on {path}")
+        if path == "train_single_bf16" and got != \
+                FB_TIMESTEPS * (SINGLE_TRAIN_STEPS + WARMUP_STEPS):
+            raise RuntimeError(f"single_bwd launched {got} times on {path}")
     # the controller step runs as one launch a frame wherever the dual
     # frontend steps without gradients in f32 products: 18 a bf16 train
     # step (inside the recurrence Function), serving, streaming; never in

@@ -383,8 +383,8 @@ def test_the_reverse_recurrence_on_the_kernels_saved_set(monkeypatch, B):
     def forward():
         ctx = _Ctx()
         with torch.no_grad():
-            outs = fbw.DualRecurrenceFn.forward(ctx, front, c, rhs, masks,
-                                                *params)
+            outs = fbw.RecurrenceFn.forward(ctx, front, c, rhs, masks,
+                                            *params)
         return ctx, outs
     LAUNCHES.clear()
     _, outs = forward()
@@ -409,8 +409,8 @@ def test_the_reverse_recurrence_on_the_kernels_saved_set(monkeypatch, B):
             worst[k] = max(worst.get(k, 0.0), v)
     assert max(worst.values()) < CARD_REL, worst
     cot = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
-    got = fbw.DualRecurrenceFn.backward(kctx, *cot)
-    want = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+    got = fbw.RecurrenceFn.backward(kctx, *cot)
+    want = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
     rel = {name: _rel(a, b) for name, a, b in zip(
         [f"{e}.{n}" for e in ("L", "R") for n in tctrl.PARAM_NAMES],
         got[4:], want[4:])}

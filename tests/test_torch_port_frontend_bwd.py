@@ -7,9 +7,10 @@ parameter's gradient (and a spectra gradient of zero) to float32 rounding.
 Cases: both ears with dropout, an odd batch, a frame where the finite
 reset fires in one ear, Q pinned at q_min and at q_max, rows whose Y is
 nonfinite (the finite mask), a Q-regulariser loss on the Q output, the
-absolute next-Q rule. The routing: only the dual frontend under the
-bf16|noxg policy with the custom VJP, f32 products and autograd takes the
-Function; everything else keeps the loop.
+absolute next-Q rule. The routing: only the bf16|noxg policy with the
+custom VJP, f32 products and autograd takes the Function (the single
+frontend's cases: ``test_torch_port_single_bwd.py``); everything else
+keeps the loop.
 
 The tests marked ``cuda`` hold ``kernels/frontend_bwd.cu`` against the
 plain backward on the card, frame by frame, at the flagship's frame (1,024
@@ -219,7 +220,7 @@ def test_plain_frames_write_every_activation_gradient_row(monkeypatch):
 
 
 @pytest.mark.parametrize("change,takes", [
-    ({}, True), ({"controller_mode": "single"}, False),
+    ({}, True), ({"controller_mode": "single"}, True),
     ({"fb_w_dtype": "float32"}, False), ({"fb_x_grad": True}, False),
     ({"fb_vjp": "autodiff"}, False), ({"freeze_q": True}, False),
     ({"fixed_frontend_q": True}, False)],
@@ -227,11 +228,14 @@ def test_plain_frames_write_every_activation_gradient_row(monkeypatch):
          "freeze-q", "fixed-q"])
 def test_only_the_dual_bf16_noxg_custom_frontend_takes_the_function(
         monkeypatch, change, takes):
+    """The bf16|noxg custom policy under autograd takes the Function, in
+    the dual frontend and (since it has a recurrence of its own) in the
+    single one; every other policy keeps the loop."""
     from biear_tpu_torch.models import build_active
 
     calls = []
-    real = tfe.DualFrontend.recurrence
-    monkeypatch.setattr(tfe.DualFrontend, "recurrence",
+    real = tfe._Frontend.recurrence
+    monkeypatch.setattr(tfe._Frontend, "recurrence",
                         lambda *a: calls.append(1) or real(*a))
     cfg = BiEARConfig(**{**SMALL, **change})
     model = build_active(cfg, seed=1, device="cpu").train()
@@ -265,9 +269,10 @@ def test_the_cuda_entry_refuses_cpu_tensors_before_the_library(monkeypatch):
     assert not fbw.LAUNCH_SHAPES
     ctx = _Ctx()
     with torch.no_grad():
-        fbw.DualRecurrenceFn.forward(ctx, front, c, rhs, masks,
-                                     *_params(front))
-    st = fbw.Statics(front.cfg, c, ctx.saved_tensors, 2, 4)
+        fbw.RecurrenceFn.forward(ctx, front, c, rhs, masks,
+                                 *_params(front))
+    st = fbw.Statics(front.cfg, c, ctx.saved_tensors, 2, 4,
+                     front.y_cols())
     g = torch.zeros((2, 2, 4, 9))
     grow = torch.empty((2, 3, 2, fbw.grow_layout(8, 9)["width"]))
     with pytest.raises(ValueError, match="CUDA"):
@@ -305,8 +310,8 @@ def _card_case(B, seed):
     front, c, rhs, masks = _case(B, seed=seed, device="cuda", **FLAGSHIP)
     ctx = _Ctx()
     with torch.no_grad():
-        outs = fbw.DualRecurrenceFn.forward(ctx, front, c, rhs, masks,
-                                            *_params(front))
+        outs = fbw.RecurrenceFn.forward(ctx, front, c, rhs, masks,
+                                        *_params(front))
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cot = [torch.randn(o.shape, generator=gen, device="cuda") for o in outs]
     return front, c, rhs, masks, ctx, outs, cot
@@ -346,7 +351,7 @@ def test_kernel_matches_plain_on_card(B):
     LAUNCHES.clear()
     fbw.frame_bwd_cuda = both
     try:
-        got = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        got = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
     finally:
         fbw.frame_bwd_cuda = real
     assert LAUNCHES["frontend_bwd"] == 19
@@ -355,12 +360,12 @@ def test_kernel_matches_plain_on_card(B):
     fbw.frame_bwd = lambda *a: fbw.frame_bwd_plain(*a)
     try:
         with precision_highest():
-            want = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+            want = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
     finally:
         fbw.frame_bwd = plain
     rel = [_rel(a, b) for a, b in zip(got[4:], want[4:])]
     assert max(rel) < 1e-4, rel
-    again = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+    again = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
     assert all(torch.equal(a, b) for a, b in zip(got[4:], again[4:]))
 
 
@@ -372,15 +377,15 @@ def test_kernel_backward_in_a_cuda_graph():
     from biear_tpu_torch.kernels import count_replay, recording_launches
 
     *_, ctx, outs, cot = _card_case(512, seed=3)
-    eager = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+    eager = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with recording_launches() as rec, torch.cuda.graph(graph):
-        out = fbw.DualRecurrenceFn.backward(copy.copy(ctx), *cot)
+        out = fbw.RecurrenceFn.backward(copy.copy(ctx), *cot)
     assert rec["frontend_bwd"] == 19
     LAUNCHES.clear()
     replays = []

@@ -366,7 +366,7 @@ FRONTEND_PATHS = {
     "dual-f32": (dict(SMALL, fb_w_dtype="float32"), "autograd"),
     "single-bf16": (dict(SMALL, controller_mode="single",
                          deltaQ_mode="absolute", fb_w_dtype="bfloat16"),
-                    "autograd"),
+                    "recurrence"),
 }
 
 
@@ -387,9 +387,9 @@ def _eager_chunk(model, steps: int = 2):
 def test_the_frontend_marks_lie_in_stream_order_on_each_path(name):
     """synthesis <= frontend <= forward <= frontend_grad <= backward in
     every step of an eager chunk: the dual frontend under
-    ``DualRecurrenceFn`` (bf16) and under the autograd frame loop (f32),
-    the single frontend under the autograd loop; the ``frontend.loop``
-    span names the path, once a step."""
+    ``RecurrenceFn`` (bf16) and under the autograd frame loop (f32),
+    the single frontend under ``RecurrenceFn`` (bf16); the
+    ``frontend.loop`` span names the path, once a step."""
     kw, path = FRONTEND_PATHS[name]
     rec = _eager_chunk(ActiveBiEAR(BiEARConfig(**kw)).init_weights_(1))
     _check_marks(rec["marks"])

@@ -361,14 +361,15 @@ def _jax_trajectory(cfg_j, params, hp, batches):
 @pytest.mark.parametrize("controller_mode,fb_vjp,fb_w_dtype", [
     ("dual", "autodiff", "float32"), ("dual", "custom", "float32"),
     ("single", "autodiff", "float32"), ("single", "custom", "float32"),
-    ("dual", "custom", "bfloat16")],
+    ("dual", "custom", "bfloat16"), ("single", "custom", "bfloat16")],
     ids=["autodiff", "custom", "single-autodiff", "single-custom",
-         "custom-bf16-noxg"])
+         "custom-bf16-noxg", "single-custom-bf16-noxg"])
 def test_three_step_trajectory_matches_jax(controller_mode, fb_vjp,
                                            fb_w_dtype):
     """Three steps against JAX's; "custom-bf16-noxg" is the production
     policy (bf16 filterbank operands, no spectra gradient), whose dual
-    frontend trains through models/frontend_bwd.py's recurrence."""
+    and single frontends train through models/frontend_bwd.py's
+    recurrence."""
     kw = dict(TINY, ctrl_dropout=0.0, backend_dropout=0.0, fb_vjp=fb_vjp,
               controller_mode=controller_mode, fb_w_dtype=fb_w_dtype)
     cfg_j, params, model = _pair(kw, seed=0)
