@@ -5,11 +5,12 @@ Each kernel is one ``.cu`` file in this directory with a plain C interface
 ``torch.utils.cpp_extension.load`` compiles it for ``sm_90a`` into its own
 directory ``_build/<name>/`` beside this file (git-ignored; ninja skips an
 unchanged source), and ``ctypes`` binds its C functions. One directory per
-kernel lets ``build_all`` run the eight builds (``cc_lags``,
+kernel lets ``build_all`` run the nine builds (``cc_lags``,
 ``gather_windows``, ``gather_mix_kb``, the recorder's ``trace_mark``, the
 optimizer's ``fused_update``, the adaptive filterbank's ``fb_gauss``, the
-adaptive frontends' reverse recurrence ``frontend_bwd`` and the dual
-frontend's controller step ``controller_fwd``) at once;
+adaptive frontends' reverse recurrence ``frontend_bwd``, the dual
+frontend's controller step ``controller_fwd`` and the frame spectra
+``spectra``) at once;
 ``build_all_with_report`` also returns what ``ptxas -v`` said of each
 entry function (registers, spills, shared memory). Nothing is built at
 import time: the CPU tests import every module of the package on a
@@ -34,7 +35,8 @@ BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 CUDA_FLAGS = ["-O3", "-std=c++17", "-gencode=arch=compute_90a,code=sm_90a",
               "-Xptxas=-v"]
 KERNELS = ("cc_lags", "gather_windows", "gather_mix_kb", "trace_mark",
-           "fused_update", "fb_gauss", "frontend_bwd", "controller_fwd")
+           "fused_update", "fb_gauss", "frontend_bwd", "controller_fwd",
+           "spectra")
 
 
 def build_dir(name: str) -> str:
@@ -146,6 +148,18 @@ def controller_fwd_lib() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.controller_fwd_launch.argtypes = [ptr, i32, ptr, i32, ptr, i32, ptr]
     lib.controller_fwd_launch.restype = i32
+    return lib
+
+
+@functools.cache
+def spectra_lib() -> ctypes.CDLL:
+    """The frame spectra, both ears' filterbank operand or one ear's f32
+    spectra a launch (spectra.cu)."""
+    lib = ctypes.CDLL(build("spectra"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.spectra_launch.argtypes = ([ptr, i32, i32] * 2 + [i32] * 5
+                                   + [ptr] * 8)
+    lib.spectra_launch.restype = i32
     return lib
 
 

@@ -66,7 +66,8 @@ class BiEARConfig:
     fb_x_grad: bool = False
 
     # frame spectra: "fft" = rFFT; "matmul" = windowed DFT as a product;
-    # "auto" = matmul exactly under the bf16 policy.
+    # "auto" = the product's contract exactly under the bf16 policy: the
+    # product on the CPU, kernels/spectra.cu on the card.
     dft_mode: str = "auto"
 
     # AuralNet baseline
@@ -92,7 +93,9 @@ class BiEARConfig:
     @property
     def use_dft_matmul(self) -> bool:
         """Resolve dft_mode: 'auto' ties the DFT product to the bf16
-        policy; the f32 parity surface keeps the rFFT."""
+        policy (run as the product on the CPU and as
+        ``kernels/spectra.cu`` on the card, ``models/frontend.py::
+        spectra_on_kernel``); the f32 parity surface keeps the rFFT."""
         if self.dft_mode == "auto":
             return self.fb_w_dtype == "bfloat16"
         return self.dft_mode == "matmul"

@@ -3,6 +3,10 @@ fixed-Q path.
 
 Counterpart of ``biear_tpu/models/frontend.py``. All T frames are framed
 and transformed at once; only the Q feedback loop runs frame by frame.
+Under the bf16 policy ``dft_mode`` "auto" takes the spectra as the DFT
+product on the CPU and as one launch of ``kernels/spectra.cu`` on the card
+(``spectra_on_kernel``), which writes the adaptive frontends' bf16 operand
+for both ears at once (``frame_rhs``) or one ear's f32 spectra.
 A frame is the frontend's ``filter`` (both ears' filterbank with the
 carry's Q, and the band phase) then its ``step`` (the controller step of
 ``models/controller.py``, written once, for the next frame's Q; the dual
@@ -62,8 +66,10 @@ from .. import trace
 from ..device import constant_cache, precision_highest
 from ..ops.erb import erb_spaced_fc_and_q, make_deltaQ_profile
 from ..ops.filterbank import (band_phase, fb_forward, filterbank_apply_rhs,
-                              resolve_fb_vjp, stack_rhs)
+                              resolve_fb_vjp)
 from ..ops.framing import frame_1s, frame_params, hann_window_periodic
+from ..ops.spectra import (dft_plain, fft_twiddles, rhs_cuda, rhs_plain,
+                           spectra_cuda)
 from . import frontend_bwd
 from .config import BiEARConfig
 from .controller import (Controller, controller_params, controller_step,
@@ -106,37 +112,73 @@ def frontend_constants(cfg: BiEARConfig) -> dict:
 
 
 def device_constants(cfg: BiEARConfig, device) -> dict:
-    """frontend_constants with the arrays as tensors on `device`, copied
-    there once per (cfg, device) and shared by every caller (read only):
-    a copy per forward would put a host transfer inside every step."""
+    """frontend_constants and the spectra kernel's twiddles
+    (``ops/spectra.py::fft_twiddles``) with the arrays as tensors on
+    `device`, copied there once per (cfg, device) and shared by every
+    caller (read only): a copy per forward would put a host transfer
+    inside every step."""
     return _device_constants(cfg, torch.device(device))
 
 
 @constant_cache
 def _device_constants(cfg: BiEARConfig, device: torch.device) -> dict:
+    consts = {**frontend_constants(cfg), **fft_twiddles(cfg.n_fft)}
     return {k: torch.as_tensor(v, device=device) if isinstance(v, np.ndarray)
-            else v for k, v in frontend_constants(cfg).items()}
+            else v for k, v in consts.items()}
 
 
-def frame_spectra(cfg: BiEARConfig, frames: torch.Tensor, c: dict):
+def spectra_on_kernel(cfg: BiEARConfig, x: torch.Tensor) -> bool:
+    """Whether the spectra of frames `x` run on ``kernels/spectra.cu``:
+    dft_mode "auto" under the bf16 policy (where "auto" means the DFT
+    product) on a CUDA tensor. The CPU keeps the product, the f32 policy
+    the rFFT, and an explicit "fft" or "matmul" its own path."""
+    return cfg.dft_mode == "auto" and cfg.use_dft_matmul and x.is_cuda
+
+
+def frame_spectra(cfg: BiEARConfig, frames: torch.Tensor, c: dict,
+                  mag_only: bool = False):
     """frames (..., win) -> (Xmag, Xre, Xim), each (..., F).
 
     "fft": rFFT of the Hann-windowed, zero-padded frames. "matmul": the
     windowed DFT bases as one f32 product each (TF32 off on the card,
-    under every MATMUL_PRECISION)."""
+    under every MATMUL_PRECISION; ``ops/spectra.py::dft_plain``). "auto"
+    under the bf16 policy: the product on the CPU, one launch of
+    ``kernels/spectra.cu`` on the card (``spectra_on_kernel``), which with
+    `mag_only` writes Xmag alone and returns (Xmag, None, None)."""
+    if spectra_on_kernel(cfg, frames):
+        return spectra_cuda(frames, c, cfg.n_fft, mag_only)
     if cfg.use_dft_matmul:
-        with precision_highest():
-            re = frames @ c["dft_re"]
-            im = frames @ c["dft_im"]
-        return torch.sqrt(re * re + im * im), re, im
+        return dft_plain(frames, c["dft_re"], c["dft_im"])
     X = torch.fft.rfft(frames * c["window"], n=cfg.n_fft)
     return X.abs(), X.real, X.imag
 
 
-def spectra(cfg: BiEARConfig, wav: torch.Tensor, c: dict):
-    """wav (B, Nsamp) -> (Xmag, Xre, Xim), each (B, T, F)."""
-    frames = frame_1s(wav, cfg.fs, cfg.timesteps, c["win"], c["hop"])
-    return frame_spectra(cfg, frames, c)
+def frames_of(cfg: BiEARConfig, wav: torch.Tensor, c: dict) -> torch.Tensor:
+    """wav (B, Nsamp) -> its T frames (B, T, win), a view where no padding
+    is needed."""
+    return frame_1s(wav, cfg.fs, cfg.timesteps, c["win"], c["hop"])
+
+
+def spectra(cfg: BiEARConfig, wav: torch.Tensor, c: dict,
+            mag_only: bool = False):
+    """wav (B, Nsamp) -> (Xmag, Xre, Xim), each (B, T, F); `mag_only` as
+    for frame_spectra."""
+    return frame_spectra(cfg, frames_of(cfg, wav, c), c, mag_only)
+
+
+def frame_rhs(cfg: BiEARConfig, framesL: torch.Tensor,
+              framesR: torch.Tensor, c: dict) -> torch.Tensor:
+    """Both ears' filterbank operand [mag, re, im, 1] from their frames:
+    (T, 2B, 4, F) from frames (B, T, win) (the frame axis first, a
+    transposed view of the (2B, T, 4, F) stack), (2B, 4, F) from one frame
+    an ear (B, win); bf16 under the bf16 policy. Where the spectra run on
+    the kernel (``spectra_on_kernel``), one launch writes it for both
+    ears; elsewhere ``ops/spectra.py::rhs_plain`` of frame_spectra."""
+    if spectra_on_kernel(cfg, framesL):
+        return rhs_cuda(framesL, framesR, c, cfg.n_fft)
+    return rhs_plain(frame_spectra(cfg, framesL, c),
+                     frame_spectra(cfg, framesR, c),
+                     cfg.fb_w_dtype == "bfloat16")
 
 
 def fixed_forward(cfg: BiEARConfig, c: dict, Xmag, Xre, Xim):
@@ -176,18 +218,15 @@ class _Frontend(nn.Module):
         train with a generator draws the controller dropout masks."""
         cfg = self.cfg
         c = device_constants(cfg, wavL.device)
-        specL = spectra(cfg, wavL, c)
-        specR = spectra(cfg, wavR, c)
         if cfg.fixed_frontend_q:
-            YL, QL, phL = fixed_forward(cfg, c, *specL)
-            YR, QR, phR = fixed_forward(cfg, c, *specR)
+            YL, QL, phL = fixed_forward(cfg, c, *spectra(cfg, wavL, c))
+            YR, QR, phR = fixed_forward(cfg, c, *spectra(cfg, wavR, c))
             return trace.frontend_marks(YL, YR, QL, QR, phL, phR)
 
-        bf16 = cfg.fb_w_dtype == "bfloat16"
         B, T = wavL.shape[0], cfg.timesteps
         # (T, 2B, 4, F): both ears batched into every frame's filterbank
-        rhs = torch.cat([stack_rhs(*specL, bf16), stack_rhs(*specR, bf16)])
-        rhs = rhs.transpose(0, 1)
+        rhs = frame_rhs(cfg, frames_of(cfg, wavL, c), frames_of(cfg, wavR, c),
+                        c)
         masks = None
         if train and gen is not None and cfg.ctrl_dropout > 0.0:
             masks = dropout_masks(gen, cfg.ctrl_dropout,
@@ -406,7 +445,7 @@ def auralnet_fb(cfg: BiEARConfig, wav: torch.Tensor, c: dict) -> torch.Tensor:
     T, N), the magnitude spectra times the clamped-Q0 matrix ``W_fixed``
     in f32 under either policy (TF32 off on the card), then nan_to_num.
     No phase (JAX ``auralnet_fb``)."""
-    Xmag = spectra(cfg, wav, c)[0]
+    Xmag = spectra(cfg, wav, c, mag_only=True)[0]
     with precision_highest():
         Y = Xmag @ c["W_fixed"].T
     return torch.nan_to_num(Y, nan=0.0, posinf=0.0, neginf=0.0)

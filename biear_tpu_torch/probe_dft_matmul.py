@@ -22,7 +22,11 @@ noise; batch 1024 = both ears of batch 512):
   * ``dft_bf16``: flat, bf16 operands on the tensor cores, bf16 result
     (what CUDA autocast would run);
   * ``dft_bf16_operands``: flat, operands rounded to bf16, f32 products
-    and result (a TPU's DEFAULT precision, the JAX tool's "bf16").
+    and result (a TPU's DEFAULT precision, the JAX tool's "bf16");
+  * ``kernel``: ``spectra`` with dft_mode "auto" under the bf16 policy,
+    what the model runs since the frame spectra kernel: on the card one
+    launch of ``kernels/spectra.cu`` (a real FFT in f32 of the frames
+    read in place; its f32 (mag, re, im) form), on the CPU the product.
 
 Reported per variant: the accuracy of mag, re and im against ``rfft``
 (largest error over the spectrum's largest value, RMS error over the
@@ -62,10 +66,11 @@ def dft_bases(cfg: BiEARConfig, device) -> tuple:
     return c["dft_re"], c["dft_im"]
 
 
-def model_spectra(cfg: BiEARConfig, dft_mode: str):
+def model_spectra(cfg: BiEARConfig, dft_mode: str, **policy):
     """wav -> (mag, re, im) through the model's own ``spectra`` under
-    `dft_mode` ("fft" or "matmul")."""
-    cfg = dataclasses.replace(cfg, dft_mode=dft_mode)
+    `dft_mode` ("fft", "matmul" or "auto") and the config fields
+    `policy`."""
+    cfg = dataclasses.replace(cfg, dft_mode=dft_mode, **policy)
     return lambda wav: spectra(cfg, wav, device_constants(cfg, wav.device))
 
 
@@ -99,6 +104,7 @@ def variants(cfg: BiEARConfig) -> dict:
         "dft_bf16": make_spectra_dft(cfg, torch.bfloat16),
         "dft_bf16_operands": make_spectra_dft(cfg, torch.bfloat16,
                                               round_only=True),
+        "kernel": model_spectra(cfg, "auto", fb_w_dtype="bfloat16"),
     }
 
 

@@ -22,7 +22,9 @@ Equivalence with the model's forward on the same 1 s crop (T hop-chunks,
 then the fs - T * hop residual samples to ``stream_readout``):
 
   * the frontend runs the same per-frame method (``frame``) as the
-    forward's loop, on the same spectra code (``frame_spectra``);
+    forward's loop, on the same spectra code (``frame_rhs`` or
+    ``frame_spectra``; under the bf16 policy on the card one launch of
+    ``kernels/spectra.cu`` a hop, a frame row with T = 1);
   * the encoders run ``in_norm`` and the GRU cells one frame at a time
     (``GRU.step``) and keep a running sum, where the forward runs the
     sequence through ``nn.GRU`` (cuDNN on the card) and takes a time mean:
@@ -51,8 +53,8 @@ from ..device import constant_cache, precision_highest
 from ..models.backend import ild_features, ipd_features
 from ..models.biear import ActiveBiEAR
 from ..models.config import BiEARConfig
-from ..models.frontend import device_constants, fixed_forward, frame_spectra
-from ..ops.filterbank import stack_rhs
+from ..models.frontend import (device_constants, fixed_forward, frame_rhs,
+                               frame_spectra)
 from ..ops.framing import frame_params
 from ..ops.xcorr import device_lag_plan, interp_to_lags, lag_plan
 from ..graph import captured_forward, host_input, use_capture
@@ -315,17 +317,17 @@ def _cc_readout(cc: dict, plan: dict) -> torch.Tensor:
 
 # ---------------- per-frame step ----------------
 
-def _frontend_step(model: ActiveBiEAR, c: dict, fe: tuple, xsL, xsR):
-    """One frame through the model's frontend: spectra (B, F) per ear ->
+def _frontend_step(model: ActiveBiEAR, c: dict, fe: tuple, chunkL, chunkR):
+    """One frame through the model's frontend: a hop (B, win) per ear ->
     (fe', YL, YR, phaseL, phaseR), each output (B, N)."""
     cfg = model.cfg
     if cfg.fixed_frontend_q:
-        ex = lambda xs: tuple(x[:, None] for x in xs)      # (B, 1, F)
-        YL, _, phL = fixed_forward(cfg, c, *ex(xsL))
-        YR, _, phR = fixed_forward(cfg, c, *ex(xsR))
+        # (B, 1, F) each
+        xs = lambda w: tuple(x[:, None] for x in frame_spectra(cfg, w, c))
+        YL, _, phL = fixed_forward(cfg, c, *xs(chunkL))
+        YR, _, phR = fixed_forward(cfg, c, *xs(chunkR))
         return fe, YL[:, 0], YR[:, 0], phL[:, 0], phR[:, 0]
-    bf16 = cfg.fb_w_dtype == "bfloat16"
-    rhs = torch.cat([stack_rhs(*xsL, bf16), stack_rhs(*xsR, bf16)])
+    rhs = frame_rhs(cfg, chunkL, chunkR, c)                 # (2B, 4, F)
     fe, (Y, _, phase) = model.bifb.frame(c, model.bifb.filterbank(c), fe,
                                          rhs)
     return fe, Y[0], Y[1], phase[0], phase[1]
@@ -346,9 +348,8 @@ def _stream_step(model: ActiveBiEAR, state: dict, chunkL, chunkR) -> dict:
     chunkL, chunkR = chunkL.float(), chunkR.float()
     c = device_constants(cfg, chunkL.device)
     with precision_highest():
-        xsL = frame_spectra(cfg, chunkL, c)
-        xsR = frame_spectra(cfg, chunkR, c)
-        fe, YL, YR, phL, phR = _frontend_step(model, c, state["fe"], xsL, xsR)
+        fe, YL, YR, phL, phR = _frontend_step(model, c, state["fe"], chunkL,
+                                              chunkR)
         x1 = torch.clamp(torch.log(YL + 1e-8), -12.0, 12.0)
         x2 = torch.clamp(torch.log(YR + 1e-8), -12.0, 12.0)
         out = {"t": state["t"] + 1, "fe": fe,

@@ -77,7 +77,8 @@ Phases, each of which raises on failure (the exit code is then not 0):
   8. stream: ``serve.streaming.stream_apply`` of the dual, single and
      fixed-Q models at full width, batch 64, against the model's forward
      on the same crop (STREAM_ATOL on every output, f32 with TF32 off and
-     bf16 with the DFT as a product); half the slots reset mid-stream must
+     bf16 with the spectra kernel, a launch a hop); half the slots reset
+     mid-stream must
      equal fresh streams bit for bit; per-hop times at batch 1 and 512.
   9. evaluate: a 256-row shard synthesised on the card (the bf16 mix and
      CC kernels), written to a temporary directory, evaluated with
@@ -216,7 +217,14 @@ Phases, each of which raises on failure (the exit code is then not 0):
      (d) ``probe_dft_matmul.probe`` at the production shape
      (batch 1024), DFT_PROBE_ITERS chained calls: each product's spectra
      against cuFFT's within DFT_PROBE_TOL of the spectrum's largest
-     value, and the times.
+     value, and the times; then ``kernels/spectra.cu`` at
+     SPECTRA_BATCHES rows an ear: the main path's form (``rhs_cuda``, both
+     ears' bf16 [mag, re, im, 1] operand) against ``rhs_plain`` of the
+     plain product, AuralNet's magnitudes alone and the f32 spectra
+     against the product (SPECTRA_F32_TOL, SPECTRA_DIFF_SHARE), two
+     launches the same bits; the kernel, the product with its stack and
+     the rFFT route each replayed from a CUDA graph, beside the bound of
+     ``perfbench/bounds/spectra.py`` (the kernels line's ``spectra`` row).
 
  18. capture: the train chunk as a captured CUDA graph (``train/graph.py``,
      the path every training entry point on the card takes) against the
@@ -357,7 +365,18 @@ PRECISION_TOL = {"Q": 0.05, "aoa": 0.02, "sound": 0.15, "dist": 0.15}
 PRECISION_STEP_BATCH = 64
 DFT_PROBE_ITERS = 5
 DFT_PROBE_TOL = {"dft_f32": 1e-5, "dft_f32_flat": 1e-5, "dft_tf32": 2e-3,
-                 "dft_bf16_operands": 2e-3, "dft_bf16": 5e-3}
+                 "dft_bf16_operands": 2e-3, "dft_bf16": 5e-3,
+                 "kernel": 1.5e-6}
+# and spectra.cu's forms against the plain product (ops/spectra.py) at A's
+# and D's rows (tests/test_torch_port_spectra.py's criteria): its f32
+# spectra within SPECTRA_F32_TOL of the spectrum's maximum (twice the
+# product's own measured error against a float64 rFFT); its bf16 operand
+# the bf16 rounding of its own f32 spectra, each element within both
+# roundings plus that tolerance of the product's stack, and different
+# from it in at most SPECTRA_DIFF_SHARE of the elements
+SPECTRA_BATCHES = (512, 64)
+SPECTRA_F32_TOL = 3e-6
+SPECTRA_DIFF_SHARE = 0.01
 # phase 18: the captured train chunk (train/graph.py) against the eager
 # one from one state and seed. The synthesised batches and the generator
 # state are held bit for bit (the same Philox offsets step for step); the
@@ -1798,7 +1817,7 @@ def stream_hop_ms(torch, model, batch: int, reps: int = 10) -> float:
 
 def phase_stream(torch, rng):
     """stream_apply against the forward on the same crop (dual, single,
-    fixed-Q; f32 and bf16 with the matmul DFT), the churn check, per-hop
+    fixed-Q; f32, and bf16 with the spectra kernel), the churn check, per-hop
     times. Returns the launch counts of the streamed runs alone."""
     from biear_tpu_torch.kernels import LAUNCHES
     from biear_tpu_torch.models import BiEARConfig, build_active
@@ -1821,8 +1840,7 @@ def phase_stream(torch, rng):
                               ("single", False, "bfloat16"),
                               ("dual", True, "bfloat16")):
         cfg = BiEARConfig(**GEOMETRY[mode], fixed_frontend_q=fixed,
-                          fb_w_dtype=dt,
-                          dft_mode="matmul" if dt == "bfloat16" else "fft")
+                          fb_w_dtype=dt)
         model = build_active(cfg, seed=0)
         perturb_controllers(torch, model, seed=1)
         label = f"{mode}{' fixed-Q' if fixed else ''} {dt}"
@@ -3469,7 +3487,8 @@ def precision_state(torch) -> tuple:
 def phase_precision(torch, rng):
     """17: the bench's line at a reduced window count, every
     MATMUL_PRECISION name's forward and the reduced names' train steps,
-    the DFT probe. Returns the bench path's launch counts."""
+    the DFT probe and the spectra kernel against the product. Returns the
+    bench path's launch counts and the spectra kernel's check."""
     from biear_tpu_torch import bench, probe_dft_matmul
     from biear_tpu_torch.device import (PRECISION_NAMES, TF32_NAMES,
                                         matmul_precision)
@@ -3567,8 +3586,110 @@ def phase_precision(torch, rng):
             f"{probe['ms_per_call_rfft']['median']!r})")
         if not worst <= tol:
             raise RuntimeError(f"DFT probe {name}: {acc}")
+    spectra = spectra_check(torch)
     log(f"phase 17 in {time.perf_counter() - t0:.1f} s")
-    return launches
+    return launches, spectra
+
+
+def spectra_check(torch) -> dict:
+    """17 (d): spectra.cu against the plain product at SPECTRA_BATCHES
+    rows an ear of the bf16 flagship's frames (seeded uniform waveforms,
+    read in place at hop 842): ``rhs_cuda``, the form every bf16 adaptive
+    path launches, against ``rhs_plain(dft_plain(...))`` (the ears' rows,
+    the planes, the ones plane, the layout), the f32 spectra and
+    AuralNet's magnitudes alone against the product; times in a graph
+    beside the bound. One row a form and shape."""
+    from perfbench import bounds
+    from perfbench.bounds import spectra as spectra_bound
+    from biear_tpu_torch.models import BiEARConfig
+    from biear_tpu_torch.models import frontend as fe
+    from biear_tpu_torch.ops import spectra as sp
+
+    cfg = BiEARConfig(fb_w_dtype="bfloat16")
+    c = fe.device_constants(cfg, "cuda")
+    n_fft = cfg.n_fft
+    worst = lambda got, want, scale: max(
+        float((a.double() - b.double()).abs().max())
+        for a, b in zip(got, want)) / scale
+
+    def timing(row, kernel, plain, library, rows, T, form):
+        row.update(ms=graph_ms(torch, kernel), plain_ms=graph_ms(torch, plain),
+                   library_ms=graph_ms(torch, library))
+        t, by = bounds.least_time(
+            *spectra_bound.spectra(rows, T, c["win"], n_fft // 2 + 1, form),
+            H100_F32_FLOPS, H100_HBM_BYTES_S)
+        row.update(bound_ms=t * 1e3, bound_by=by,
+                   bound_share=t * 1e3 / row["ms"])
+
+    out = {}
+    for B in SPECTRA_BATCHES:
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        wav = torch.rand((2, B, cfg.fs), generator=gen, device="cuda") * 2 - 1
+        fL, fR = (fe.frames_of(cfg, w, c) for w in wav)
+        T = fL.shape[1]
+        rfft = lambda f: (lambda X: (X.abs(), X.real, X.imag))(
+            torch.fft.rfft(f * c["window"], n=n_fft))
+        with torch.no_grad():
+            plain = [sp.dft_plain(f, c["dft_re"], c["dft_im"])
+                     for f in (fL, fR)]
+            own = [sp.spectra_cuda(f, c, n_fft) for f in (fL, fR)]
+            mags = [sp.spectra_cuda(f, c, n_fft, mag_only=True)[0]
+                    for f in (fL, fR)]
+            rhs = sp.rhs_cuda(fL, fR, c, n_fft)
+            again = sp.rhs_cuda(fL, fR, c, n_fft)
+            want = sp.rhs_plain(*plain, True)
+        scale = max(float(p[0].max()) for p in plain)
+        label = f"rhs {2 * B}x{T}x{n_fft // 2 + 1}"
+        if rhs.shape != want.shape or rhs.stride() != want.stride() \
+                or rhs.dtype != torch.bfloat16:
+            raise RuntimeError(f"spectra {label}: {tuple(rhs.shape)} "
+                               f"{rhs.stride()} {rhs.dtype}, want "
+                               f"{tuple(want.shape)} {want.stride()}")
+        f32 = max(worst(o, p, scale) for o, p in zip(own, plain))
+        mag = max(worst((m,), (p[0],), scale) for m, p in zip(mags, plain))
+        if not (f32 <= SPECTRA_F32_TOL and mag <= SPECTRA_F32_TOL):
+            raise RuntimeError(f"spectra B={B}: f32 spectra {f32!r}, "
+                               f"magnitudes {mag!r} of the maximum, limit "
+                               f"{SPECTRA_F32_TOL}")
+        if not all(torch.equal(m, o[0]) for m, o in zip(mags, own)):
+            raise RuntimeError(f"spectra B={B}: the magnitudes alone differ "
+                               "from the f32 form's")
+        if not torch.equal(rhs, sp.rhs_plain(*own, True)):
+            raise RuntimeError(f"spectra {label}: not the bf16 rounding of "
+                               "the kernel's own f32 spectra")
+        if not torch.equal(rhs, again):
+            raise RuntimeError(f"spectra {label}: two launches differ")
+        diff = (rhs.float() - want.float()).abs()
+        allowed = (want.float().abs() * (2.0 ** -7 + 2.0 ** -14)
+                   + SPECTRA_F32_TOL * scale)
+        over = int((diff > allowed).sum())
+        share = float((diff > 0).float().mean())
+        if over or not share <= SPECTRA_DIFF_SHARE:
+            raise RuntimeError(f"spectra {label}: {over} elements beyond "
+                               f"the allowance, {share!r} of them differ "
+                               f"(limit {SPECTRA_DIFF_SHARE})")
+        row = {"share_of_rel_limit": max(f32, mag) / SPECTRA_F32_TOL,
+               "worst_rel": {"f32_spectra": f32, "mag": mag},
+               "bf16_differing_share": share}
+        timing(row, lambda: sp.rhs_cuda(fL, fR, c, n_fft),
+               lambda: sp.rhs_plain(*[sp.dft_plain(f, c["dft_re"],
+                                                   c["dft_im"])
+                                      for f in (fL, fR)], True),
+               lambda: sp.rhs_plain(rfft(fL), rfft(fR), True),
+               2 * B, T, "rhs")
+        out[label] = row
+        log(f"spectra {label}: {json.dumps(row)}")
+        # AuralNet's form, one ear's magnitudes
+        label = f"mag {B}x{T}x{n_fft // 2 + 1}"
+        row = {"share_of_rel_limit": mag / SPECTRA_F32_TOL,
+               "worst_rel": {"mag": mag}}
+        timing(row, lambda: sp.spectra_cuda(fL, c, n_fft, mag_only=True),
+               lambda: sp.dft_plain(fL, c["dft_re"], c["dft_im"])[0],
+               lambda: torch.fft.rfft(fL * c["window"], n=n_fft).abs(),
+               B, T, "mag")
+        out[label] = row
+        log(f"spectra {label}: {json.dumps(row)}")
+    return out
 
 
 def recording_batch_fn(torch, fn, steps: int):
@@ -4209,7 +4330,7 @@ def main() -> int:
         launches.update(phase_dataset(torch, work, runs["auralnet"],
                                       runner_metrics))
     launches.update(phase_distributed(torch, smi))
-    launches["bench"] = phase_precision(torch, rng)
+    launches["bench"], spectra_check = phase_precision(torch, rng)
     launches.update(phase_capture(torch, synth, smi))
     launches.update(phase_infer_capture(torch, rng, synth, smi))
     log(f"all phases passed in {time.perf_counter() - t0:.1f} s (build "
@@ -4285,7 +4406,15 @@ def main() -> int:
                            "frontend's scan body, the controller step)",
                     launches=total("controller_fwd"),
                     launches_by_path=by_path("controller_fwd"),
-                    **cfwd_check)]
+                    **cfwd_check),
+               dict(name="spectra", route="cuda",
+                    source="biear_tpu_torch/kernels/spectra.cu",
+                    replaces=None,
+                    status="the port's own: replaces no TPU kernel (the "
+                           "counterpart of XLA's windowed-DFT product of "
+                           "the frame spectra)",
+                    launches=total("spectra"),
+                    launches_by_path=by_path("spectra"), **spectra_check)]
     # the dual entry of the reverse recurrence runs on the dual
     # frontend's bf16 training paths only: 19 a step, none under f32, the
     # single controller, AuralNet, the passive family or any path without
@@ -4324,6 +4453,23 @@ def main() -> int:
                                f"{path}")
         if path in ("serve", "stream") and not got:
             raise RuntimeError(f"controller_fwd never launched on {path}")
+    # the frame spectra run as one launch wherever "auto" takes the DFT
+    # product's contract on the card, the bf16 policy: once a step for
+    # both ears of an adaptive frontend, once an ear in AuralNet, once a
+    # served batch or stream hop; never under the f32 policy
+    steps = {"train_bf16": TRAIN_STEPS + WARMUP_STEPS,
+             "train_single_bf16": SINGLE_TRAIN_STEPS + WARMUP_STEPS}
+    for path, got in by_path("spectra").items():
+        if any(w in path for w in ("f32", "float32")) and got:
+            raise RuntimeError(f"spectra launched on {path}")
+        if path in steps and got != steps[path]:
+            raise RuntimeError(f"spectra launched {got} times on {path}")
+        if path == "auralnet_train_bf16" and got > 2 * (TRAIN_STEPS
+                                                        + WARMUP_STEPS):
+            raise RuntimeError(f"spectra launched {got} times on {path}")
+        if path in ("serve", "serve_single", "stream",
+                    "auralnet_train_bf16") and not got:
+            raise RuntimeError(f"spectra never launched on {path}")
     # the filterbank kernel serves every bf16 adaptive forward (19 a
     # forward, 1 a stream hop) and nothing of AuralNet or the passive family
     for path, got in by_path("fb_gauss").items():

@@ -441,11 +441,11 @@ def test_kernel_sources_ship_with_the_package():
     each source names the TPU kernel it replaces, or (the recorder's
     mark, the optimizer's fused update, the adaptive filterbank's build
     and contraction, the dual frontend's reverse recurrence and its
-    controller step) that it replaces none."""
+    controller step, the frame spectra) that it replaces none."""
     from biear_tpu_torch.kernels import build
     assert build.KERNELS == ("cc_lags", "gather_windows", "gather_mix_kb",
                              "trace_mark", "fused_update", "fb_gauss",
-                             "frontend_bwd", "controller_fwd")
+                             "frontend_bwd", "controller_fwd", "spectra")
     assert build.BUILD_DIR.startswith(PORT)
     assert "sm_90a" in " ".join(build.CUDA_FLAGS)
     gitignore = open(os.path.join(REPO, ".gitignore")).read().split()
@@ -458,7 +458,7 @@ def test_kernel_sources_ship_with_the_package():
             assert lib not in src.lower()
         assert ("replaces no tpu kernel"
                 if name in ("trace_mark", "fused_update", "fb_gauss",
-                            "frontend_bwd", "controller_fwd")
+                            "frontend_bwd", "controller_fwd", "spectra")
                 else "replaces the tpu kernel") in src.lower()
         assert 'extern "C"' in src
         assert build.build_dir(name).startswith(build.BUILD_DIR)
